@@ -10,7 +10,9 @@ Phases, each fatal on failure (nothing is caught):
 3. kernels — K1 (segment), K2 (causal prefill / chunk prefill, int8) and K3 (decode,
    int8, strided prefix view) against their plain torch versions at the main path's
    shapes, in bf16: max abs error against a stated tolerance, and both times (CUDA
-   events, median of several runs).
+   events, timed in turns: plain, kernel, kernel, plain, ...; median of 10 each after
+   2 warm-ups each; L2 flushed before every call), per call and on the device (CUDA
+   graph replays).
 4. parity  — the tiny config in fp32 on the card through every kernel against the
    CPU plain path (which the CPU tests hold against the JAX package): logits and
    greedy tokens.
@@ -19,8 +21,19 @@ Phases, each fatal on failure (nothing is caught):
    (batch 8, greedy, 64 + 64 new tokens, forced bbox so stage 2 always runs), then
    one run_episodes(reuse_cache=True) batch. Every record must be written and every
    kernel launched by that run.
+6. decode-variants — the decode-attention entry points beside the serving path, at
+   the reference's shapes. First the checks: K4 (paged decode) against its plain
+   version and K3 at (B=32|64, T=4096, 30 % live, pages 64|256); P1 (stream probe)
+   and P2 (big-product decode) against their plain versions at B=32, T=1536. Then,
+   with the counts at 0, the entry points' own runs (zoomearth_tpu_torch.scripts
+   probe_attn.measure and paged_256_test.measure_cell, which time each kernel beside
+   its plain version in turns) and a paged decode loop whose full row must be left
+   unchanged; K4, P1 and P2 must each have launched. A count is of launches through
+   the wrapper: calls captured into a CUDA graph are not counted, nor its replays.
 
-The second-to-last line is {"kernels": [...]}; the last is the device contract line.
+The second-to-last line is {"kernels": [...]} (every case of each kernel with its
+time, its plain version's and their ratio; launches from the path that runs it); the
+last is the device contract line.
 """
 
 from __future__ import annotations
@@ -41,25 +54,44 @@ def log(msg):
     print(msg, flush=True)
 
 
-def median_ms(fn, runs=10, warmup=2):
+def timing_row(label, check, times, plain_times, card, gb_per_s=None):
+    """Log one kernel case (its check against its plain version, with the tolerance,
+    and both times from time_in_turns: per call, device) and return it as a row of
+    the kernels line."""
+    (ms, dev), (plain_ms, plain_dev) = times, plain_times
+    rate = f" ({gb_per_s:.1f} GB/s on device time)" if gb_per_s else ""
+    log(f"  {label}: max_abs_err {check['max_abs_err']:.3e} (tol {check['tol']}) | per call: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, kernel/plain {ms / plain_ms:.3f} | device: kernel {dev:.4f} ms{rate}, plain "
+        f"{plain_dev:.4f} ms, kernel/plain {dev / plain_dev:.3f} | L2 cold | {card}")
+    row = {"case": label, **check, "ms": ms, "plain_ms": plain_ms, "kernel_over_plain": ms / plain_ms,
+           "device_ms": dev, "plain_device_ms": plain_dev, "device_kernel_over_plain": dev / plain_dev}
+    if gb_per_s:
+        row["gb_per_s_device"] = gb_per_s
+    return row
+
+
+def case(label, kernel, plain, card, nbytes=None):
+    """One kernel case: its output against its plain version's (max abs error within
+    TOL_BF16), then both timed in turns, L2 cold: per call (CUDA events around each
+    call) and on the device (CUDA graph replays)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+    from zoomearth_tpu_torch.scripts.timing import time_in_turns
+
+    out = kernel()
+    ref = plain()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not (err <= TOL_BF16 and bool(torch.isfinite(out.float()).all())):
+        raise AssertionError(f"{label}: kernel disagrees with its plain version ({err})")
+    (plain_ms, ms), (plain_dev, dev) = time_in_turns([plain, kernel])
+    return timing_row(label, {"max_abs_err": err, "tol": TOL_BF16}, (ms, dev), (plain_ms, plain_dev), card,
+                      nbytes and nbytes / dev / 1e6)
 
 
 def check_kernels(card):
-    """Each kernel against its plain version at main-path shapes; returns the JSON rows."""
+    """Each kernel against its plain version at main-path shapes; returns
+    {kernel name: (source, TPU kernel it replaces, [case rows])}."""
     import torch
 
     from zoomearth_tpu_torch.ops import flash_attention as K1
@@ -79,21 +111,7 @@ def check_kernels(card):
     def scales(*shape):
         return (torch.rand(shape, generator=g, device=dev) * 0.02 + 0.005).to(bf)
 
-    def case(label, kernel, plain, nbytes=None):
-        out = kernel()
-        ref = plain()
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        ms, plain_ms = median_ms(kernel), median_ms(plain, runs=5, warmup=1)
-        ok = err <= TOL_BF16 and bool(torch.isfinite(out.float()).all())
-        rate = f" ({nbytes / ms / 1e6:.1f} GB/s of live cache)" if nbytes else ""
-        log(f"  {label}: max_abs_err {err:.3e} (tol {TOL_BF16}) | kernel {ms:.4f} ms{rate} | "
-            f"plain {plain_ms:.4f} ms | {card}")
-        if not ok:
-            raise AssertionError(f"{label}: kernel disagrees with its plain version ({err})")
-        return err, ms, plain_ms
-
-    rows = []
+    rows = {}
     # K1: stage-1 ViT full-attention block at B=8: 7 full 512 px images (1296 patches),
     # one partial image and a pad tail, S = 10368, H = 16, D = 80; q/k/v are strided
     # views of the fused qkv projection, as the ViT passes them.
@@ -104,9 +122,9 @@ def check_kernels(card):
     qkv = randn(S, 3, H, D)
     q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
     e1 = case("K1 segment S=10368 H=16 D=80", lambda: K1.segment_attention_cuda(q, k, v, seg),
-              lambda: K1.flash_segment_attention_plain(q, k, v, seg))
-    rows.append(("flash_segment_attention", "zoomearth_tpu_torch/csrc/flash_segment.cu",
-                 "zoomearth_tpu/ops/flash_attention.py:92", [e1]))
+              lambda: K1.flash_segment_attention_plain(q, k, v, seg), card)
+    rows["flash_segment_attention"] = ("zoomearth_tpu_torch/csrc/flash_segment.cu",
+                                       "zoomearth_tpu/ops/flash_attention.py:92", [e1])
 
     # K2 (a): stage-1 prefill, B=8, S=512 into the 4096-row cache, kv_len = S.
     B, S, H, Hkv, D, T = 8, 512, 16, 2, 128, 4096
@@ -115,7 +133,7 @@ def check_kernels(card):
     pos = torch.arange(S, device=dev)[None].expand(B, S)
     kvl = torch.full((B,), S, device=dev)
     e2a = case("K2 prefill B=8 S=512 T=4096", lambda: K2.causal_attention_cuda(q2, kc, vc, pos, kvl),
-               lambda: K2.flash_causal_attention_plain(q2, kc, vc, pos, kvl))
+               lambda: K2.flash_causal_attention_plain(q2, kc, vc, pos, kvl), card)
     # K2 (b): stage-2 chunk prefill, B=8, S=384 into T=1280 at ragged keep_len.
     S, T = 384, 1280
     q3 = randn(B, S, H, D)
@@ -124,12 +142,12 @@ def check_kernels(card):
     pos2 = keep[:, None] + torch.arange(S, device=dev)[None]
     kvl2 = keep + S
     e2b = case("K2 chunk B=8 S=384 T=1280 ragged keep", lambda: K2.causal_attention_cuda(q3, kc2, vc2, pos2, kvl2),
-               lambda: K2.flash_causal_attention_plain(q3, kc2, vc2, pos2, kvl2))
+               lambda: K2.flash_causal_attention_plain(q3, kc2, vc2, pos2, kvl2), card)
     k8, v8, ks, vs = int8(B, Hkv, T, D), int8(B, Hkv, T, D), scales(B, Hkv, T), scales(B, Hkv, T)
     e2c = case("K2 chunk int8 K/V", lambda: K2.causal_attention_cuda(q3, k8, v8, pos2, kvl2, ks, vs),
-               lambda: K2.flash_causal_attention_plain(q3, k8, v8, pos2, kvl2, ks, vs))
-    rows.append(("flash_causal_attention", "zoomearth_tpu_torch/csrc/flash_causal.cu",
-                 "zoomearth_tpu/ops/flash_causal.py:124", [e2a, e2b, e2c]))
+               lambda: K2.flash_causal_attention_plain(q3, k8, v8, pos2, kvl2, ks, vs), card)
+    rows["flash_causal_attention"] = ("zoomearth_tpu_torch/csrc/flash_causal.cu",
+                                      "zoomearth_tpu/ops/flash_causal.py:124", [e2a, e2b, e2c])
 
     # K3: decode, B=8, ragged kv_len including 1 and T.
     qd = randn(B, 1, H, D)
@@ -138,22 +156,22 @@ def check_kernels(card):
         kd, vd = randn(B, Hkv, T, D), randn(B, Hkv, T, D)
         kvl3 = torch.tensor([1, T, T // 2, 700, 1000, T - 1, 3, 512], device=dev)
         e3.append(case(f"K3 decode B=8 T={T}", lambda: K3.decode_attention_cuda(qd, kd, vd, kvl3),
-                       lambda: K3.flash_decode_attention_plain(qd, kd, vd, kvl3),
+                       lambda: K3.flash_decode_attention_plain(qd, kd, vd, kvl3), card,
                        K3.read_bytes(kvl3, T, Hkv, D, 2)))
         if T == 1280:
             k8, v8, ks, vs = int8(B, Hkv, T, D), int8(B, Hkv, T, D), scales(B, Hkv, T), scales(B, Hkv, T)
             e3.append(case("K3 decode int8 T=1280", lambda: K3.decode_attention_cuda(qd, k8, v8, kvl3, ks, vs),
-                           lambda: K3.flash_decode_attention_plain(qd, k8, v8, kvl3, ks, vs),
+                           lambda: K3.flash_decode_attention_plain(qd, k8, v8, kvl3, ks, vs), card,
                            K3.read_bytes(kvl3, T, Hkv, D, 1)))
     # the decoder's [:, :, :attend_len] prefix view of the 4096-row cache, read in place
     kv_view, vv_view = kd[:, :, :1280], vd[:, :, :1280]
     kvl4 = torch.tensor([1, 1280, 640, 700, 1000, 1279, 3, 512], device=dev)
     e3.append(case("K3 decode strided attend_len=1280 view of T=4096",
                    lambda: K3.decode_attention_cuda(qd, kv_view, vv_view, kvl4),
-                   lambda: K3.flash_decode_attention_plain(qd, kv_view, vv_view, kvl4),
+                   lambda: K3.flash_decode_attention_plain(qd, kv_view, vv_view, kvl4), card,
                    K3.read_bytes(kvl4, 1280, Hkv, D, 2)))
-    rows.append(("flash_decode_attention", "zoomearth_tpu_torch/csrc/flash_decode.cu",
-                 "zoomearth_tpu/ops/flash_decode.py:94", e3))
+    rows["flash_decode_attention"] = ("zoomearth_tpu_torch/csrc/flash_decode.cu",
+                                      "zoomearth_tpu/ops/flash_decode.py:94", e3)
     return rows
 
 
@@ -242,6 +260,7 @@ def run_slice(card):
         out_path = os.path.join(out_dir, "smoke0.jsonl")
         for k in kernels:
             k.launches = 0
+        base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         run_inference(generator, processor, samples, out_path, batch_size=BATCH, gen=gen, stage2_gen=gen,
@@ -253,7 +272,7 @@ def run_slice(card):
                                 [tiles[s.image_name] for s in samples[:BATCH]], gen=gen, reuse_cache=True)
         torch.cuda.synchronize()
         phases["run_episodes_reuse_s"] = time.time() - t0
-        launches = [k.launches for k in kernels]
+        launches = {k.__name__: k.launches for k in kernels}
         peak = torch.cuda.max_memory_allocated()
         records = [json.loads(line) for line in open(out_path)]
 
@@ -261,7 +280,7 @@ def run_slice(card):
     assert sorted(r["question_id"] for r in records) == sorted(s.question_id for s in samples)
     assert all(r["error"] is False and isinstance(r["stage1"], str) for r in records)
     assert len(reuse) == BATCH and all(not r.error for r in reuse)
-    assert all(n > 0 for n in launches), f"kernel launches on the main path: {launches}"
+    assert all(n > 0 for n in launches.values()), f"kernel launches on the main path: {launches}"
     # a direct look at the model's output on one stage-1 batch: finite fp32 logits
     batch = EP._stage1_inputs(generator, processor, [s.question for s in samples[:BATCH]],
                               [tiles[s.image_name] for s in samples[:BATCH]], 512)[-1]
@@ -274,9 +293,132 @@ def run_slice(card):
         f"win_mode={batch.vision_meta['win_mode']}")
     for name, secs in phases.items():
         log(f"  {name}: {secs:.2f} s | {card}")
-    log(f"  peak memory allocated: {peak / 2**30:.2f} GiB | {card}")
-    log(f"  main-path kernel launches: K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}")
-    return launches
+    log(f"  peak memory allocated: {peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB of it allocated before the run) "
+        f"| {card}")
+    log(f"  main-path kernel launches: {launches}")
+    return {"flash_segment_attention": launches["segment_attention_cuda"],
+            "flash_causal_attention": launches["causal_attention_cuda"],
+            "flash_decode_attention": launches["decode_attention_cuda"]}
+
+
+def cell_label(B, T, live):
+    return f"B={B} T={T} {int(live * 100)}% live"
+
+
+def check_decode_variants():
+    """K4, P1 and P2 against their plain versions, K4 also against K3 and P2 against
+    fp32 decode attention, on the entry points' own inputs. Returns {kernel name:
+    {case: checks}}, the cases named as the entry points name them."""
+    import numpy as np
+    import torch
+
+    from zoomearth_tpu_torch.ops import flash_decode as K3
+    from zoomearth_tpu_torch.ops import paged_attention as K4
+    from zoomearth_tpu_torch.scripts import paged_256_test as PT
+    from zoomearth_tpu_torch.scripts import probe_attn as PA
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    dev = torch.device("cuda")
+    checks = {"paged_decode_attention": {}, "stream_only": {}, "bigmm_decode_attention": {}}
+    for B, T, live in PT.CELLS:
+        rng = np.random.default_rng(PT.SEED)  # as measure_cell draws them
+        q, k, v, lens = PT.cell_inputs(rng, B, T, live, dev)
+        k3 = K3.decode_attention_cuda(q, k, v, lens)[:, 0]
+        for page in PT.PAGES:
+            kpool, vpool, bt = PT.to_pages(k, v, page, rng)
+            out = K4.paged_decode_cuda(q[:, 0], kpool, vpool, bt, lens, page_size=page)
+            ref = K4.paged_decode_attention_plain(q[:, 0], kpool, vpool, bt, lens, page_size=page)
+            c = {"max_abs_err": err(out, ref), "max_abs_err_vs_k3": err(out, k3), "tol": TOL_BF16}
+            log(f"  {cell_label(B, T, live)} K4 paged[{page}]: vs its plain version {c['max_abs_err']:.3e}, vs K3 "
+                f"on the same k/v {c['max_abs_err_vs_k3']:.3e} (tol {TOL_BF16})")
+            assert max(c["max_abs_err"], c["max_abs_err_vs_k3"]) <= TOL_BF16, "K4 disagrees"
+            assert bool(torch.isfinite(out.float()).all()), "K4 gave non-finite values"
+            checks["paged_decode_attention"][f"{cell_label(B, T, live)} K4 paged[{page}]"] = c
+        del k, v, kpool, vpool
+
+    q, k, v, lens = PA.probe_inputs(dev)
+    full = torch.full_like(lens, k.shape[2])
+    (o, s), (r, rs) = PA.stream_only_cuda(q, k, v, full), PA.stream_only_plain(q, k, v, full)
+    # fp32 sums in another order, then one bf16 rounding: one bf16 step (2^-7 of the
+    # value) apart at most; the element sum to 1e-6 of the summed magnitudes
+    step_ok = bool(((o.float() - r.float()).abs() <= 2.0**-7 * r.float().abs() + 1e-5).all())
+    mass = (k.double().abs() + v.double().abs()).reshape(rs.shape[0], -1).sum(1)
+    sum_err = ((s.double() - rs.double()).abs() / mass).max().item()
+    checks["stream_only"]["P1 stream_only (copy floor) len=T"] = {
+        "max_abs_err": err(o, r), "sum_err_over_mass": sum_err,
+        "tol": "2^-7 of the value; sum 1e-6 of the summed magnitudes"}
+    log(f"  P1: out vs its plain version {err(o, r):.3e} (tol one bf16 step, 2^-7 of the value), sum {sum_err:.3e} "
+        f"of the summed magnitudes (tol 1e-6)")
+    assert step_ok and sum_err <= 1e-6, "P1 disagrees with its plain version"
+    for label, ln in (("len600-1200", lens), ("len=T", full)):
+        out = PA.bigmm_decode_cuda(q, k, v, ln, chunk=PA.CHUNK)
+        c = {"max_abs_err": err(out, PA.bigmm_decode_attention_plain(q, k, v, ln, chunk=PA.CHUNK)),
+             "max_abs_err_vs_decode_attention": err(out, K3.flash_decode_attention_plain(q, k, v, ln)),
+             "tol": TOL_BF16}
+        log(f"  P2 {label}: vs its plain version {c['max_abs_err']:.3e}, vs fp32 decode attention "
+            f"{c['max_abs_err_vs_decode_attention']:.3e} (tol {TOL_BF16})")
+        assert max(c["max_abs_err"], c["max_abs_err_vs_decode_attention"]) <= TOL_BF16, "P2 disagrees"
+        assert bool(torch.isfinite(out.float()).all()), "P2 gave non-finite values"
+        checks["bigmm_decode_attention"][f"P2 bigmm512 {label}"] = c
+    return checks
+
+
+def run_decode_variants(card, checks):
+    """The decode-attention entry points as a user runs them (probe_attn.measure,
+    paged_256_test.measure_cell at both cells) and a paged decode loop, with the
+    launch counts set to 0 just before and read just after. Their in-turns times of
+    K4, P1 and P2 beside their plain versions, with `checks`, make the kernels-line
+    rows; returns (rows as check_kernels returns them, launches by kernel name)."""
+    import torch
+
+    from zoomearth_tpu_torch.ops import paged_attention as K4
+    from zoomearth_tpu_torch.scripts import paged_256_test as PT
+    from zoomearth_tpu_torch.scripts import probe_attn as PA
+    from zoomearth_tpu_torch.scripts.timing import PLAIN
+
+    wrappers = {"paged_decode_attention": K4.paged_decode_cuda, "stream_only": PA.stream_only_cuda,
+                "bigmm_decode_attention": PA.bigmm_decode_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    q, k, v, lens = PA.probe_inputs(torch.device("cuda"))
+    times = PA.measure(q, k, v, lens)
+    del q, k, v
+    for name, (ms, dev, gbs) in times.items():
+        rate = f", {gbs:.1f} GB/s of cache read" if gbs else ""
+        log(f"  probe_attn {name}: {ms:.4f} ms/call, {ms * PA.LAYERS:.2f} ms/{PA.LAYERS}-layer | device "
+            f"{dev:.4f} ms/call, {dev * PA.LAYERS:.2f} ms/{PA.LAYERS}-layer{rate} | L2 cold | {card}")
+    for B, T, live in PT.CELLS:
+        cell, err = PT.measure_cell(B, T, live)
+        log(f"  paged_256_test {cell_label(B, T, live)}: K4 vs K3 max_abs_err {err:.3e}")
+        for name, (ms, dev, gbs) in cell.items():
+            rate = f", {gbs:.1f} GB/s of live cache read" if gbs else ""
+            log(f"    {name}: {ms * PT.LAYERS:.3f} ms/{PT.LAYERS}-layer step ({ms:.4f} ms/call) | device "
+                f"{dev * PT.LAYERS:.3f} ms/{PT.LAYERS}-layer step ({dev:.4f} ms/call{rate}) | L2 cold | {card}")
+            times[f"{cell_label(B, T, live)} {name}"] = (ms, dev, gbs)
+    err, unchanged, same = PT.decode_loop(torch.device("cuda"))
+    log(f"  paged decode loop: K4 vs K3 max_abs_err {err:.3e} (tol {TOL_BF16}); full row's pages unchanged: "
+        f"{unchanged}; pools equal the contiguous cache on live slots: {same}")
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    log(f"  decode-variants launches (eager; graph replays run the kernels without the wrappers): {launches}")
+    assert unchanged and same and err <= TOL_BF16, "paged decode loop failed"
+    assert all(n > 0 for n in launches.values()), f"decode-variant kernels not launched: {launches}"
+
+    log("  each kernel case against its plain version, from the runs above:")
+    sources = {"paged_decode_attention": ("zoomearth_tpu_torch/csrc/paged_decode.cu",
+                                          "zoomearth_tpu/ops/paged_attention.py:95"),
+               "stream_only": ("zoomearth_tpu_torch/csrc/probe_stream.cu", "scripts/probe_attn.py:43"),
+               "bigmm_decode_attention": ("zoomearth_tpu_torch/csrc/probe_bigmm.cu", "scripts/probe_attn.py:124")}
+    rows = {}
+    for name, cases in checks.items():
+        rows[name] = (*sources[name], [timing_row(label, check, times[label][:2], times[label + PLAIN][:2], card,
+                                                  times[label][2]) for label, check in cases.items()])
+    gbs = rows["stream_only"][2][0]["gb_per_s_device"]
+    if not gbs < 1000 * PA.HBM_TBPS:
+        raise AssertionError(f"P1 reports {gbs:.1f} GB/s, above the card's {PA.HBM_TBPS} TB/s: its loads were removed")
+    return rows, launches
 
 
 def main() -> int:
@@ -303,19 +445,23 @@ def main() -> int:
               if "spill stores" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
     log(f"  ptxas: {len(spills)} kernel instantiations with spills" + (f", e.g. {spills[0]}" if spills else ""))
 
-    log("[kernels] bf16, main-path shapes, kernel vs plain version")
+    log("[kernels] bf16, main-path shapes, kernel vs plain version, timed in turns")
     rows = check_kernels(card)
     log("[parity] tiny config fp32: card kernels vs CPU plain path")
     check_tiny_parity()
     log("[slice] Qwen2.5-VL-3B bf16, run_inference + run_episodes(reuse_cache=True)")
     launches = run_slice(card)
+    log("[decode-variants] K4 / P1 / P2 checked at the reference's shapes, then the entry points' runs")
+    variant_rows, variant_launches = run_decode_variants(card, check_decode_variants())
+    rows.update(variant_rows)
+    launches.update(variant_launches)
 
     kernels = []
-    for (name, source, replaces, errs), n in zip(rows, launches):
+    for name, (source, replaces, cases) in rows.items():
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": n, "max_abs_err": max(e[0] for e in errs),
-            "ms": errs[0][1], "plain_ms": errs[0][2],
+            "launches": launches[name], "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": cases[0]["ms"], "plain_ms": cases[0]["plain_ms"], "cases": cases,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

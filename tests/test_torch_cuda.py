@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels (K1, K2, K3) against their plain torch versions, on the
-card. Marked `cuda`: every test skips where torch.cuda.is_available() is false.
+"""Hand-written CUDA kernels (K1, K2, K3, K4, P1, P2) against their plain torch
+versions, on the card. Marked `cuda`: every test skips where torch.cuda.is_available() is false.
 
 On a machine with an NVIDIA GPU and nvcc:  python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -15,6 +15,8 @@ from zoomearth_tpu.config import VLMConfig
 from zoomearth_tpu_torch.ops import flash_attention as K1
 from zoomearth_tpu_torch.ops import flash_causal as K2
 from zoomearth_tpu_torch.ops import flash_decode as K3
+from zoomearth_tpu_torch.ops import paged_attention as K4
+from zoomearth_tpu_torch.scripts import probe_attn as P
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -163,3 +165,141 @@ def test_tiny_generator_on_card_matches_cpu(dev):
     assert K1.segment_attention_cuda.launches > n[0]
     assert K2.causal_attention_cuda.launches > n[1]
     assert K3.decode_attention_cuda.launches > n[2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,D,page,max_pages", [(3, 4, 2, 32, 16, 5), (4, 16, 2, 128, 64, 6),
+                                                      (2, 16, 2, 128, 256, 3)])
+def test_k4_matches_plain(dev, dtype, B, H, Hkv, D, page, max_pages):
+    P_ = B * max_pages + 2
+    q = _randn((B, H, D), dev, dtype, 20)
+    kpool = _randn((P_, Hkv, page, D), dev, dtype, 21)
+    vpool = _randn((P_, Hkv, page, D), dev, dtype, 22)
+    g = torch.Generator().manual_seed(23)
+    bt = torch.randperm(P_, generator=g)[: B * max_pages].reshape(B, max_pages).to(torch.int32)
+    lens = torch.randint(1, max_pages * page + 1, (B,), generator=g)
+    lens[0] = 0  # no live slot: 0, as the Pallas kernel gives
+    lens[-1] = max_pages * page
+    n = K4.page_counts(lens, page)
+    for b in range(B):  # entries past a row's pages are garbage ids the kernel must never read
+        bt[b, n[b]:] = torch.tensor([2**30, -5] * max_pages, dtype=torch.int32)[: max_pages - n[b]]
+    bt, lens = bt.to(dev), lens.to(dev)
+    n0 = K4.paged_decode_cuda.launches
+    out = K4.paged_decode_cuda(q, kpool, vpool, bt, lens, page_size=page)
+    torch.cuda.synchronize()
+    assert K4.paged_decode_cuda.launches == n0 + 1
+    ref = K4.paged_decode_attention_plain(q, kpool, vpool, bt, lens, page_size=page)
+    assert _err(out, ref) <= TOL[dtype]
+    assert bool((out[0] == 0).all())
+
+
+def test_append_to_pages_on_card_drops_at_capacity(dev):
+    """A write at capacity is dropped without indexing page P (a device-side assert)."""
+    P_, Hkv, page, D = 6, 2, 8, 16
+    kpool = _randn((P_, Hkv, page, D), dev, torch.float32, 24)
+    vpool = _randn((P_, Hkv, page, D), dev, torch.float32, 25)
+    k0, v0 = kpool.clone(), vpool.clone()
+    bt = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=dev)
+    ones = torch.ones((2, Hkv, D), device=dev)
+    K4.append_to_pages(kpool, vpool, ones, ones, bt, torch.tensor([2 * page, 3], device=dev), page_size=page)
+    torch.cuda.synchronize()
+    assert torch.equal(kpool[:2], k0[:2]) and torch.equal(vpool[:2], v0[:2])
+    assert bool((kpool[2, :, 3] == 1).all()) and torch.equal(kpool[3:], k0[3:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,D,T,chunk,rb", [(8, 16, 2, 128, 1536, 512, 4), (4, 8, 2, 32, 96, 16, 2),
+                                                  (4, 4, 1, 16, 200, 40, 4)])
+def test_p1_matches_plain(dev, dtype, B, H, Hkv, D, T, chunk, rb):
+    q = _randn((B, 1, H, D), dev, dtype, 26)
+    k = _randn((B, Hkv, T, D), dev, dtype, 27)
+    v = _randn((B, Hkv, T, D), dev, dtype, 28)
+    n0 = P.stream_only_cuda.launches
+    out, sums = P.stream_only_cuda(q, k, v, chunk=chunk, rb=rb)
+    torch.cuda.synchronize()
+    assert P.stream_only_cuda.launches == n0 + 1
+    ref, ref_sums = P.stream_only_plain(q, k, v, chunk=chunk, rb=rb)
+    # fp32 sums in another order, then one rounding to the output dtype
+    step = 2.0**-7 if dtype == torch.bfloat16 else 1e-6
+    assert bool(((out.float() - ref.float()).abs() <= step * ref.float().abs() + 1e-5).all())
+    mass = (k.double().abs() + v.double().abs()).reshape(B // rb, -1).sum(1)
+    assert bool(((sums.double() - ref_sums.double()).abs() <= 1e-6 * mass).all())
+
+
+@pytest.mark.parametrize("B,lens", [(4, (1, 1536, 700, 0)), (6, (513, 2, 1024, 1536, 40, 1100)),
+                                    (5, (300, 1, 1536, 0, 999))])
+@pytest.mark.parametrize("q_rank", [3, 4])
+def test_p2_matches_plain(dev, B, lens, q_rank):
+    H, Hkv, D, T = 16, 2, 128, 1536
+    q = _randn((B, 1, H, D), dev, torch.bfloat16, 29)
+    q = q if q_rank == 4 else q[:, 0]
+    k = _randn((B, Hkv, T, D), dev, torch.bfloat16, 30)
+    v = _randn((B, Hkv, T, D), dev, torch.bfloat16, 31)
+    lens = torch.tensor(lens, device=dev)
+    n0 = P.bigmm_decode_cuda.launches
+    out = P.bigmm_decode_cuda(q, k, v, lens, chunk=512)
+    torch.cuda.synchronize()
+    assert P.bigmm_decode_cuda.launches == n0 + 1
+    assert out.shape == q.shape
+    ref = P.bigmm_decode_attention_plain(q, k, v, lens, chunk=512)
+    assert _err(out, ref) <= 2e-2
+    with pytest.raises(TypeError):
+        P.bigmm_decode_cuda(q.float(), k.float(), v.float(), lens, chunk=512)
+
+
+def test_cuda_dispatch_of_k4_p1_p2_never_takes_the_plain_version(dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version reached with CUDA tensors")
+
+    monkeypatch.setattr(K4, "paged_decode_attention_plain", boom)
+    monkeypatch.setattr(P, "stream_only_plain", boom)
+    monkeypatch.setattr(P, "bigmm_decode_attention_plain", boom)
+    q = _randn((4, 1, 16, 128), dev, torch.bfloat16, 32)
+    kv = _randn((4, 2, 64, 128), dev, torch.bfloat16, 33)
+    lens = torch.tensor([1, 64, 30, 2], device=dev)
+    pool = kv.reshape(4, 2, 4, 16, 128).transpose(1, 2).reshape(16, 2, 16, 128).contiguous()
+    bt = torch.arange(16, dtype=torch.int32, device=dev).reshape(4, 4)
+    K4.paged_decode_attention(q[:, 0], pool, pool, bt, lens, page_size=16)
+    P.stream_only(q, kv, kv, chunk=16, rb=4)
+    P.bigmm_decode_attention(q, kv, kv, lens, chunk=16)
+    torch.cuda.synchronize()
+
+
+def test_p2_refuses_a_misaligned_view(dev):
+    """P2 loads q, k and v as 16-byte vectors: a contiguous view off a 16-byte
+    boundary is refused before launch."""
+    H, Hkv, D, T = 16, 2, 128, 512
+    q = _randn((4, H, D), dev, torch.bfloat16, 34)
+    kv = _randn((4 * Hkv * T * D + 1,), dev, torch.bfloat16, 35)
+    k = kv[1:].view(4, Hkv, T, D)  # contiguous, 2 bytes past the allocation's start
+    lens = torch.tensor([1, 512, 30, 200], device=dev)
+    n0 = P.bigmm_decode_cuda.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        P.bigmm_decode_cuda(q, k, k, lens, chunk=512)
+    qv = _randn((4 * H * D + 1,), dev, torch.bfloat16, 36)[1:].view(4, H, D)
+    aligned = kv[: 4 * Hkv * T * D].view(4, Hkv, T, D)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        P.bigmm_decode_cuda(qv, aligned, aligned, lens, chunk=512)
+    assert P.bigmm_decode_cuda.launches == n0
+
+
+def test_calls_captured_into_a_cuda_graph_are_not_counted(dev):
+    """Capture launches nothing, so the count stays; the replays run the kernels."""
+    q = _randn((4, 1, 16, 128), dev, torch.bfloat16, 37)
+    kv = _randn((4, 2, 512, 128), dev, torch.bfloat16, 38)
+    lens = torch.tensor([1, 512, 300, 77], device=dev)
+    wrappers = (K3.decode_attention_cuda, P.bigmm_decode_cuda, P.stream_only_cuda)
+    fns = (lambda: K3.decode_attention_cuda(q, kv, kv, lens), lambda: P.bigmm_decode_cuda(q, kv, kv, lens, chunk=512),
+           lambda: P.stream_only_cuda(q, kv, kv, chunk=128, rb=4)[0])
+    eager = [f() for f in fns]  # warm-up outside capture: counted
+    torch.cuda.synchronize()
+    n0 = [w.launches for w in wrappers]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [f() for f in fns]
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == n0
+    for out, ref in zip(outs, eager):  # P1 adds with atomics: in any order, one bf16 step apart
+        assert bool(((out.float() - ref.float()).abs() <= 2.0**-7 * ref.float().abs() + 1e-5).all())

@@ -66,4 +66,115 @@ __device__ __forceinline__ float group4_sum(float x) {
   return x;
 }
 
+// ---------------------------------------------------------------------------
+// Single-token GQA decode for one (row, kv head), shared by K3 (slot cache) and
+// K4 (page pool): a block of DEC_WARPS warps takes the live slots in turn, one slot
+// per warp; lane j owns dims j + 32 i. Each k/v row is read once and serves the G
+// query heads of its kv head, each with its own fp32 online softmax. The warps'
+// states merge through shared memory at the end (decode_finish).
+// ---------------------------------------------------------------------------
+constexpr int DEC_WARPS = 8;
+constexpr int DEC_MAXG = 8;  // query heads per kv head
+
+template <int DPL>
+struct DecodeSmem {
+  float m[DEC_WARPS][DEC_MAXG];
+  float l[DEC_WARPS][DEC_MAXG];
+  float a[DEC_WARPS][DEC_MAXG][DPL * 32];
+};
+
+template <int DPL>
+struct DecodeState {
+  float qv[DEC_MAXG][DPL], acc[DEC_MAXG][DPL], m[DEC_MAXG], l[DEC_MAXG];
+};
+
+// q points at query head 0 of this kv head's group; heads are q_sh apart.
+template <int DPL, typename QT>
+__device__ __forceinline__ void decode_init(DecodeState<DPL>& st, const QT* q, long long q_sh,
+                                            int D, int G, float scale, int lane) {
+#pragma unroll
+  for (int g = 0; g < DEC_MAXG; ++g) {
+    st.m[g] = NEG_INF;
+    st.l[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      const int d = lane + 32 * i;
+      st.acc[g][i] = 0.f;
+      st.qv[g][i] = 0.f;
+      if (g < G && d < D) st.qv[g][i] = to_f(q[(long long)g * q_sh + d]) * scale;
+    }
+  }
+}
+
+// One slot: k row kr and v row vr (unit stride on D); kscale/vscale are the int8
+// per-token scales (1 otherwise).
+template <int DPL, typename KT>
+__device__ __forceinline__ void decode_step(DecodeState<DPL>& st, const KT* kr, const KT* vr,
+                                            float kscale, float vscale, int D, int G, int lane) {
+  constexpr bool QUANT = sizeof(KT) == 1;
+  float kk[DPL], vv[DPL];
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) {
+    const int d = lane + 32 * i;
+    kk[i] = 0.f;
+    vv[i] = 0.f;
+    if (d < D) {
+      kk[i] = to_f(kr[d]);
+      vv[i] = to_f(vr[d]);
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < DEC_MAXG; ++g) {
+    if (g < G) {
+      float part = 0.f;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) part = fmaf(st.qv[g][i], kk[i], part);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+      const float s = QUANT ? part * kscale : part;
+      const float m_new = fmaxf(st.m[g], s);
+      const float alpha = expf(st.m[g] - m_new);
+      const float p = expf(s - m_new);
+      st.l[g] = st.l[g] * alpha + p;
+      const float pv = QUANT ? p * vscale : p;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) st.acc[g][i] = fmaf(pv, vv[i], st.acc[g][i] * alpha);
+      st.m[g] = m_new;
+    }
+  }
+}
+
+// Merge the warps' partial softmax states and write the (G, D) outputs at out
+// (contiguous). A warp that saw no slot holds m = NEG_INF, l = 0 and adds nothing;
+// a block with no live slot writes 0.
+template <int DPL, typename QT>
+__device__ __forceinline__ void decode_finish(const DecodeState<DPL>& st, DecodeSmem<DPL>& sm,
+                                              QT* out, int D, int G, int warp, int lane) {
+#pragma unroll
+  for (int g = 0; g < DEC_MAXG; ++g) {
+    if (lane == 0) {
+      sm.m[warp][g] = st.m[g];
+      sm.l[warp][g] = st.l[g];
+    }
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) sm.a[warp][g][lane + 32 * i] = st.acc[g][i];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
+    const int g = idx / D;
+    const int d = idx - g * D;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) M = fmaxf(M, sm.m[w][g]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) {
+      const float f = expf(sm.m[w][g] - M);
+      L = fmaf(sm.l[w][g], f, L);
+      A = fmaf(sm.a[w][g][d], f, A);
+    }
+    out[idx] = from_f<QT>(A / fmaxf(L, 1e-30f));
+  }
+}
+
 }  // namespace zt

@@ -23,9 +23,6 @@
 
 namespace zt {
 
-constexpr int DEC_WARPS = 8;
-constexpr int DEC_MAXG = 8;  // query heads per kv head
-
 template <int DPL, typename QT, typename KT>
 __global__ void __launch_bounds__(DEC_WARPS * 32)
     flash_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
@@ -36,10 +33,7 @@ __global__ void __launch_bounds__(DEC_WARPS * 32)
                         long long v_sb, long long v_sh, long long v_st, long long sc_sb,
                         long long sc_sh, float scale) {
   constexpr bool QUANT = sizeof(KT) == 1;
-  constexpr int DL = DPL * 32;  // dims covered by one warp
-  __shared__ float m_s[DEC_WARPS][DEC_MAXG];
-  __shared__ float l_s[DEC_WARPS][DEC_MAXG];
-  __shared__ float a_s[DEC_WARPS][DEC_MAXG][DL];
+  __shared__ DecodeSmem<DPL> sm;
 
   const int b = blockIdx.x / Hkv;
   const int kh = blockIdx.x % Hkv;
@@ -47,90 +41,20 @@ __global__ void __launch_bounds__(DEC_WARPS * 32)
   const int lane = threadIdx.x % 32;
   const int klen = min(max(kv_len[b], 0), T);
 
-  float qv[DEC_MAXG][DPL], acc[DEC_MAXG][DPL], m[DEC_MAXG], l[DEC_MAXG];
-#pragma unroll
-  for (int g = 0; g < DEC_MAXG; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      acc[g][i] = 0.f;
-      qv[g][i] = 0.f;
-      if (g < G && d < D) {
-        qv[g][i] = to_f(q[(long long)b * q_sb + (long long)(kh * G + g) * q_sh + d]) * scale;
-      }
-    }
-  }
-
+  DecodeState<DPL> st;
+  decode_init(st, q + (long long)b * q_sb + (long long)(kh * G) * q_sh, q_sh, D, G, scale, lane);
   const KT* kb = k + (long long)b * k_sb + (long long)kh * k_sh;
   const KT* vb = v + (long long)b * v_sb + (long long)kh * v_sh;
   for (int t = warp; t < klen; t += DEC_WARPS) {
-    float kk[DPL], vv[DPL];
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      kk[i] = 0.f;
-      vv[i] = 0.f;
-      if (d < D) {
-        kk[i] = to_f(kb[(long long)t * k_st + d]);
-        vv[i] = to_f(vb[(long long)t * v_st + d]);
-      }
-    }
     float kscale = 1.f, vscale = 1.f;
     if (QUANT) {
       const long long o = (long long)b * sc_sb + (long long)kh * sc_sh + t;
       kscale = ksc[o];
       vscale = vsc[o];
     }
-#pragma unroll
-    for (int g = 0; g < DEC_MAXG; ++g) {
-      if (g < G) {
-        float part = 0.f;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) part = fmaf(qv[g][i], kk[i], part);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-        const float s = QUANT ? part * kscale : part;
-        const float m_new = fmaxf(m[g], s);
-        const float alpha = expf(m[g] - m_new);
-        const float p = expf(s - m_new);
-        l[g] = l[g] * alpha + p;
-        const float pv = QUANT ? p * vscale : p;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[g][i] = fmaf(pv, vv[i], acc[g][i] * alpha);
-        m[g] = m_new;
-      }
-    }
+    decode_step(st, kb + (long long)t * k_st, vb + (long long)t * v_st, kscale, vscale, D, G, lane);
   }
-
-  // merge the warps' partial softmax states
-#pragma unroll
-  for (int g = 0; g < DEC_MAXG; ++g) {
-    if (lane == 0) {
-      m_s[warp][g] = m[g];
-      l_s[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) a_s[warp][g][lane + 32 * i] = acc[g][i];
-  }
-  __syncthreads();
-  const int H = Hkv * G;
-  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
-    const int g = idx / D;
-    const int d = idx - g * D;
-    float M = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < DEC_WARPS; ++w) M = fmaxf(M, m_s[w][g]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int w = 0; w < DEC_WARPS; ++w) {
-      const float f = expf(m_s[w][g] - M);
-      L = fmaf(l_s[w][g], f, L);
-      A = fmaf(a_s[w][g][d], f, A);
-    }
-    out[((long long)b * H + kh * G + g) * D + d] = from_f<QT>(A / fmaxf(L, 1e-30f));
-  }
+  decode_finish(st, sm, out + ((long long)b * Hkv * G + kh * G) * D, D, G, warp, lane);
 }
 
 template <int DPL, typename QT, typename KT>

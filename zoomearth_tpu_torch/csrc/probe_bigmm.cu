@@ -1,0 +1,234 @@
+// P2: decode attention as one big product per chunk, hand-written for Hopper.
+//
+// Replaces scripts/probe_attn.py::bigmm_decode_attention (Pallas, pallas_call at
+// :155, body _bigmm_kernel at :65).
+//
+// Semantics: single-token GQA decode attention, q (B, H, D) against (B, Hkv, T, D)
+// bf16 caches. Rows go in blocks of RB (the largest of 4, 2, 1 dividing B); the N =
+// RB * Hkv (row, kv head) pairs of a row block are walked chunk by chunk up to ncb,
+// the largest per-row count max(ceil(kv_len / chunk), 1) of the block; later chunks
+// are skipped. Per chunk, one product of all N * chunk keys against all N * G queries
+// is taken and only its diagonal blocks (each pair's keys against its own queries)
+// are kept, masked by kv_len, and fed to an fp32 online softmax; then the block-
+// diagonal P (bf16, as the reference casts it) multiplies v. A row with kv_len = 0
+// sees every logit masked and returns the mean of v over the ncb * chunk slots its
+// row block walks, as the Pallas kernel does. Needs T % chunk == 0 (the reference
+// silently drops the tail; the wrapper raises), G = 8, D = 128, N <= 8.
+//
+// What bounds it on the card: bytes, as for K3, and here also the grid: one block
+// per row block is B / RB blocks (8 at the probe's B = 32) on 132 SMs, the TPU grid's
+// sequential chunk axis being a loop inside the block.
+//
+// What the design does about it, and what it keeps of the reference's: warp n owns
+// pair n. It stages 16 keys of k and v at a time in shared memory with 16-byte
+// loads, then multiplies them against every 16-row tile of the block's N * G query
+// rows on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate): the whole
+// big product, of which it keeps the tile half that holds its own pair's queries.
+// P @ V is an mma over the diagonal block only, with the other pair's half of the
+// 16-row tile zero. This is the design the probe measures against K3, not a faster
+// one: the big product does N / 2 times the necessary multiplies.
+#include "common.cuh"
+
+namespace zt {
+
+constexpr int BIG_G = 8;    // query heads per kv head: one n8 tile per pair
+constexpr int BIG_D = 128;  // head dim
+constexpr int BIG_MAXN = 8; // pairs per row block (warps per block)
+constexpr int BIG_KT = 16;  // keys per staged tile (the mma's k)
+constexpr int BIG_LD = BIG_D + 8;  // padded shared-memory row (conflict-free ldmatrix)
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d = a (16x16 bf16, row) * b (16x8 bf16, col) + c, fp32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1, const float (&c)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]),
+        "f"(c[2]), "f"(c[3]));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&h);
+}
+
+// q (B, H, D) contiguous; k/v (B, Hkv, T, D) contiguous; kv_len (B,) clipped to
+// [0, T]; ncb (B / RB,) chunks each row block walks; out (B, H, D).
+// Dynamic shared memory: the block's query rows padded to MT * 16, then per warp a
+// staged k tile and v tile.
+__global__ void __launch_bounds__(BIG_MAXN * 32)
+    bigmm_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_len,
+                 const int* __restrict__ ncb, __nv_bfloat16* __restrict__ out, int Hkv, int T,
+                 int RB, int chunk, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int N = RB * Hkv;
+  const int MT = (N + 1) / 2;  // 16-row query tiles
+  const int H = Hkv * BIG_G;
+  const int bb = blockIdx.x;
+  const int n = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int half = n % 2, own = n / 2;  // this pair's rows: half `half` of query tile `own`
+  const int r = n / Hkv, kh = n % Hkv;
+  const int b = bb * RB + r;
+  const int len = kv_len[b];
+
+  __nv_bfloat16* qs = smem;
+  __nv_bfloat16* ks = qs + MT * 16 * BIG_LD + n * 2 * BIG_KT * BIG_LD;
+  __nv_bfloat16* vs = ks + BIG_KT * BIG_LD;
+
+  // the block's N * G query rows are contiguous in q; pad rows are zero
+  constexpr int VPR = BIG_D / 8;  // 16-byte vectors per row
+  const uint4* qsrc = reinterpret_cast<const uint4*>(q + (long long)bb * RB * H * BIG_D);
+  for (int i = threadIdx.x; i < MT * 16 * VPR; i += blockDim.x) {
+    const int row = i / VPR, vec = i % VPR;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (row < N * BIG_G) val = qsrc[i];
+    *reinterpret_cast<uint4*>(qs + row * BIG_LD + vec * 8) = val;
+  }
+  __syncthreads();
+
+  const long long base = ((long long)b * Hkv + kh) * T * BIG_D;
+  const uint4* kg = reinterpret_cast<const uint4*>(k + base);
+  const uint4* vg = reinterpret_cast<const uint4*>(v + base);
+  float m = NEG_INF, l = 0.f;  // softmax state of query row g of this pair
+  float acc[BIG_D / 8][2];     // its output columns j * 8 + 2t + {0, 1}
+#pragma unroll
+  for (int j = 0; j < BIG_D / 8; ++j) acc[j][0] = acc[j][1] = 0.f;
+
+  const int nc = ncb[bb];
+  for (int c = 0; c < nc; ++c) {
+    for (int key0 = c * chunk; key0 < (c + 1) * chunk; key0 += BIG_KT) {
+      __syncwarp();
+#pragma unroll
+      for (int u = 0; u < BIG_KT * VPR / 32; ++u) {
+        const int i = lane + 32 * u;
+        const int row = i / VPR, vec = i % VPR;
+        const long long o = (long long)(key0 + row) * VPR + vec;
+        *reinterpret_cast<uint4*>(ks + row * BIG_LD + vec * 8) = kg[o];
+        *reinterpret_cast<uint4*>(vs + row * BIG_LD + vec * 8) = vg[o];
+      }
+      __syncwarp();
+
+      // k as the product's B operand (d x keys), both 8-key halves, every 16-d step
+      unsigned kb[BIG_D / 16][4];
+#pragma unroll
+      for (int s = 0; s < BIG_D / 16; ++s) {
+        const int mi = lane / 8;
+        ldmatrix_x4(kb[s], ks + ((mi / 2) * 8 + lane % 8) * BIG_LD + s * 16 + (mi % 2) * 8);
+      }
+      // the big product: every 16-row query tile against these 16 keys; keep our tile
+      float lo[4] = {0.f, 0.f, 0.f, 0.f}, hi[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int mt = 0; mt < MT; ++mt) {
+        float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int s = 0; s < BIG_D / 16; ++s) {
+          unsigned a[4];
+          ldmatrix_x4(a, qs + (mt * 16 + lane % 16) * BIG_LD + s * 16 + (lane / 16) * 8);
+          mma_bf16(c0, a, kb[s][0], kb[s][1], c0);
+          mma_bf16(c1, a, kb[s][2], kb[s][3], c1);
+        }
+        if (mt == own) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            lo[e] = c0[e];
+            hi[e] = c1[e];
+          }
+        }
+      }
+      // the diagonal block: query row g of this pair against keys 2t, 2t+1, 8+2t, 9+2t
+      float sc[4] = {lo[2 * half], lo[2 * half + 1], hi[2 * half], hi[2 * half + 1]};
+      const int kpos[4] = {key0 + 2 * t, key0 + 2 * t + 1, key0 + 8 + 2 * t, key0 + 9 + 2 * t};
+      float mx = NEG_INF;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[e] = kpos[e] < len ? sc[e] * scale : NEG_INF;
+        mx = fmaxf(mx, sc[e]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m, mx);
+      const float alpha = expf(m - m_new);
+      float p[4], ps = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = expf(sc[e] - m_new);
+        ps += p[e];
+      }
+      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+      ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+      l = l * alpha + ps;
+      m = m_new;
+
+      // block-diagonal P @ V: P's other half rows are zero
+      const unsigned p01 = pack_bf16(p[0], p[1]), p23 = pack_bf16(p[2], p[3]);
+      const unsigned a[4] = {half ? 0u : p01, half ? p01 : 0u, half ? 0u : p23, half ? p23 : 0u};
+#pragma unroll
+      for (int j = 0; j < BIG_D / 8; j += 2) {
+        unsigned vb[4];
+        const int mi = lane / 8;
+        ldmatrix_x4_trans(vb, vs + ((mi % 2) * 8 + lane % 8) * BIG_LD + (j + mi / 2) * 8);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          float cin[4] = {0.f, 0.f, 0.f, 0.f};
+          cin[2 * half] = acc[j + jj][0] * alpha;
+          cin[2 * half + 1] = acc[j + jj][1] * alpha;
+          float d[4];
+          mma_bf16(d, a, vb[2 * jj], vb[2 * jj + 1], cin);
+          acc[j + jj][0] = d[2 * half];
+          acc[j + jj][1] = d[2 * half + 1];
+        }
+      }
+    }
+  }
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  __nv_bfloat16* o = out + ((long long)b * H + kh * BIG_G + g) * BIG_D;
+#pragma unroll
+  for (int j = 0; j < BIG_D / 8; ++j) {
+    *reinterpret_cast<__nv_bfloat162*>(o + j * 8 + 2 * t) =
+        __floats2bfloat162_rn(acc[j][0] * inv, acc[j][1] * inv);
+  }
+}
+
+}  // namespace zt
+
+// q (B, H, D), k/v (B, Hkv, T, D) bf16, contiguous and 16-byte aligned; kv_len (B,)
+// int32 clipped to [0, T]; ncb (B / RB,) int32; out (B, H, D) bf16.
+extern "C" int zt_probe_bigmm(const void* q, const void* k, const void* v, const int* kv_len,
+                              const int* ncb, void* out, int B, int H, int Hkv, int T, int D,
+                              int RB, int chunk, float scale, void* stream) {
+  using namespace zt;
+  cudaGetLastError();
+  if (Hkv <= 0 || H != Hkv * BIG_G || D != BIG_D || RB <= 0 || B % RB != 0 ||
+      RB * Hkv > BIG_MAXN || chunk <= 0 || chunk % BIG_KT != 0 || T % chunk != 0)
+    return ZT_UNSUPPORTED;
+  const int N = RB * Hkv;
+  const size_t smem = ((size_t)(N + 1) / 2 * 16 + (size_t)N * 2 * BIG_KT) * BIG_LD * 2;
+  cudaError_t e = cudaFuncSetAttribute(bigmm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bigmm_kernel<<<B / RB, N * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), kv_len, ncb, static_cast<__nv_bfloat16*>(out), Hkv, T,
+      RB, chunk, scale);
+  return static_cast<int>(cudaGetLastError());
+}

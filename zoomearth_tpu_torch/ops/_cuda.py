@@ -1,7 +1,8 @@
 """Build and load the hand-written Hopper kernels (csrc/*.cu) as one shared library.
 
-`nvcc -gencode arch=compute_90a,code=sm_90a` compiles the sources into a shared
-library with a plain C interface, which ctypes loads. The build runs at first use,
+`nvcc -gencode arch=compute_90a,code=sm_90a` compiles each source to an object, one
+`nvcc` per source all started together, and links them into a shared library with
+a plain C interface, which ctypes loads. The build runs at first use,
 into `<repo>/build/kernels/` (listed in .gitignore), under a file name keyed by a
 hash of the sources and flags, so a checkout builds its own kernels and an edit
 rebuilds them. Nothing here runs at import time: the CPU tests import every module
@@ -22,10 +23,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("common.cuh", "flash_segment.cu", "flash_causal.cu", "flash_decode.cu")
+SOURCES = ("common.cuh", "flash_segment.cu", "flash_causal.cu", "flash_decode.cu", "paged_decode.cu",
+           "probe_stream.cu", "probe_bigmm.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -50,23 +52,32 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless this exact source set is already built. The
-    library is written to a temporary name and renamed into place, so concurrent
-    builders never load a half-written file. The compiler's output (ptxas register
-    and spill counts) is kept beside it as `<library>.log`."""
+    """Compile the kernels unless this exact source set is already built: one nvcc
+    per source, all at once, then one link. The library is linked in a temporary
+    directory and renamed into place, so concurrent builders never load a
+    half-written file. The compiler's output (ptxas register and spill counts) is
+    kept beside it as `<library>.log`."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(CSRC / s) for s in SOURCES if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    Path(str(path) + ".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, path)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        units = [s for s in SOURCES if s.endswith(".cu")]
+        objs = [os.path.join(work, s[:-3] + ".o") for s in units]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for s, o in zip(units, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [f"{s} ({p.returncode}):\n{log[-4000:]}" for s, p, log in zip(units, procs, logs) if p.returncode]
+        tmp = os.path.join(work, "lib.so")
+        if not failed:
+            link = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode:
+                failed.append(f"link ({link.returncode}):\n{logs[-1][-4000:]}")
+        Path(str(path) + ".log").write_text("".join(logs))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        os.replace(tmp, path)
     return path
 
 
@@ -75,6 +86,9 @@ _SIGNATURES = {
     "zt_flash_segment": [_P] * 7 + [_I] * 3 + [_L] * 6 + [_F, _I, _P],
     "zt_flash_causal": [_P] * 8 + [_I] * 6 + [_L] * 11 + [_F, _I, _I, _P],
     "zt_flash_decode": [_P] * 7 + [_I] * 5 + [_L] * 10 + [_F, _I, _I, _P],
+    "zt_paged_decode": [_P] * 7 + [_I] * 5 + [_L] * 4 + [_F, _I, _P],
+    "zt_probe_stream": [_P] * 5 + [_I] * 7 + [_I, _I, _P],
+    "zt_probe_bigmm": [_P] * 6 + [_I] * 7 + [_F, _P],
 }
 
 
@@ -98,6 +112,14 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         msg = lib().zt_error_string(rc).decode()
         raise RuntimeError(f"{name}: launch failed with code {rc}: {msg}")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches` for the kernel it has just launched. A call made
+    while a CUDA graph is being captured launches nothing (the graph's replays run the
+    kernel without passing through the wrapper), so it is not counted."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
 
 
 def ptr(t) -> ctypes.c_void_p:

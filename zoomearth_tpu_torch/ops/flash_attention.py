@@ -60,7 +60,7 @@ def segment_attention_cuda(q, k, v, seg):
         D**-0.5, code, _cuda.stream(q.device),
     )
     _cuda.check(rc, name)
-    segment_attention_cuda.launches += 1
+    _cuda.count_launch(segment_attention_cuda)
     return out
 
 

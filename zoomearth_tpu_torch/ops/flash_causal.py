@@ -79,7 +79,7 @@ def causal_attention_cuda(q, k, v, positions, kv_len, ks=None, vs=None):
         D**-0.5, qc, kc, _cuda.stream(q.device),
     )
     _cuda.check(rc, name)
-    causal_attention_cuda.launches += 1
+    _cuda.count_launch(causal_attention_cuda)
     return out
 
 

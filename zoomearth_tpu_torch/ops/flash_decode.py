@@ -90,7 +90,7 @@ def decode_attention_cuda(q, k_cache, v_cache, kv_len, ks=None, vs=None):
         D**-0.5, qc, kc, _cuda.stream(q3.device),
     )
     _cuda.check(rc, name)
-    decode_attention_cuda.launches += 1
+    _cuda.count_launch(decode_attention_cuda)
     return out[:, None] if had_s else out
 
 
