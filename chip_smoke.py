@@ -12,7 +12,9 @@ Phases, each fatal on failure (nothing is caught):
    shapes, in bf16: max abs error against a stated tolerance, and both times (CUDA
    events, timed in turns: plain, kernel, kernel, plain, ...; median of 10 each after
    2 warm-ups each; L2 flushed before every call), per call and on the device (CUDA
-   graph replays).
+   graph replays). Then K3, untimed, where its split pass and split merge have
+   edges: kv_len 0, rows ending either side of a split boundary, T not a whole
+   number of splits, bf16, int8 and the strided view.
 4. parity  — the tiny config in fp32 on the card through every kernel against the
    CPU plain path (which the CPU tests hold against the JAX package): logits and
    greedy tokens.
@@ -27,13 +29,16 @@ Phases, each fatal on failure (nothing is caught):
    and P2 (big-product decode) against their plain versions at B=32, T=1536. Then,
    with the counts at 0, the entry points' own runs (zoomearth_tpu_torch.scripts
    probe_attn.measure and paged_256_test.measure_cell, which time each kernel beside
-   its plain version in turns) and a paged decode loop whose full row must be left
-   unchanged; K4, P1 and P2 must each have launched. A count is of launches through
-   the wrapper: calls captured into a CUDA graph are not counted, nor its replays.
+   its plain version in turns; P1's rate is of the cache it reads, P2's of the cache
+   its row blocks walk, on device time) and a paged decode loop whose full row must
+   be left unchanged; K4, P1 and P2 must each have launched. A count is of launches
+   through the wrapper: calls captured into a CUDA graph are not counted, nor its
+   replays.
 
 The second-to-last line is {"kernels": [...]} (every case of each kernel with its
-time, its plain version's and their ratio; launches from the path that runs it); the
-last is the device contract line.
+time, its plain version's and their ratio, K3's untimed checks; launches from the
+path that runs it: calls of the wrapper, and each K3 or P2 call runs two kernels,
+its split pass and the split merge); the last is the device contract line.
 """
 
 from __future__ import annotations
@@ -90,8 +95,8 @@ def case(label, kernel, plain, card, nbytes=None):
 
 
 def check_kernels(card):
-    """Each kernel against its plain version at main-path shapes; returns
-    {kernel name: (source, TPU kernel it replaces, [case rows])}."""
+    """Each kernel against its plain version at main-path shapes; returns ({kernel
+    name: (source, TPU kernel it replaces, [case rows])}, K3's untimed checks)."""
     import torch
 
     from zoomearth_tpu_torch.ops import flash_attention as K1
@@ -172,7 +177,40 @@ def check_kernels(card):
                    K3.read_bytes(kvl4, 1280, Hkv, D, 2)))
     rows["flash_decode_attention"] = ("zoomearth_tpu_torch/csrc/flash_decode.cu",
                                       "zoomearth_tpu/ops/flash_decode.py:94", e3)
-    return rows
+    return rows, check_k3_edges(randn, int8, scales)
+
+
+def check_k3_edges(randn, int8, scales):
+    """K3 against its plain version, untimed, where its split pass and merge have
+    edges: rows with kv_len 0 (the mean of v over all T slots), rows ending one slot
+    before, at and after a split boundary, and a T that is not a whole number of
+    splits; bf16 and int8 K/V, and the strided prefix view. Returns the checks."""
+    import torch
+
+    from zoomearth_tpu_torch.ops import flash_decode as K3
+
+    B, H, Hkv, D, T = 8, 16, 2, 128, 1000
+    split = K3.split_plan(B, Hkv, T)[0]
+    assert T % split, (T, split)
+    dev = torch.device("cuda")
+    q = randn(B, 1, H, D)
+    kvl = torch.tensor([0, 1, split - 1, split, split + 1, 2 * split, T, 0], device=dev)
+    kf, vf = randn(B, Hkv, T + 536, D), randn(B, Hkv, T + 536, D)
+    k8, v8, ks, vs = int8(B, Hkv, T, D), int8(B, Hkv, T, D), scales(B, Hkv, T), scales(B, Hkv, T)
+    cases = {"bf16": (kf[:, :, :T].contiguous(), vf[:, :, :T].contiguous(), None, None),
+             "int8 K/V": (k8, v8, ks, vs), "strided view": (kf[:, :, :T], vf[:, :, :T], None, None)}
+    checks = []
+    for label, (k, v, a, b) in cases.items():
+        out = K3.decode_attention_cuda(q, k, v, kvl, a, b)
+        ref = K3.flash_decode_attention_plain(q, k, v, kvl, a, b)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        label = f"K3 {label} B=8 T={T} (split {split}), kv_len {kvl.tolist()}"
+        log(f"  {label}: max_abs_err {err:.3e} (tol {TOL_BF16}), untimed")
+        if not (err <= TOL_BF16 and bool(torch.isfinite(out.float()).all())):
+            raise AssertionError(f"{label}: kernel disagrees with its plain version ({err})")
+        checks.append({"case": label, "max_abs_err": err, "tol": TOL_BF16})
+    return checks
 
 
 def check_tiny_parity():
@@ -386,7 +424,7 @@ def run_decode_variants(card, checks):
     times = PA.measure(q, k, v, lens)
     del q, k, v
     for name, (ms, dev, gbs) in times.items():
-        rate = f", {gbs:.1f} GB/s of cache read" if gbs else ""
+        rate = f", {gbs:.1f} GB/s of cache {'walked' if name.startswith('P2') else 'read'}" if gbs else ""
         log(f"  probe_attn {name}: {ms:.4f} ms/call, {ms * PA.LAYERS:.2f} ms/{PA.LAYERS}-layer | device "
             f"{dev:.4f} ms/call, {dev * PA.LAYERS:.2f} ms/{PA.LAYERS}-layer{rate} | L2 cold | {card}")
     for B, T, live in PT.CELLS:
@@ -446,7 +484,7 @@ def main() -> int:
     log(f"  ptxas: {len(spills)} kernel instantiations with spills" + (f", e.g. {spills[0]}" if spills else ""))
 
     log("[kernels] bf16, main-path shapes, kernel vs plain version, timed in turns")
-    rows = check_kernels(card)
+    rows, k3_edges = check_kernels(card)
     log("[parity] tiny config fp32: card kernels vs CPU plain path")
     check_tiny_parity()
     log("[slice] Qwen2.5-VL-3B bf16, run_inference + run_episodes(reuse_cache=True)")
@@ -456,12 +494,15 @@ def main() -> int:
     rows.update(variant_rows)
     launches.update(variant_launches)
 
+    untimed = {"flash_decode_attention": k3_edges}
     kernels = []
     for name, (source, replaces, cases) in rows.items():
+        checks = untimed.get(name, [])
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "launches": launches[name], "max_abs_err": max(c["max_abs_err"] for c in cases + checks),
             "ms": cases[0]["ms"], "plain_ms": cases[0]["plain_ms"], "cases": cases,
+            **({"untimed_checks": checks} if checks else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels (K1, K2, K3, K4, P1, P2) against their plain torch
-versions, on the card. Marked `cuda`: every test skips where torch.cuda.is_available() is false.
+"""Hand-written CUDA kernels (K1, K2, K3, K4, P1, P2) and the split merge K3 and P2
+share against their plain torch versions, on the card. Marked `cuda`: every test skips where torch.cuda.is_available() is false.
 
 On a machine with an NVIDIA GPU and nvcc:  python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -122,6 +122,96 @@ def test_k3_int8(dev):
     ref = K3.flash_decode_attention_plain(q, k8, v8, kv_len, ks, vs)
     torch.cuda.synchronize()
     assert _err(out, ref) <= 2e-2
+
+
+def _k3_case(dev, case):
+    """(q, k, v, kv_len, ks, vs) for one K3 case: B = 6 rows whose kv_len holds 0 (no
+    live slot), 1, the split length - 1, + 0 and + 1, and T, with T not a multiple of
+    the split length (split_plan)."""
+    B, Hkv = 6, 2
+    H, D, T, dtype = {"fp32 D=16": (4, 16, 300, torch.float32), "bf16 D=128": (16, 128, 1000, torch.bfloat16),
+                      "int8": (16, 128, 1000, torch.bfloat16), "strided view": (16, 128, 1000, torch.bfloat16)}[case]
+    split = K3.split_plan(B, Hkv, T)[0]
+    assert T % split and split + 1 < T
+    kv_len = torch.tensor([0, 1, split - 1, split, split + 1, T], device=dev)
+    q = _randn((B, 1, H, D), dev, dtype, 40)
+    ks = vs = None
+    if case == "int8":
+        k = torch.randint(-127, 128, (B, Hkv, T, D), device=dev, dtype=torch.int8)
+        v = torch.randint(-127, 128, (B, Hkv, T, D), device=dev, dtype=torch.int8)
+        ks = torch.rand((B, Hkv, T), device=dev) * 0.02 + 0.005
+        vs = torch.rand((B, Hkv, T), device=dev) * 0.02 + 0.005
+    elif case == "strided view":  # the decoder's [:, :, :attend_len] view of a longer cache
+        k = _randn((B, Hkv, T + 536, D), dev, dtype, 41)[:, :, :T]
+        v = _randn((B, Hkv, T + 536, D), dev, dtype, 42)[:, :, :T]
+    else:
+        k, v = _randn((B, Hkv, T, D), dev, dtype, 41), _randn((B, Hkv, T, D), dev, dtype, 42)
+    return q, k, v, kv_len, ks, vs
+
+
+@pytest.mark.parametrize("case", ["fp32 D=16", "bf16 D=128", "int8", "strided view"])
+def test_k3_dead_rows_and_split_boundaries_match_plain(dev, case):
+    """kv_len == 0 gives the plain version's mean of v over all T slots; rows ending
+    one before, at and one after a split boundary, and a last split cut short by T."""
+    q, k, v, kv_len, ks, vs = _k3_case(dev, case)
+    n0 = K3.decode_attention_cuda.launches
+    out = K3.decode_attention_cuda(q, k, v, kv_len, ks, vs)
+    torch.cuda.synchronize()
+    assert K3.decode_attention_cuda.launches == n0 + 1
+    ref = K3.flash_decode_attention_plain(q, k, v, kv_len, ks, vs)
+    assert _err(out, ref) <= TOL[q.dtype]
+    vf = v.float() * (vs[..., None] if vs is not None else 1)
+    mean = vf.mean(2).repeat_interleave(q.shape[2] // k.shape[1], dim=1)  # (B, H, D)
+    assert _err(out[0, 0], mean[0]) <= TOL[q.dtype]
+
+
+def test_k3_refuses_a_misaligned_view(dev):
+    """K3 copies 16-byte vectors: a cache off a 16-byte boundary, or whose slot stride
+    is not a whole number of 16-byte vectors, is refused before launch."""
+    B, H, Hkv, D, T = 2, 16, 2, 128, 64
+    q = _randn((B, 1, H, D), dev, torch.bfloat16, 43)
+    flat = _randn((B * Hkv * T * D + 1,), dev, torch.bfloat16, 44)
+    off = flat[1:].view(B, Hkv, T, D)  # contiguous, 2 bytes past the allocation's start
+    wide = _randn((B, Hkv, T, D + 4), dev, torch.bfloat16, 45)[..., :D]  # slot stride 264 bytes
+    kv_len = torch.tensor([3, T], device=dev)
+    n0 = K3.decode_attention_cuda.launches
+    for k in (off, wide):
+        with pytest.raises(ValueError, match="16-byte"):
+            K3.decode_attention_cuda(q, k, k, kv_len)
+    assert K3.decode_attention_cuda.launches == n0
+
+
+@pytest.mark.parametrize("B,rb", [(8, 4), (6, 2), (3, 1)])
+def test_p2_row_blocks_with_zero_lengths_match_plain(dev, B, rb):
+    H, Hkv, D, T = 16, 2, 128, 1024
+    assert P.row_block(B) == rb
+    q = _randn((B, 1, H, D), dev, torch.bfloat16, 46)
+    k = _randn((B, Hkv, T, D), dev, torch.bfloat16, 47)
+    v = _randn((B, Hkv, T, D), dev, torch.bfloat16, 48)
+    lens = torch.tensor([0, 700, 1, 0, T, 63, 64, 65][:B], device=dev)
+    out = P.bigmm_decode_cuda(q, k, v, lens, chunk=256)
+    torch.cuda.synchronize()
+    assert _err(out, P.bigmm_decode_attention_plain(q, k, v, lens, chunk=256)) <= 2e-2
+
+
+def test_k3_and_p2_replay_in_a_cuda_graph_to_the_eager_result(dev):
+    """Capture fails on a host sync, so a wrapper that captures waits for nothing; the
+    replay gives the eager result bit for bit (no atomics in either kernel)."""
+    q, k, v, kv_len, ks, vs = _k3_case(dev, "int8")
+    qb, kb, vb, lb, _, _ = _k3_case(dev, "strided view")
+    kp, vp = kb[:, :, :768].contiguous(), vb[:, :, :768].contiguous()
+    lp = lb.clamp(max=768)
+    fns = (lambda: K3.decode_attention_cuda(q, k, v, kv_len, ks, vs), lambda: K3.decode_attention_cuda(qb, kb, vb, lb),
+           lambda: P.bigmm_decode_cuda(qb, kp, vp, lp, chunk=256))
+    eager = [f() for f in fns]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [f() for f in fns]
+    graph.replay()
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, eager):
+        assert torch.equal(out, ref)
 
 
 def test_cuda_dispatch_never_takes_the_plain_version(dev, monkeypatch):

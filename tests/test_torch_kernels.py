@@ -275,6 +275,96 @@ def test_k3_live_lengths_match_jax_wrapper_formula():
     assert K3.read_bytes(_t(kv_len), T, 2, 128, 2) == int(ref.sum()) * 2 * 128 * 2 * 2
 
 
+@pytest.mark.parametrize("pairs", [2, 16, 64])
+@pytest.mark.parametrize("T", [1, 16, 300, 1280, 4096])
+def test_k3_split_plan_covers_the_key_axis_exactly(T, pairs):
+    """Splits of a whole number of tiles, the last one reaching T and none wholly past
+    it: [0, T) is covered once."""
+    split, n = K3.split_plan(pairs // 2, 2, T)
+    assert split > 0 and split % K3.TILE == 0 and n >= 1
+    assert (n - 1) * split < T <= n * split
+    covered = np.zeros(T, np.int32)
+    for s in range(n):
+        covered[s * split:min((s + 1) * split, T)] += 1
+    assert np.all(covered == 1)
+
+
+def test_k3_split_plan_fills_the_card_on_the_main_path():
+    """B = 8, Hkv = 2 at T = 1280: at least two blocks for each of the H100's 132 SMs."""
+    split, n = K3.split_plan(8, 2, 1280)
+    assert 16 * n >= 2 * 132
+
+
+def _k3_two_phase(q, k, v, kv_len, split, ks=None, vs=None):
+    m, l, acc, walked = K3.decode_partials_plain(_t(q), _t(k), _t(v), _t(kv_len), split,
+                                                 None if ks is None else _t(ks), None if vs is None else _t(vs))
+    B, _, H, D = q.shape
+    return K3.merge_splits_plain(m, l, acc, walked).reshape(B, 1, H, D).numpy()
+
+
+@pytest.mark.parametrize("H,D,T", [(4, 16, 300), (16, 128, 1000)])
+def test_k3_split_pass_and_merge_match_decode_attention(H, D, T):
+    """K3's two passes in plain fp32 (the per-split softmax states, then the split
+    merge) give the JAX decoder's decode_attention, at kv_len 0 (the mean of v over
+    all T slots), 1, a split boundary and either side of it, and T, with T not a
+    multiple of the split length."""
+    B, Hkv = 6, 2
+    split = K3.split_plan(B, Hkv, T)[0]
+    assert T % split
+    q, k, v = _rand((B, 1, H, D), 40), _rand((B, Hkv, T, D), 41), _rand((B, Hkv, T, D), 42)
+    lens = np.array([0, 1, split - 1, split, split + 1, T], np.int32)
+    ref = np.asarray(JA.decode_attention(q, k, v, kv_len=lens))
+    np.testing.assert_allclose(_k3_two_phase(q, k, v, lens, split), ref, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(ref[0, 0], np.repeat(v[0].mean(1), H // Hkv, axis=0), atol=1e-6)
+
+
+def test_k3_split_pass_and_merge_match_decode_attention_int8():
+    B, H, Hkv, D, T = 6, 16, 2, 64, 500
+    rng = np.random.default_rng(43)
+    split = K3.split_plan(B, Hkv, T)[0]
+    q = _rand((B, 1, H, D), 44)
+    k8 = rng.integers(-127, 128, (B, Hkv, T, D)).astype(np.int8)
+    v8 = rng.integers(-127, 128, (B, Hkv, T, D)).astype(np.int8)
+    ks = rng.uniform(0.005, 0.03, (B, Hkv, T)).astype(np.float32)
+    vs = rng.uniform(0.005, 0.03, (B, Hkv, T)).astype(np.float32)
+    lens = np.array([0, 1, split - 1, split, split + 1, T], np.int32)
+    ref = np.asarray(JA.decode_attention_q8(q, k8, v8, ks, vs, kv_len=lens))
+    np.testing.assert_allclose(_k3_two_phase(q, k8, v8, lens, split, ks, vs), ref, atol=1e-6, rtol=0)
+    out = K3.flash_decode_attention(_t(q), _t(k8), _t(v8), _t(lens), _t(ks), _t(vs)).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-6, rtol=0)
+
+
+def test_k3_plain_zero_length_row_is_the_decoders_default_decode():
+    """kv_len == 0: the port's K3 (plain version here, the kernel on the card) gives
+    the JAX decoder's default decode, zoomearth_tpu/ops/attention.py::decode_attention:
+    every logit masked alike, so the mean of v over all T slots."""
+    B, H, Hkv, D, T = 4, 4, 2, 16, 1024
+    q, k, v = _rand((B, 1, H, D), 45), _rand((B, Hkv, T, D), 46), _rand((B, Hkv, T, D), 47)
+    lens = np.array([0, 400, 0, T], np.int32)
+    ref = np.asarray(JA.decode_attention(q, k, v, kv_len=lens))
+    out = K3.flash_decode_attention(_t(q), _t(k), _t(v), _t(lens)).numpy()
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=1e-4)
+    np.testing.assert_allclose(out[0, 0], np.repeat(v[0].mean(1), H // Hkv, axis=0), atol=1e-6)
+
+
+def test_k3_pallas_zero_length_row_differs_and_the_port_does_not_follow_it():
+    """The Pallas K3 (opt-in in the JAX decoder) walks its row block's ncb * 512 slots,
+    ncb the block's longest row in chunks, and gives a dead row the mean of v over
+    those: here the first 512 of T = 2048, because the block's longest row is 400.
+    That answer depends on which rows share a block, a result of the TPU tiling; the
+    port gives the decoder's default answer, the mean over all T, as pinned above."""
+    B, H, Hkv, D, T = 4, 4, 2, 16, 2048
+    q, k, v = _rand((B, 1, H, D), 48), _rand((B, Hkv, T, D), 49), _rand((B, Hkv, T, D), 50)
+    lens = np.array([0, 400, 100, 300], np.int32)
+    pallas = np.asarray(jax_flash_decode(q, k, v, lens, chunk=512, interpret=True))
+    np.testing.assert_allclose(pallas[0, 0], np.repeat(v[0, :, :512].mean(1), H // Hkv, axis=0), atol=1e-6)
+    np.testing.assert_allclose(pallas[1:], np.asarray(JA.decode_attention(q, k, v, kv_len=lens))[1:],
+                               atol=ATOL, rtol=1e-4)
+    port = K3.flash_decode_attention(_t(q), _t(k), _t(v), _t(lens)).numpy()
+    np.testing.assert_allclose(port[0, 0], np.repeat(v[0].mean(1), H // Hkv, axis=0), atol=1e-6)
+    assert np.abs(port[0] - pallas[0]).max() > 1e-2
+
+
 # ---------------------------------------------------------------------------
 # Plain ops the model calls directly, dispatch, sampling
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from zoomearth_tpu_torch.ops import _cuda
+from zoomearth_tpu_torch.ops.flash_decode import merge_splits_plain
 from zoomearth_tpu_torch.scripts import probe_attn as P
 from zoomearth_tpu_torch.scripts.timing import PLAIN, in_turns, medians_in_turns
 
@@ -126,6 +127,27 @@ def test_p2_zero_length_row_follows_the_pallas_kernel():
     np.testing.assert_allclose(out, ref, atol=ATOL, rtol=1e-4)
     mean = v[1, :, :48].mean(1)  # (Hkv, D)
     np.testing.assert_allclose(out[1, 0], np.repeat(mean, H // Hkv, axis=0), atol=1e-5)
+
+
+@pytest.mark.parametrize("B,lens,chunk,split", [
+    (4, (5, 0, 40, 16), 16, 16),  # RB = 4, a dead row; the block walks 3 chunks
+    (6, (0, 17, 64, 2, 0, 0), 16, 32),  # RB = 2; the last block holds only dead rows
+    (5, (0, 1, 48, 30, 7), 32, 16),  # RB = 1: a dead row walks one chunk alone
+])
+def test_p2_split_pass_and_merge_match_the_plain_version(B, lens, chunk, split):
+    """P2's kernel in two plain passes (its per-split softmax states with every logit
+    past kv_len at -1e30, then K3's split merge over the splits the row block walks)
+    gives its plain version, a zero-length row's mean of v over the walked slots
+    included."""
+    H, Hkv, D, T = 8, 2, 32, 64
+    q, k, v = _inputs(B, H, Hkv, D, T, seed=B + split)
+    lens = _t(np.asarray(lens, np.int32))
+    m, l, acc, walked = P.bigmm_partials_plain(_t(q), _t(k), _t(v), lens, chunk=chunk, split=split)
+    out = merge_splits_plain(m, l, acc, walked).reshape(B, 1, H, D)
+    ref = P.bigmm_decode_attention_plain(_t(q), _t(k), _t(v), lens, chunk=chunk)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-6, rtol=0)
+    spans = P.block_chunks(lens, T, chunk, P.row_block(B)).repeat_interleave(P.row_block(B)) * chunk
+    np.testing.assert_array_equal(walked.numpy(), (-(-spans // split)).repeat_interleave(Hkv).numpy())
 
 
 def test_p2_block_chunks_match_jax_formula_and_t_tail_is_refused():

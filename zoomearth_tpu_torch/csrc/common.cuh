@@ -67,11 +67,11 @@ __device__ __forceinline__ float group4_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// Single-token GQA decode for one (row, kv head), shared by K3 (slot cache) and
-// K4 (page pool): a block of DEC_WARPS warps takes the live slots in turn, one slot
-// per warp; lane j owns dims j + 32 i. Each k/v row is read once and serves the G
-// query heads of its kv head, each with its own fp32 online softmax. The warps'
-// states merge through shared memory at the end (decode_finish).
+// Single-token GQA decode for one (row, kv head), K4's (page pool; K3 used it too
+// before it split the key axis): a block of DEC_WARPS warps takes the live slots in
+// turn, one slot per warp; lane j owns dims j + 32 i. Each k/v row is read once and
+// serves the G query heads of its kv head, each with its own fp32 online softmax.
+// The warps' states merge through shared memory at the end (decode_finish).
 // ---------------------------------------------------------------------------
 constexpr int DEC_WARPS = 8;
 constexpr int DEC_MAXG = 8;  // query heads per kv head
@@ -176,5 +176,73 @@ __device__ __forceinline__ void decode_finish(const DecodeState<DPL>& st, Decode
     out[idx] = from_f<QT>(A / fmaxf(L, 1e-30f));
   }
 }
+
+// ---------------------------------------------------------------------------
+// Asynchronous 16-byte copies from device memory to shared memory (cp.async .cg:
+// cached in L2 only). A thread's copies are visible to the block after
+// cp_async_wait and a barrier.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// 4-byte copy (.ca: the only kind that takes 4 bytes), for values off a 16-byte grid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// ---------------------------------------------------------------------------
+// The split merge shared by K3 and P2. Both split the key axis of each (row, kv
+// head) pair across blocks; each block leaves, per query head g of the pair, its
+// softmax state over its keys: m (max logit), l (sum of e^(logit - m)) and acc[D]
+// (sum of e^(logit - m) v), all fp32, in one scratch buffer laid out as
+// acc [pair][split][G][D] (first, so that its rows stay 16-byte aligned),
+// m [pair][split][G], l [pair][split][G].
+// The merge writes out[pair][g][d] = sum_s e^(m_s - M) acc_s[d] / max(sum_s
+// e^(m_s - M) l_s, 1e-30), M = max_s m_s, over the splits the pair walked: the
+// first ceil(walked / split_len), with walked = len[pair / len_div] * len_mul, or
+// dead_len where that is 0. G <= SPLIT_MAXG, D a multiple of 4 up to 128.
+// Implemented in split_merge.cu.
+// ---------------------------------------------------------------------------
+constexpr int SPLIT_MAXG = 8;
+
+struct SplitPartials {
+  float* m;
+  float* l;
+  float* acc;
+};
+
+__host__ __device__ __forceinline__ SplitPartials split_partials(float* base, int pairs, int nsplit, int G, int D) {
+  const long long n = (long long)pairs * nsplit * G;
+  return {base + n * D, base + n * D + n, base};
+}
+
+int launch_split_merge(const float* part, const int* len, int len_div, int len_mul, int dead_len,
+                       int split_len, int nsplit, void* out, int out_dtype, int pairs, int G, int D,
+                       cudaStream_t stream);
 
 }  // namespace zt

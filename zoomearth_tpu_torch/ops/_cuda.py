@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("common.cuh", "flash_segment.cu", "flash_causal.cu", "flash_decode.cu", "paged_decode.cu",
-           "probe_stream.cu", "probe_bigmm.cu")
+           "probe_stream.cu", "probe_bigmm.cu", "split_merge.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -85,10 +85,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "zt_flash_segment": [_P] * 7 + [_I] * 3 + [_L] * 6 + [_F, _I, _P],
     "zt_flash_causal": [_P] * 8 + [_I] * 6 + [_L] * 11 + [_F, _I, _I, _P],
-    "zt_flash_decode": [_P] * 7 + [_I] * 5 + [_L] * 10 + [_F, _I, _I, _P],
+    "zt_flash_decode": [_P] * 8 + [_I] * 7 + [_L] * 10 + [_F, _I, _I, _P],
     "zt_paged_decode": [_P] * 7 + [_I] * 5 + [_L] * 4 + [_F, _I, _P],
     "zt_probe_stream": [_P] * 5 + [_I] * 7 + [_I, _I, _P],
-    "zt_probe_bigmm": [_P] * 6 + [_I] * 7 + [_F, _P],
+    "zt_probe_bigmm": [_P] * 7 + [_I] * 8 + [_F, _P],
 }
 
 

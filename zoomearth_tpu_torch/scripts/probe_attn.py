@@ -5,7 +5,9 @@ design (P2). Port of scripts/probe_attn.py.
      with a trivial reduction: its time is the copy floor K3 is held against.
 (P2) `bigmm_decode_attention` is decode attention with one (N*C, D) @ (D, N*G)
      product per chunk over the N = RB * Hkv (row, kv head) pairs of a row block,
-     of which only the diagonal blocks are kept.
+     of which only the diagonal blocks are kept. Its kernel splits the chunk walk
+     into SPLIT-key ranges across blocks and merges their softmax states with K3's
+     split merge (`bigmm_partials_plain` is the plain version of its split pass).
 
 Each has a dispatch function (CPU -> plain version, CUDA -> kernel or raise), a plain
 torch version and a CUDA wrapper with a launch counter; the kernels are
@@ -15,7 +17,7 @@ On a machine with one NVIDIA GPU:  python -m zoomearth_tpu_torch.scripts.probe_a
 It times P1 and P2 (each beside its plain version), K3 and the plain decode attention
 in turns, L2 cold, at B=32, H=16, Hkv=2, D=128, T=1536, bf16, lengths 600-1200, per
 call (CUDA events) and on the device (CUDA graph replays), and prints ms per call
-and per 36-layer step.
+and per 36-layer step, with P1's GB/s of cache read and P2's of cache walked.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from ..ops import _cuda
-from ..ops.attention import decode_attention
+from ..ops.attention import NEG_INF, decode_attention
 from ..ops.flash_decode import decode_attention_cuda
 from .timing import PLAIN, time_in_turns
 
@@ -110,6 +112,7 @@ def stream_bytes(k_cache) -> int:
 # ---------------- (P2) big-product attention ----------------
 
 MAX_PAIRS = 8  # (row, kv head) pairs per row block: warps per block in csrc/probe_bigmm.cu
+SPLIT = 64  # keys of every pair per block of the kernel's split pass
 
 
 def row_block(B: int) -> int:
@@ -129,6 +132,41 @@ def _bigmm_check(T, chunk):
     if chunk <= 0 or T % chunk:
         raise ValueError(f"bigmm_decode_attention: T={T} is not a multiple of chunk={chunk} (the "
                          "reference drops the tail slots without a word; the port refuses)")
+
+
+def walked_bytes(kv_len, T: int, chunk: int, Hkv: int, D: int) -> int:
+    """Cache bytes one P2 call reads: k and v (bf16) of every slot its row blocks walk."""
+    RB = row_block(kv_len.shape[0])
+    return int(block_chunks(kv_len, T, chunk, RB).sum()) * chunk * RB * Hkv * D * 2 * 2
+
+
+def bigmm_partials_plain(q, k_cache, v_cache, kv_len, *, chunk=512, split=SPLIT):
+    """P2's split pass in fp32: per (row, kv head) pair, split of `split` keys and
+    query head, the softmax state over the split's walked slots, logits past kv_len
+    masked to -1e30 with no liveness test (a split with none live weighs all its
+    slots alike). Returns (m, l, acc, walked) as decode_partials_plain does; pair p
+    walked ceil(ncb * chunk / split) splits of its row block's ncb chunks."""
+    q3 = (q[:, 0] if q.dim() == 4 else q).float()
+    B, H, D = q3.shape
+    Hkv, T = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    _bigmm_check(T, chunk)
+    S = -(-T // split)
+    pad = S * split - T
+    lens = kv_len.to(torch.int32).clamp(0, T)
+    walk = block_chunks(lens, T, chunk, row_block(B)).repeat_interleave(row_block(B)) * chunk  # (B,)
+    pos = torch.arange(S * split, device=q.device)[None]
+    logits = torch.einsum("bkgd,bktd->bkgt", q3.reshape(B, Hkv, G, D), k_cache.float()) * D**-0.5
+    logits = torch.nn.functional.pad(logits, (0, pad)).masked_fill(~(pos < lens[:, None])[:, None, None], NEG_INF)
+    in_walk = (pos < walk[:, None]).reshape(B, 1, 1, S, split)
+    logits = logits.reshape(B, Hkv, G, S, split).masked_fill(~in_walk, float("-inf"))
+    m = logits.amax(-1)
+    p = torch.where(in_walk, torch.exp(logits - m.clamp_min(NEG_INF)[..., None]), 0.0)
+    v = torch.nn.functional.pad(v_cache.float(), (0, 0, 0, pad)).reshape(B, Hkv, S, split, D)
+    acc = torch.einsum("bkgsl,bksld->bksgd", p, v)
+    walked = torch.div(walk + split - 1, split, rounding_mode="floor").repeat_interleave(Hkv)
+    return (m.transpose(2, 3).reshape(B * Hkv, S, G), p.sum(-1).transpose(2, 3).reshape(B * Hkv, S, G),
+            acc.reshape(B * Hkv, S, G, D), walked)
 
 
 def bigmm_decode_attention_plain(q, k_cache, v_cache, kv_len, *, chunk=512):
@@ -154,8 +192,10 @@ def bigmm_decode_attention_plain(q, k_cache, v_cache, kv_len, *, chunk=512):
 
 
 def bigmm_decode_cuda(q, k_cache, v_cache, kv_len, *, chunk=512):
-    """Launch P2. q (B, 1, H, D) or (B, H, D), caches (B, Hkv, T, D), all bf16,
-    contiguous and 16-byte aligned; H = 8 Hkv, D = 128, RB * Hkv <= 8, chunk a multiple of 16 dividing T."""
+    """Launch P2: one C call that runs the split pass over (B / RB) x ceil(T / SPLIT)
+    blocks and then K3's split merge. q (B, 1, H, D) or (B, H, D), caches
+    (B, Hkv, T, D), all bf16, contiguous and 16-byte aligned; H = 8 Hkv, D = 128,
+    RB * Hkv <= 8, chunk a multiple of 16 dividing T. Nothing here waits for the device."""
     name = "bigmm_decode_attention"
     had_s = q.dim() == 4
     q3 = (q[:, 0] if had_s else q).contiguous()
@@ -175,10 +215,12 @@ def bigmm_decode_cuda(q, k_cache, v_cache, kv_len, *, chunk=512):
         raise ValueError(f"{name}: q and the k/v caches must be 16-byte aligned (the kernel loads 16-byte vectors)")
     lens = kv_len.to(torch.int32).clamp(0, T).contiguous()
     ncb = block_chunks(lens, T, chunk, RB).contiguous()
+    nsplit = -(-T // SPLIT)
+    part = torch.empty(B * Hkv * nsplit * 8 * (D + 2), dtype=torch.float32, device=q3.device)
     out = torch.empty((B, H, D), dtype=q3.dtype, device=q3.device)
     rc = _cuda.lib().zt_probe_bigmm(
         _cuda.ptr(q3), _cuda.ptr(k_cache), _cuda.ptr(v_cache), _cuda.ptr(lens), _cuda.ptr(ncb),
-        _cuda.ptr(out), B, H, Hkv, T, D, RB, chunk, D**-0.5, _cuda.stream(q3.device),
+        _cuda.ptr(part), _cuda.ptr(out), B, H, Hkv, T, D, RB, chunk, SPLIT, D**-0.5, _cuda.stream(q3.device),
     )
     _cuda.check(rc, name)
     _cuda.count_launch(bigmm_decode_cuda)
@@ -220,14 +262,16 @@ def measure(q, k, v, lens):
     """Time, in turns: plain decode attention and K3 at the ragged lengths, P2 at
     chunk 512 ragged and at len = T, and P1 at len = T, each of P1 and P2 beside its
     plain version. Returns {case: (ms per call, device ms per call, GB/s of cache
-    read on device time or None)}."""
-    full = torch.full_like(lens, k.shape[2])
+    read (P1) or walked (P2) on device time, or None)}."""
+    Hkv, T, D = k.shape[1], k.shape[2], k.shape[3]
+    full = torch.full_like(lens, T)
     cases = [
         ("plain decode_attention len600-1200", lambda: decode_attention(q, k, v, kv_len=lens), None),
         ("K3 flash_decode len600-1200", lambda: decode_attention_cuda(q, k, v, lens), None),
     ]
     for label, ln in (("len600-1200", lens), ("len=T", full)):
-        cases += [(f"P2 bigmm512 {label}", lambda ln=ln: bigmm_decode_attention(q, k, v, ln, chunk=CHUNK), None),
+        cases += [(f"P2 bigmm512 {label}", lambda ln=ln: bigmm_decode_attention(q, k, v, ln, chunk=CHUNK),
+                   walked_bytes(ln, T, CHUNK, Hkv, D)),
                   (f"P2 bigmm512 {label}{PLAIN}",
                    lambda ln=ln: bigmm_decode_attention_plain(q, k, v, ln, chunk=CHUNK), None)]
     cases += [("P1 stream_only (copy floor) len=T", lambda: stream_only(q, k, v, full), stream_bytes(k)),
@@ -248,7 +292,7 @@ def main() -> int:
     print(f"bigmm parity max|d| vs fp32 decode attention: {(out.float() - ref).abs().max().item():.3e}")
     print(torch.cuda.get_device_name(0))
     for name, (ms, dev, gbs) in measure(q, k, v, lens).items():
-        rate = f" | {gbs:.1f} GB/s of cache read on device time (HBM {HBM_TBPS} TB/s)" if gbs else ""
+        rate = f" | {gbs:.1f} GB/s of cache read or walked on device time (HBM {HBM_TBPS} TB/s)" if gbs else ""
         print(f"{name}: {ms:.4f} ms/call ({ms * LAYERS:.2f} ms/{LAYERS}-layer) | device {dev:.4f} ms/call "
               f"({dev * LAYERS:.2f} ms/{LAYERS}-layer){rate}", flush=True)
     return 0
