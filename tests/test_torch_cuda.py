@@ -4,7 +4,8 @@ share against their plain torch versions, on the card. Marked `cuda`: every test
 On a machine with an NVIDIA GPU and nvcc:  python -m pytest -m cuda tests/test_torch_cuda.py
 
 fp32 cases hold the kernels to 1e-4 (the kernels sum in another order than the
-plain versions); bf16 cases to 2e-2, two bf16 roundings of outputs below 2.
+plain versions); bf16 cases to 2e-2: bf16 roundings of outputs below 2 (of the output
+and, in K1/K2's tensor-core variants and P2, of the softmax weights).
 """
 
 import numpy as np
@@ -393,3 +394,133 @@ def test_calls_captured_into_a_cuda_graph_are_not_counted(dev):
     assert [w.launches for w in wrappers] == n0
     for out, ref in zip(outs, eager):  # P1 adds with atomics: in any order, one bf16 step apart
         assert bool(((out.float() - ref.float()).abs() <= 2.0**-7 * ref.float().abs() + 1e-5).all())
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 on the tensor cores (csrc/flash_mma.cuh): edges, variants, graph capture
+# ---------------------------------------------------------------------------
+
+def _segments(runs, pad, dev):
+    return torch.cat([torch.full((n,), i, dtype=torch.int32) for i, n in enumerate(runs)]
+                     + [torch.full((pad,), K1.PAD_SEG, dtype=torch.int32)]).to(dev)
+
+
+@pytest.mark.parametrize("D", [16, 80, 128])
+@pytest.mark.parametrize("runs,pad", [
+    ((64, 16, 48, 64, 32, 64, 64, 20, 64, 64, 40, 64), 37),  # windows of 16-64 rows: every tile compares
+    ((40, 1296, 64, 24), 37),  # one long segment: its inner tiles skip the compare
+    ((100, 91), 0),  # a boundary inside a tile, S no multiple of 128, no pad
+    ((128, 128), 0),  # blocks and segments coincide
+])
+def test_k1_tensor_core_edges_match_plain(dev, D, runs, pad):
+    S, H = sum(runs) + pad, 4
+    seg = _segments(runs, pad, dev)
+    qkv = _randn((S, 3, H, D), dev, torch.bfloat16, 50)
+    before = dict(K1.segment_attention_cuda.variants)
+    for q, k, v in ((qkv[:, 0], qkv[:, 1], qkv[:, 2]), tuple(qkv[:, i].contiguous() for i in range(3))):
+        out = K1.segment_attention_cuda(q, k, v, seg)
+        torch.cuda.synchronize()
+        assert _err(out, K1.flash_segment_attention_plain(q, k, v, seg)) <= TOL[torch.bfloat16]
+    assert K1.segment_attention_cuda.variants == {"mma": before["mma"] + 2, "fma": before["fma"]}
+
+
+def _k2_edge_case(dev, D=128, G=8):
+    B, S, Hkv, T, tile = 5, 40, 2, 300, K2.TILE
+    ar = torch.arange(S, device=dev)
+    pad_pos = torch.cat([100 + ar[:20], torch.tensor([299, 121, 250, 120, 5, 180, 150, 299, 122, 64] * 2, device=dev)])
+    pos = torch.stack([ar, tile - S + ar, tile - S + 1 + ar, 2 * tile - S - 1 + ar, pad_pos])
+    kv_len = torch.tensor([0, tile, tile + 1, 2 * tile - 1, 120], device=dev)
+    return _randn((B, S, G * Hkv, D), dev, torch.bfloat16, 51), pos, kv_len, (B, Hkv, T, D)
+
+
+def _k2_expected(q, k, v, pos, kv_len, ks=None, vs=None):
+    """The plain version, with 0 for a row that has no live key (the kernel's answer)."""
+    ref = K2.flash_causal_attention_plain(q, k, v, pos, kv_len, ks, vs)
+    dead = torch.minimum(pos + 1, kv_len[:, None]) <= 0
+    return torch.where(dead[:, :, None, None], torch.zeros_like(ref), ref)
+
+
+@pytest.mark.parametrize("case", ["bf16", "int8", "prefix view", "D=16 G=2"])
+def test_k2_tensor_core_edges_match_plain(dev, case):
+    """kv_len 0, positions ending one before, at and after a tile boundary, S no
+    multiple of 16, pad rows past kv_len in no order."""
+    q, pos, kv_len, shape = _k2_edge_case(dev, *((16, 2) if case == "D=16 G=2" else ()))
+    B, Hkv, T, D = shape
+    ks = vs = None
+    if case == "int8":
+        k = torch.randint(-127, 128, shape, device=dev, dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, device=dev, dtype=torch.int8)
+        ks, vs = torch.rand((B, Hkv, T), device=dev) * 0.02 + 0.005, torch.rand((B, Hkv, T), device=dev) * 0.02 + 0.005
+    elif case == "prefix view":
+        k, v = (_randn((B, Hkv, T + 212, D), dev, torch.bfloat16, s)[:, :, :T] for s in (52, 53))
+    else:
+        k, v = (_randn(shape, dev, torch.bfloat16, s) for s in (52, 53))
+    before = dict(K2.causal_attention_cuda.variants)
+    out = K2.causal_attention_cuda(q, k, v, pos, kv_len, ks, vs)
+    torch.cuda.synchronize()
+    assert _err(out, _k2_expected(q, k, v, pos, kv_len, ks, vs)) <= TOL[torch.bfloat16]
+    assert not bool(out[0].any())
+    assert K2.causal_attention_cuda.variants == {"mma": before["mma"] + 1, "fma": before["fma"]}
+
+
+def test_k1_k2_variants_follow_the_dtype(dev):
+    """bf16 runs the tensor-core variants (K1 only where D is a multiple of 16), fp32
+    the fp32-arithmetic ones; the counts say which ran."""
+    seg = torch.zeros(64, dtype=torch.int32, device=dev)
+    pos, kv_len = torch.arange(8, device=dev)[None], torch.tensor([8], device=dev)
+    for dtype, D, k1, k2 in ((torch.bfloat16, 16, "mma", "mma"), (torch.bfloat16, 8, "fma", None),
+                             (torch.float32, 16, "fma", "fma")):
+        b1, b2 = dict(K1.segment_attention_cuda.variants), dict(K2.causal_attention_cuda.variants)
+        x = _randn((64, 2, D), dev, dtype, 54)
+        K1.segment_attention_cuda(x, x, x, seg)
+        b1[k1] += 1
+        assert K1.segment_attention_cuda.variants == b1
+        if k2 is not None:
+            q, kv = _randn((1, 8, 4, D), dev, dtype, 55), _randn((1, 2, 8, D), dev, dtype, 56)
+            K2.causal_attention_cuda(q, kv, kv, pos, kv_len)
+            b2[k2] += 1
+            assert K2.causal_attention_cuda.variants == b2
+    torch.cuda.synchronize()
+
+
+def test_k1_k2_refuse_misaligned_views(dev):
+    B, S, H, Hkv, D, T = 2, 16, 16, 2, 128, 64
+    q = _randn((B, S, H, D), dev, torch.bfloat16, 57)
+    wide = _randn((B, Hkv, T, D + 4), dev, torch.bfloat16, 58)[..., :D]  # slot stride 264 bytes
+    off = _randn((B * Hkv * T * D + 1,), dev, torch.bfloat16, 59)[1:].view(B, Hkv, T, D)  # base 2 bytes in
+    pos, kv_len = torch.arange(S, device=dev)[None].expand(B, S), torch.tensor([S, S], device=dev)
+    n2 = K2.causal_attention_cuda.launches
+    for k in (wide, off):
+        with pytest.raises(ValueError, match="16-byte"):
+            K2.causal_attention_cuda(q, k, k, pos, kv_len)
+    assert K2.causal_attention_cuda.launches == n2
+    x = _randn((64, 2, 20), dev, torch.bfloat16, 60)[..., :16]  # 40-byte row stride
+    n1 = K1.segment_attention_cuda.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        K1.segment_attention_cuda(x, x, x, torch.zeros(64, dtype=torch.int32, device=dev))
+    assert K1.segment_attention_cuda.launches == n1
+
+
+def test_k1_and_k2_replay_in_a_cuda_graph_to_the_eager_result(dev):
+    """Capture fails on a host sync, so a wrapper that captures waits for nothing; the
+    replay gives the eager result bit for bit (no atomics in either kernel), and
+    captured calls are not counted."""
+    seg = _segments((40, 300, 64, 24), 21, dev)
+    qkv = _randn((seg.shape[0], 3, 4, 80), dev, torch.bfloat16, 61)
+    q, pos, kv_len, shape = _k2_edge_case(dev)
+    k, v = (_randn(shape, dev, torch.bfloat16, s) for s in (62, 63))
+    fns = (lambda: K1.segment_attention_cuda(qkv[:, 0], qkv[:, 1], qkv[:, 2], seg),
+           lambda: K2.causal_attention_cuda(q, k, v, pos, kv_len))
+    eager = [f() for f in fns]
+    torch.cuda.synchronize()
+    counts = (K1.segment_attention_cuda.launches, K2.causal_attention_cuda.launches,
+              dict(K1.segment_attention_cuda.variants), dict(K2.causal_attention_cuda.variants))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [f() for f in fns]
+    graph.replay()
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, eager):
+        assert torch.equal(out, ref)
+    assert counts == (K1.segment_attention_cuda.launches, K2.causal_attention_cuda.launches,
+                      K1.segment_attention_cuda.variants, K2.causal_attention_cuda.variants)

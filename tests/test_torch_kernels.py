@@ -1,5 +1,6 @@
 """Port kernel modules (K1 segment, K2 causal, K3 decode) and the plain attention ops
-against the JAX package on the CPU.
+against the JAX package on the CPU; the tensor-core variants' launch prep, their
+arithmetic (emulated tile by tile in torch) and every kernel's `work` count.
 
 Each kernel module's plain torch version is held against the JAX Pallas kernel run
 in interpret mode, on the cases of the JAX package's own kernel tests, fp32 to
@@ -23,10 +24,12 @@ from zoomearth_tpu.ops.flash_attention import flash_segment_attention as jax_fla
 from zoomearth_tpu.ops.flash_causal import flash_causal_attention as jax_flash_causal
 from zoomearth_tpu.ops.flash_decode import flash_decode_attention as jax_flash_decode
 from zoomearth_tpu.ops.sampling import _top_p_filter as jax_top_p_filter
+from zoomearth_tpu_torch.ops import _cuda
 from zoomearth_tpu_torch.ops import attention as TA
 from zoomearth_tpu_torch.ops import flash_attention as K1
 from zoomearth_tpu_torch.ops import flash_causal as K2
 from zoomearth_tpu_torch.ops import flash_decode as K3
+from zoomearth_tpu_torch.ops import paged_attention as K4
 from zoomearth_tpu_torch.ops.sampling import greedy, sample, top_p_filter
 
 torch.set_num_threads(1)
@@ -97,28 +100,254 @@ def test_k1_plain_ignores_other_segments():
     np.testing.assert_allclose(out[:32].numpy(), clean.numpy(), atol=1e-6)
 
 
+@pytest.mark.parametrize("block", [K1.BLOCK_Q_FMA, K1.BLOCK_Q])
 @pytest.mark.parametrize("grids,pad_to", [([(1, 8, 8), (1, 4, 8)], 0), ([(1, 6, 6)], 64),
                                           ([(1, 36, 36)] * 2, 0), ([(1, 10, 14)], 256)])
-def test_k1_kv_ranges_match_jax_wrapper_formula(grids, pad_to):
+def test_k1_kv_ranges_match_jax_wrapper_formula(grids, pad_to, block):
     """segment_kv_ranges (row units) against the JAX wrapper's block-range formula
-    (flash_attention.py:126-133) for block_q = block_kv = 64."""
+    (flash_attention.py:117-133: pad to a whole number of blocks with PAD_SEG, then two
+    searchsorteds) for block_q = block_kv = 64 (the fp32 variant) and 128 (the
+    tensor-core variant)."""
     meta = jax_vision_metadata(grids, CFG.vision, pad_to=pad_to)
     for seg in (meta.seg_window, meta.seg_full):
         seg = seg.astype(np.int32)
         S = seg.shape[0]
-        if S % 64:
-            continue
-        bq = bkv = K1.BLOCK_Q
-        qb = jnp.asarray(seg).reshape(S // bq, bq)
-        first = jnp.searchsorted(seg, qb.min(axis=1), side="left")
-        last = jnp.searchsorted(seg, qb.max(axis=1), side="right")
-        starts = np.asarray(first // bkv)
-        ends = np.asarray(jnp.minimum(-(-last // bkv), S // bkv))
-        f, l = K1.segment_kv_ranges(_t(seg))
-        np.testing.assert_array_equal(f.numpy(), np.asarray(first))
-        np.testing.assert_array_equal(l.numpy(), np.asarray(last))
-        np.testing.assert_array_equal(f.numpy() // bkv, starts)
-        np.testing.assert_array_equal(-(-l.numpy() // bkv), ends)
+        n_q = -(-S // block)
+        padded = np.concatenate([seg, np.full(n_q * block - S, K1.PAD_SEG, np.int32)])
+        qb = jnp.asarray(padded).reshape(n_q, block)
+        first = np.asarray(jnp.searchsorted(padded, qb.min(axis=1), side="left"))
+        last = np.asarray(jnp.searchsorted(padded, qb.max(axis=1), side="right"))
+        starts = first // block
+        ends = np.minimum(-(-last // block), n_q)
+        f, l = K1.segment_kv_ranges(_t(seg), block)
+        np.testing.assert_array_equal(f.numpy(), first)
+        # the wrapper's pad rows extend the last block's range past S; the port has no pad rows
+        np.testing.assert_array_equal(l.numpy(), np.minimum(last, S))
+        np.testing.assert_array_equal(f.numpy() // block, starts)
+        np.testing.assert_array_equal(np.minimum(-(-l.numpy() // block), n_q), ends)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core variants of K1 and K2 (csrc/flash_mma.cuh), emulated on the CPU:
+# the same tiles, the same base-2 online softmax with 0 as the reference of a row that
+# has seen no live key, P rounded to bf16 before P @ V, the mask only on the tiles the
+# launch prep says need it, int8 scales on the fp32 accumulator.
+# ---------------------------------------------------------------------------
+
+TOL_BF16 = 2e-2  # bf16 roundings of outputs below 2 (inputs' products, P, the output)
+LOG2E = 1.4426950408889634
+
+
+def _emulate_flash_mma(q, k, v, live, lo, hi, needs_mask, ks=None, vs=None, tile=64):
+    """q (R, D) bf16; k/v (T, D) bf16 or int8; live (R, T) bool; the key range
+    [lo, hi) in tiles of `tile`, rows past hi read as zeros; needs_mask(t0) -> bool."""
+    R, D = q.shape
+    neg = torch.tensor(TA.NEG_INF)
+    m, l, o = torch.full((R,), TA.NEG_INF), torch.zeros(R), torch.zeros(R, D)
+    qf = q.float()
+    for t0 in range(lo, hi, tile):
+        n = min(tile, hi - t0)
+        kt, vt = torch.zeros(tile, D), torch.zeros(tile, D)
+        kt[:n], vt[:n] = k[t0:t0 + n].float(), v[t0:t0 + n].float()  # int8 widens to bf16 exactly
+        s = (qf @ kt.T) * (D**-0.5 * LOG2E)
+        if ks is not None:
+            s[:, :n] *= ks[t0:t0 + n]
+            s[:, n:] = 0.0
+        if needs_mask(t0):
+            ok = torch.zeros(R, tile, dtype=torch.bool)
+            ok[:, :n] = live[:, t0:t0 + n]
+            s = torch.where(ok, s, neg)
+        else:
+            assert n == tile and bool(live[:, t0:t0 + n].all()), "an unmasked tile must be live throughout"
+        m_new = torch.maximum(m, s.amax(1))
+        ref = torch.where(m_new > 0.5 * TA.NEG_INF, m_new, torch.zeros(()))
+        alpha = torch.exp2(m - ref)
+        p = torch.exp2(s - ref[:, None])
+        l = l * alpha + p.sum(1)
+        if vs is not None:
+            p[:, :n] *= vs[t0:t0 + n]
+        o = o * alpha[:, None] + p.bfloat16().float() @ vt
+        m = m_new
+    return (o / l.clamp_min(1e-30)[:, None]).bfloat16()
+
+
+def _emulate_k2(q, k, v, positions, kv_len, ks=None, vs=None):
+    B, S, H, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G = H // Hkv
+    bq = K2.ROWS // G
+    hi, full = K2.block_key_bounds(positions, kv_len, T, bq)
+    out = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
+    slot = torch.arange(T)
+    masked_tiles = 0
+    for b in range(B):
+        for blk in range(hi.shape[1]):
+            rows = range(blk * bq, min((blk + 1) * bq, S))
+            live_s = (slot[None] <= positions[b, rows.start:rows.stop, None]) & (slot[None] < kv_len[b])
+            for kh in range(Hkv):
+                qb = q[b, rows.start:rows.stop, kh * G:(kh + 1) * G].transpose(0, 1).reshape(-1, D)  # row = g * n + s
+
+                def needs(t0, b=b, blk=blk):
+                    nonlocal masked_tiles
+                    r = K2.tile_needs_mask(t0, int(full[b, blk]))
+                    masked_tiles += r
+                    return r
+
+                o = _emulate_flash_mma(qb, k[b, kh], v[b, kh], live_s.repeat(G, 1), 0, int(hi[b, blk]), needs,
+                                       None if ks is None else ks[b, kh], None if vs is None else vs[b, kh])
+                out[b, rows.start:rows.stop, kh * G:(kh + 1) * G] = o.reshape(G, len(rows), D).transpose(0, 1)
+    return out, masked_tiles
+
+
+def _k2_expected(q, k, v, positions, kv_len, ks=None, vs=None):
+    """The plain version, with 0 for a row that has no live key (the kernels' answer;
+    the plain softmax over equal masked logits gives the mean of v there)."""
+    ref = K2.flash_causal_attention_plain(q, k, v, positions, kv_len, ks, vs)
+    dead = torch.minimum(positions + 1, kv_len[:, None]) <= 0
+    return torch.where(dead[:, :, None, None], torch.zeros_like(ref), ref)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("G,D", [(8, 32), (2, 16)])
+def test_k2_tensor_core_arithmetic_matches_plain(G, D, quant):
+    """Rows either side of a tile boundary, kv_len 0, S no multiple of the block's
+    positions, pad rows past kv_len in no order: the emulated kernel against the plain
+    version in bf16, and whole tiles below every row's position skip the compare."""
+    rng = np.random.default_rng(G + D)
+    B, S, Hkv, T = 5, 40, 2, 300
+    H = G * Hkv
+    ar = np.arange(S)
+    pad_pos = np.concatenate([100 + ar[:20], rng.integers(0, T, 20)])
+    positions = torch.from_numpy(np.stack([ar, 24 + ar, 25 + ar, 87 + ar, pad_pos]).astype(np.int32))
+    kv_len = torch.tensor([0, 64, 65, 127, 120], dtype=torch.int32)
+    q = _t(_rand((B, S, H, D), 60)).bfloat16()
+    if quant:
+        k = torch.from_numpy(rng.integers(-127, 128, (B, Hkv, T, D)).astype(np.int8))
+        v = torch.from_numpy(rng.integers(-127, 128, (B, Hkv, T, D)).astype(np.int8))
+        ks = torch.from_numpy(rng.uniform(0.005, 0.025, (B, Hkv, T)).astype(np.float32))
+        vs = torch.from_numpy(rng.uniform(0.005, 0.025, (B, Hkv, T)).astype(np.float32))
+    else:
+        k, v, ks, vs = _t(_rand((B, Hkv, T, D), 61)).bfloat16(), _t(_rand((B, Hkv, T, D), 62)).bfloat16(), None, None
+    out, masked = _emulate_k2(q, k, v, positions, kv_len, ks, vs)
+    ref = _k2_expected(q, k, v, positions, kv_len, ks, vs)
+    assert float((out.float() - ref.float()).abs().max()) <= TOL_BF16
+    assert not bool(out[0].any())  # kv_len 0: no live key, 0
+    total = sum(-(-int(h) // K2.TILE) for h in K2.block_key_bounds(positions, kv_len, T, K2.ROWS // G)[0].flatten()) * Hkv
+    assert 0 < masked < total  # some tiles take the compare, some skip it
+
+
+@pytest.mark.parametrize("bq", [16, 64])
+def test_k2_block_key_bounds_match_brute_force(bq):
+    rng = np.random.default_rng(bq)
+    B, S, T = 4, 70, 200
+    positions = torch.from_numpy(rng.integers(-1, T + 30, (B, S)).astype(np.int32))
+    kv_len = torch.tensor([0, 57, T, T + 9], dtype=torch.int32)
+    hi, full = K2.block_key_bounds(positions, kv_len, T, bq)
+    assert hi.shape == full.shape == (B, -(-S // bq))
+    for b in range(B):
+        klen = min(max(int(kv_len[b]), 0), T)
+        for blk in range(hi.shape[1]):
+            pos = positions[b, blk * bq:(blk + 1) * bq].tolist()
+            live = np.array([[t <= p and t < klen for t in range(T)] for p in pos])
+            walked = np.flatnonzero(live.any(0))
+            assert int(hi[b, blk]) == (walked[-1] + 1 if walked.size else 0)
+            dense = np.flatnonzero(~live.all(0))
+            assert int(full[b, blk]) == (dense[0] if dense.size else T)
+            for t0 in range(0, int(hi[b, blk]), K2.TILE):
+                whole = t0 + K2.TILE <= T and bool(live[:, t0:t0 + K2.TILE].all())
+                assert K2.tile_needs_mask(t0, int(full[b, blk])) == (not whole)
+
+
+def _emulate_k1(q, k, v, seg):
+    S, H, D = q.shape
+    first, last = K1.segment_kv_ranges(seg, K1.BLOCK_Q)
+    out = torch.zeros(S, H, D, dtype=torch.bfloat16)
+    masked = total = 0
+    for blk in range(first.shape[0]):
+        s0, s1 = blk * K1.BLOCK_Q, min((blk + 1) * K1.BLOCK_Q, S)
+        live = seg[s0:s1, None] == seg[None, :]
+        lo, hi = int(first[blk]), int(last[blk])
+        for h in range(H):
+            def needs(t0, s0=s0, hi=hi):
+                nonlocal masked, total
+                r = K1.tile_needs_mask(seg, s0, t0, hi)
+                masked, total = masked + r, total + 1
+                return r
+
+            out[s0:s1, h] = _emulate_flash_mma(q[s0:s1, h], k[:, h], v[:, h], live, lo, hi, needs)
+    return out, masked, total
+
+
+@pytest.mark.parametrize("runs,pad,all_masked", [
+    ([64, 16, 48, 64, 32, 64, 64, 20, 64, 64, 40], 37, True),  # windows of 16-64 rows: every tile compares
+    ([40, 500, 64, 24], 13, False),  # one long segment: its inner tiles skip the compare
+    ([100, 91], 0, False),  # a boundary inside a tile, no pad
+])
+def test_k1_tensor_core_arithmetic_matches_plain(runs, pad, all_masked):
+    S, H, D = sum(runs) + pad, 2, 80
+    assert S % K1.BLOCK_Q
+    seg = torch.cat([torch.full((n,), i, dtype=torch.int32) for i, n in enumerate(runs)]
+                    + [torch.full((pad,), K1.PAD_SEG, dtype=torch.int32)])
+    q, k, v = (_t(_rand((S, H, D), s)).bfloat16() for s in (70, 71, 72))
+    out, masked, total = _emulate_k1(q, k, v, seg)
+    ref = K1.flash_segment_attention_plain(q, k, v, seg)
+    assert float((out.float() - ref.float()).abs().max()) <= TOL_BF16
+    assert (masked == total) if all_masked else (0 < masked < total)
+
+
+def test_k1_work_matches_brute_force():
+    seg = torch.tensor([0] * 5 + [1] * 3 + [4] * 7 + [K1.PAD_SEG] * 2, dtype=torch.int32)
+    H, D = 3, 16
+    pairs = int((seg[:, None] == seg[None, :]).sum())
+    assert pairs == 25 + 9 + 49 + 4
+    assert K1.work(seg, H, D, 2) == (4 * D * H * pairs, 4 * seg.shape[0] * H * D * 2)
+
+
+@pytest.mark.parametrize("kv_itemsize", [2, 1])
+def test_k2_work_matches_brute_force(kv_itemsize):
+    rng = np.random.default_rng(3)
+    B, S, T, H, Hkv, D = 3, 9, 40, 4, 2, 16
+    positions = torch.from_numpy(rng.integers(-1, T + 5, (B, S)).astype(np.int32))
+    kv_len = torch.tensor([0, 17, T + 3], dtype=torch.int32)
+    pairs = rows = 0
+    for b in range(B):
+        klen = min(int(kv_len[b]), T)
+        live = np.array([[t <= int(p) and t < klen for t in range(T)] for p in positions[b]])
+        pairs += int(live.sum())
+        rows += int(live.any(0).sum())
+    flops, nbytes = K2.work(positions, kv_len, H, Hkv, D, T, 2, kv_itemsize)
+    assert flops == 4 * D * H * pairs
+    scales = 2 * rows * Hkv * 4 if kv_itemsize == 1 else 0
+    assert nbytes == 2 * B * S * H * D * 2 + 2 * rows * Hkv * D * kv_itemsize + scales
+
+
+def test_decode_kernels_work_counts_live_slots():
+    kv_len = torch.tensor([-3, 0, 1, 100, 5000], dtype=torch.int32)
+    T, H, Hkv, D = 256, 16, 2, 128
+    live = 0 + 0 + 1 + 100 + 256
+    assert K3.work(kv_len, T, H, Hkv, D, 2) == (4 * D * H * live, 2 * live * Hkv * D * 2 + 2 * 5 * H * D * 2)
+    assert K3.work(kv_len, T, H, Hkv, D, 1) == (4 * D * H * live,
+                                                 2 * live * Hkv * D + 2 * live * Hkv * 4 + 2 * 5 * H * D * 2)
+    bt = torch.zeros((5, 4), dtype=torch.int32)  # capacity 4 pages of 64 = 256 slots
+    pages = 0 + 0 + 1 + 2 + 4
+    assert K4.work(kv_len, bt, 64, H, Hkv, D, 2) == (4 * D * H * live,
+                                                      2 * live * Hkv * D * 2 + 4 * pages + 2 * 5 * H * D * 2)
+
+
+def test_tensor_core_variants_refuse_misaligned_views():
+    """The 16-byte cp.async copies need 16-byte bases, rows and strides: the check the
+    wrappers run before a launch, on the views the model makes and on ones it does not."""
+    qkv = torch.zeros(32, 3, 16, 80, dtype=torch.bfloat16)
+    _cuda.require_aligned16("k1", qkv[:, 0], qkv[:, 1], qkv[:, 2])  # the ViT's fused-qkv views
+    cache = torch.zeros(2, 2, 64, 128, dtype=torch.bfloat16)
+    _cuda.require_aligned16("k2", cache, cache[:, :, :40], torch.zeros(2, 40, 2, 128, dtype=torch.bfloat16).transpose(1, 2))
+    _cuda.require_aligned16("k2", torch.zeros(2, 2, 64, 128, dtype=torch.int8))
+    for bad in (cache[..., 4:68],  # rows start 8 bytes in
+                torch.zeros(2, 2, 64, 132, dtype=torch.bfloat16)[..., :128],  # 264-byte row stride
+                torch.zeros(64, 2, 20, dtype=torch.bfloat16),  # 40-byte rows
+                torch.zeros(2 * 2 * 64 * 128 + 4, dtype=torch.bfloat16)[4:].reshape(2, 2, 64, 128)):  # base 8 bytes in
+        with pytest.raises(ValueError, match="16-byte"):
+            _cuda.require_aligned16("k2", bad)
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +618,8 @@ def test_window_paths_match_jax():
 
 def test_cpu_dispatch_launches_no_kernel():
     before = (K1.segment_attention_cuda.launches, K2.causal_attention_cuda.launches,
-              K3.decode_attention_cuda.launches)
+              K3.decode_attention_cuda.launches, dict(K1.segment_attention_cuda.variants),
+              dict(K2.causal_attention_cuda.variants))
     x = torch.randn(64, 2, 8)
     K1.flash_segment_attention(x, x, x, torch.zeros(64, dtype=torch.int32))
     q = torch.randn(1, 4, 4, 16)
@@ -397,7 +627,8 @@ def test_cpu_dispatch_launches_no_kernel():
     K2.flash_causal_attention(q, kv, kv, torch.arange(4)[None], torch.tensor([4]))
     K3.flash_decode_attention(q[:, :1], kv, kv, torch.tensor([8]))
     after = (K1.segment_attention_cuda.launches, K2.causal_attention_cuda.launches,
-             K3.decode_attention_cuda.launches)
+             K3.decode_attention_cuda.launches, K1.segment_attention_cuda.variants,
+             K2.causal_attention_cuda.variants)
     assert before == after
 
 

@@ -24,6 +24,7 @@ from zoomearth_tpu.runtime import generate as JG
 from zoomearth_tpu.tokenizer import FakeTokenizer
 from zoomearth_tpu.train.data import LRSGROSample
 from zoomearth_tpu_torch.agent import episode as TE
+from zoomearth_tpu_torch.agent import prompts as TPT
 from zoomearth_tpu_torch.eval import infer as TI
 from zoomearth_tpu_torch.models.params import params_from_numpy
 from zoomearth_tpu_torch.runtime import generate as TG
@@ -163,8 +164,9 @@ def test_attend_bucket_takes_any_span():
 def episode_env(monkeypatch):
     """Short stage-1 template (the byte-level FakeTokenizer makes the verbatim
     instruction ~2300 tokens) and a forced bbox (random weights emit none)."""
-    monkeypatch.setattr(PT, "stage1_prompt",
-                        lambda q: PT.PREFIX + q + "\nAnswer.<|im_end|><|im_start|>assistant\n")
+    for prompts in (PT, TPT):  # the JAX package's prompts and the port's own copy
+        monkeypatch.setattr(prompts, "stage1_prompt",
+                            lambda q: PT.PREFIX + q + "\nAnswer.<|im_end|><|im_start|>assistant\n")
     box = lambda text, scale=1.0: [[100, 100, 260, 220]]  # noqa: E731
     monkeypatch.setattr(JE, "extract_bboxes", box)
     monkeypatch.setattr(TE, "extract_bboxes", box)
@@ -244,3 +246,40 @@ def test_cli_infer_main_with_stubbed_loader(params, episode_env, tmp_path, monke
     assert calls == [("stub", 128 * 128 * 28 * 28)]
     assert sorted(r["question_id"] for r in recs) == ["0", "1", "2", "3"]
     assert all(r["model_id"] == "smoke---LRS-GRO" and r["error"] is False for r in recs)
+
+
+def test_cli_device_defaults_to_cuda_and_never_moves_to_the_cpu(tmp_path, monkeypatch):
+    """`--device` defaults to cuda in both CLIs; without a CUDA device the loader raises
+    unless the caller asks for the CPU, which is what a test passes."""
+    from zoomearth_tpu_torch.cli import common as cli_common
+    from zoomearth_tpu_torch.cli import demo as cli_demo
+    from zoomearth_tpu_torch.cli import infer as cli_infer
+
+    args = cli_infer.build_parser().parse_args(["--model_name", "m", "--exp_name", "e", "--data_file", "d",
+                                                "--image_folder", "i"])
+    assert args.device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli_common.resolve_device("cpu") == torch.device("cpu")
+    for device in (None, "cuda", "cuda:0", torch.device("cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli_common.resolve_device(device)
+    with pytest.raises(RuntimeError, match="no CUDA device"):  # before it looks at the checkpoint
+        cli_common.load_model_and_processor(str(tmp_path))
+    with pytest.raises(SystemExit, match="not a directory"):  # the CPU asked for: goes on to the checkpoint
+        cli_common.load_model_and_processor(str(tmp_path / "missing"), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert cli_common.resolve_device(None) == torch.device("cuda")
+
+    seen = []
+
+    def fake_loader(path, **kw):
+        seen.append(kw.get("device"))
+        raise KeyboardInterrupt  # stop the CLI once the device it asked for is known
+
+    for mod, argv in ((cli_infer, ["--model_name", "m", "--exp_name", "e", "--data_file", "d", "--image_folder", "i"]),
+                      (cli_demo, ["--model", "m", "--image", "x.png"])):
+        monkeypatch.setattr(mod, "load_model_and_processor", fake_loader)
+        for extra in ([], ["--device", "cpu"]):
+            with pytest.raises(KeyboardInterrupt):
+                mod.main(argv + extra)
+    assert seen == ["cuda", "cpu", "cuda", "cpu"]

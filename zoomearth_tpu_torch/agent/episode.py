@@ -16,9 +16,10 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from ..image.geometry import cut_image, extract_answer, extract_bboxes, resize_image
 from ..runtime.generate import GenerationConfig, Generator, prepare_batch, prepare_continuation
-from ..shared import Processor, cut_image, extract_answer, extract_bboxes, resize_image
-from ..shared import prompts as PT
+from . import prompts as PT
+from .processor import Processor
 
 
 @dataclasses.dataclass

@@ -1,9 +1,9 @@
 """Batch LRS-GRO inference (port of cli/infer.py).
 
 python -m zoomearth_tpu_torch.cli.infer --model_name MODEL_DIR --exp_name NAME \
-    --data_file test.jsonl --image_folder ./image [--batch_size 8]
-Writes results/{exp_name}{rank}.jsonl. Runs on the first CUDA device when there is
-one, else on the CPU.
+    --data_file test.jsonl --image_folder ./image [--batch_size 8] [--device cuda]
+Writes results/{exp_name}{rank}.jsonl. Runs on the CUDA device unless --device names
+another; without a CUDA device and without --device cpu it raises.
 """
 
 from __future__ import annotations
@@ -12,8 +12,9 @@ import argparse
 
 from ..eval.infer import run_inference
 from ..runtime.generate import GenerationConfig, Generator
-from ..shared import load_lrs_gro_jsonl, parse_with_yaml
-from .common import load_model_and_processor
+from ..train.data import load_lrs_gro_jsonl
+from .common import add_device_arg, load_model_and_processor
+from .config import parse_with_yaml
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -34,13 +35,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--limit", type=int, default=0, help="only the first N samples")
     p.add_argument("--mode", choices=("sequential", "pipelined"), default="sequential",
                    help="pipelined (pair waves) is not ported yet and raises")
+    add_device_arg(p)
     return p
 
 
 def main(argv=None):
     args = parse_with_yaml(build_parser(), argv)
 
-    params, cfg, processor = load_model_and_processor(args.model_name, max_pixels=args.max_pixels)
+    params, cfg, processor = load_model_and_processor(args.model_name, max_pixels=args.max_pixels,
+                                                      device=args.device)
     generator = Generator(params, cfg, max_cache_len=4096)
     samples = load_lrs_gro_jsonl([args.data_file], [args.image_folder])
     if args.limit:

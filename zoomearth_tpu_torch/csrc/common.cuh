@@ -195,6 +195,25 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
 
+// The same copies with a source size: `ok` copies the bytes, else the destination is
+// filled with zeros and nothing is read (src must still be a valid address). L1
+// chooses .ca (cached in L1 too) over .cg for the 16-byte one.
+template <bool L1>
+__device__ __forceinline__ void cp_async16_z(void* dst, const void* src, bool ok) {
+  if constexpr (L1) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+                 "r"(ok ? 16 : 0));
+  } else {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+                 "r"(ok ? 16 : 0));
+  }
+}
+
+__device__ __forceinline__ void cp_async4_z(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 // wait until at most N of this thread's committed groups are still in flight
@@ -213,6 +232,42 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core fragments (mma.sync m16n8k16, bf16 in, fp32 accumulate), shared by
+// K1/K2's flash core (flash_mma.cuh) and P2. With g = lane / 4, t = lane % 4, the
+// fp32 C fragment holds rows g (c[0], c[1]) and g + 8 (c[2], c[3]) at columns
+// 2t, 2t + 1; rounded to bf16 and packed in pairs, the C fragments of two
+// neighbouring n8 tiles are exactly the A fragment of a product over those 16
+// columns, so softmax weights never leave registers.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d = a (16x16 bf16, row) * b (16x8 bf16, col) + c, fp32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1, const float (&c)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]),
+        "f"(c[2]), "f"(c[3]));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&h);
 }
 
 // ---------------------------------------------------------------------------

@@ -5,23 +5,48 @@
 //
 // Semantics: the query at positions[b, s] sees kv slots t <= positions[b, s] and
 // t < kv_len[b] (slot order == position order in the cache). With int8 K/V the
-// per-token scales ks multiply the logit columns and vs multiplies p before p@v —
-// exact algebra w.r.t. the quantized values, as the TPU kernel computes it.
+// per-token scales ks multiply the logit columns and vs multiplies p before p@v:
+// exact algebra w.r.t. the quantized values, as the TPU kernel computes it. A row
+// with no live slot returns 0.
 //
-// What bounds it on the card: compute. The G = 8 query heads of one kv head read
-// the same k/v rows, so every kv byte feeds 8 x (block queries) rows of dot products.
+// What bounds it on the card: by count, operations (22 GFLOP against 34 MB at the
+// chunk prefill's shapes). The G = 8 query heads of one kv head read the same k/v
+// rows, so every k/v byte feeds 8 x (block positions) rows of dot products: the work
+// is two matrix products per tile, and the card's rate for those is in its tensor
+// cores. As measured with the products on the tensor cores, the tile copies from L2
+// bound it (flash_mma.cuh says how that was found).
 //
-// What the design does about it: a block owns (b, kv head, 64/G query positions)
-// and folds the G query heads into its 64 rows, so one fp32 kv tile in shared
-// memory serves all G heads. The kv loop stops at the block's largest position + 1
-// (clipped by kv_len), so tiles above the causal diagonal and past the live length
-// are never read. q, k and v are read through their strides: the cache's
-// (B, Hkv, T, D) layout and the fresh projections' transposed views need no copy.
-// Plain fp32 FMA with online softmax; tensor cores come later.
-#include "common.cuh"
+// What the design does about it (bf16 queries, the model's path): the tensor-core
+// flash core of flash_mma.cuh (wgmma at D = 128, mma.sync at the smaller head dims;
+// a ring of three stages of cp.async copies). A block owns (b, kv head, 128 / G query positions) and
+// folds the G query heads into its 128 rows (row r is head r / bq, position r % bq,
+// bq = 128 / G), so one bf16 k/v tile in shared memory serves all G heads. The key
+// loop stops at the block's largest position + 1 (clipped by kv_len), so tiles above
+// the causal diagonal and past the live length are never read, and the causal/length
+// compare runs only on tiles that reach past the block's smallest position (or past
+// kv_len): positions are per row, ragged across the batch and in no order for pad
+// rows, so the mask reads each row's own position. q, k and v are read through their
+// strides (16-byte aligned): the cache's (B, Hkv, T, D) layout, its prefix views and
+// the fresh projections' transposed views need no copy.
+//
+// fp32 queries (the tiny config's parity runs) keep the first version below: plain
+// fp32 FMA over an fp32 tile of 32 keys, 64 rows a block. bf16 tensor-core products
+// would cost them the precision they are run for. zt_flash_causal_variant says which
+// of the two a dtype and head dim get.
+#include "flash_mma.cuh"
+
+// Tile copies are cached in L1 too (cp.async.ca): one block an SM leaves L1 large,
+// and on the card .ca ran 7-14 % faster here than .cg.
+#ifndef ZT_FM_K2_L1
+#define ZT_FM_K2_L1 1
+#endif
 
 namespace zt {
 
+// ---------------------------------------------------------------------------
+// The fp32 variant: a block owns (b, kv head, 64 / G query positions); each row's D
+// dims are spread over 4 threads; online softmax in fp32 over fp32 tiles.
+// ---------------------------------------------------------------------------
 constexpr int CAU_ROWS = 64;  // (head, query) rows per block
 constexpr int CAU_TPR = 4;    // threads per row
 constexpr int CAU_BKV = 32;   // kv rows per shared-memory tile
@@ -139,7 +164,138 @@ static int launch_causal(const void* q, const void* k, const void* v, const floa
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core variant: the policy of flash_mma.cuh's core for K2.
+// ---------------------------------------------------------------------------
+template <typename KT>
+struct CausalPolicy {
+  static constexpr bool QUANT = sizeof(KT) == 1;
+  static constexpr bool kCopiesThroughL1 = ZT_FM_K2_L1;
+  int lo, hi;
+  int full;  // keys below it are live for every row of the block
+  int klen, bq, s0, S, H, D;
+  const int* pos_s;  // the block's bq positions (-1 past S), shared memory
+  const __nv_bfloat16* qb;  // q + b * q_sb + (kh * G) * q_sh
+  long long q_ss, q_sh;
+  const KT* kb;
+  const KT* vb;
+  long long k_st, v_st;
+  const float* ksb;  // ks + b * sc_sb + kh * sc_sh (int8 K/V)
+  const float* vsb;
+  __nv_bfloat16* ob;  // out + (b * S * H + kh * G) * D
+  int pos_row[2];
+
+  __device__ __forceinline__ const __nv_bfloat16* q_row_any() const { return qb; }
+  __device__ __forceinline__ const __nv_bfloat16* q_row(int r) const {
+    const int s = s0 + r % bq;
+    return s < S ? qb + (long long)s * q_ss + (long long)(r / bq) * q_sh : nullptr;
+  }
+  __device__ __forceinline__ __nv_bfloat16* out_row(int r) const {
+    const int s = s0 + r % bq;
+    return s < S ? ob + ((long long)s * H + r / bq) * D : nullptr;
+  }
+  __device__ __forceinline__ const KT* k_row(int t) const { return kb + (long long)t * k_st; }
+  __device__ __forceinline__ const KT* v_row(int t) const { return vb + (long long)t * v_st; }
+  __device__ __forceinline__ void load_aux(int* aux, int t0, int tid) const {
+    if (QUANT && tid < 2 * FM_BKV) {
+      const int col = tid % FM_BKV;
+      const bool ok = t0 + col < hi;
+      cp_async4_z(aux + tid, (tid < FM_BKV ? ksb : vsb) + (ok ? t0 + col : lo), ok);
+    }
+  }
+  __device__ __forceinline__ void set_rows(int r_lo, int r_hi) {
+    pos_row[0] = pos_s[r_lo % bq];
+    pos_row[1] = pos_s[r_hi % bq];
+  }
+  __device__ __forceinline__ bool needs_mask(const int*, int t0) const { return t0 + FM_BKV > full; }
+  __device__ __forceinline__ bool live(int half, const int*, int, int t) const {
+    return t <= pos_row[half] && t < klen;
+  }
+};
+
+// One block an SM at D = 128 (its 166 registers a thread spill at the 128 that two
+// blocks would allow, and ran slower), two up to D = 64.
+template <int D, typename KT>
+__global__ void __launch_bounds__(FM_THREADS, D <= 64 ? 2 : 1)
+    flash_causal_mma_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k,
+                            const KT* __restrict__ v, const float* __restrict__ ksc,
+                            const float* __restrict__ vsc, const int* __restrict__ positions,
+                            const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ out, int S,
+                            int T, int G, long long q_sb, long long q_ss, long long q_sh,
+                            long long k_sb, long long k_sh, long long k_st, long long v_sb,
+                            long long v_sh, long long v_st, long long sc_sb, long long sc_sh,
+                            float scale) {
+  extern __shared__ __align__(16) unsigned char fm_smem[];
+  __shared__ int pos_s[FM_ROWS];
+  const int bq = FM_ROWS / G;  // query positions per block
+  const int s0 = blockIdx.x * bq;
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int klen = min(max(kv_len[b], 0), T);
+  for (int i = threadIdx.x; i < bq; i += FM_THREADS)
+    pos_s[i] = s0 + i < S ? positions[(long long)b * S + s0 + i] : -1;
+  __syncthreads();
+  int pmax = -1, pmin = T;  // over the block's rows below S
+  for (int i = 0; i < bq && s0 + i < S; ++i) {
+    pmax = max(pmax, pos_s[i]);
+    pmin = min(pmin, pos_s[i]);
+  }
+
+  CausalPolicy<KT> pol;
+  pol.lo = 0;
+  pol.hi = min(min(pmax, T - 1) + 1, klen);    // causal bound of this block, clipped by kv_len
+  pol.full = min(max(pmin, -1) + 1, klen);
+  pol.klen = klen;
+  pol.bq = bq;
+  pol.s0 = s0;
+  pol.S = S;
+  pol.H = gridDim.y * G;
+  pol.D = D;
+  pol.pos_s = pos_s;
+  pol.qb = q + (long long)b * q_sb + (long long)kh * G * q_sh;
+  pol.q_ss = q_ss;
+  pol.q_sh = q_sh;
+  pol.kb = k + (long long)b * k_sb + (long long)kh * k_sh;
+  pol.vb = v + (long long)b * v_sb + (long long)kh * v_sh;
+  pol.k_st = k_st;
+  pol.v_st = v_st;
+  pol.ksb = ksc != nullptr ? ksc + (long long)b * sc_sb + (long long)kh * sc_sh : nullptr;
+  pol.vsb = vsc != nullptr ? vsc + (long long)b * sc_sb + (long long)kh * sc_sh : nullptr;
+  pol.ob = out + ((long long)b * S * pol.H + (long long)kh * G) * D;
+  flash_mma_block<D, KT>(pol, fm_smem, scale * LOG2E);
+}
+
+template <int D, typename KT>
+static int launch_causal_mma(const void* q, const void* k, const void* v, const float* ksc,
+                             const float* vsc, const int* positions, const int* kv_len, void* out,
+                             int B, int S, int Hkv, int T, int G, long long q_sb, long long q_ss,
+                             long long q_sh, long long k_sb, long long k_sh, long long k_st,
+                             long long v_sb, long long v_sh, long long v_st, long long sc_sb,
+                             long long sc_sh, float scale, cudaStream_t stream) {
+  constexpr int smem = fm_smem_bytes<D, sizeof(KT) == 1>();
+  static const int allowed = fm_allow_smem(flash_causal_mma_kernel<D, KT>, smem);  // once
+  if (allowed != 0) return allowed;
+  const int bq = FM_ROWS / G;
+  const dim3 grid((S + bq - 1) / bq, Hkv, B);
+  flash_causal_mma_kernel<D, KT><<<grid, FM_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v),
+      ksc, vsc, positions, kv_len, static_cast<__nv_bfloat16*>(out), S, T, G, q_sb, q_ss, q_sh, k_sb,
+      k_sh, k_st, v_sb, v_sh, v_st, sc_sb, sc_sh, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace zt
+
+// Query rows per block of the variant these dtypes and head dim get: FM_ROWS (the
+// tensor-core variant: bf16 q, bf16 or int8 k/v), CAU_ROWS (fp32 FMA: fp32 q) or
+// ZT_UNSUPPORTED. G = H / Hkv must divide it.
+extern "C" int zt_flash_causal_variant(int q_dtype, int kv_dtype, int D) {
+  using namespace zt;
+  if (D != 16 && D != 32 && D != 64 && D != 128) return ZT_UNSUPPORTED;
+  if (q_dtype == BF16 && (kv_dtype == BF16 || kv_dtype == I8)) return FM_ROWS;
+  if (q_dtype == F32 && (kv_dtype == F32 || kv_dtype == I8)) return CAU_ROWS;
+  return ZT_UNSUPPORTED;
+}
 
 // q (B, S, H, D) and k/v (B, Hkv, T, D) with unit stride on D; positions (B, S) and
 // kv_len (B,) contiguous int32; ksc/vsc (B, Hkv, T) fp32 with unit stride on T (int8
@@ -155,8 +311,25 @@ extern "C" int zt_flash_causal(const void* q, const void* k, const void* v, cons
   cudaGetLastError();
   if (Hkv <= 0 || H % Hkv != 0) return ZT_UNSUPPORTED;
   const int G = H / Hkv;
-  if (G > CAU_ROWS || CAU_ROWS % G != 0) return ZT_UNSUPPORTED;
+  const int rows = zt_flash_causal_variant(q_dtype, kv_dtype, D);
+  if (rows < 0 || G > rows || rows % G != 0) return ZT_UNSUPPORTED;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ZT_CAU_MMA(DD, KK)                                                                        \
+  return launch_causal_mma<DD, KK>(q, k, v, ksc, vsc, positions, kv_len, out, B, S, Hkv, T, G,   \
+                                   q_sb, q_ss, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, sc_sb,  \
+                                   sc_sh, scale, st)
+#define ZT_CAU_MMA_D(KK)              \
+  switch (D) {                        \
+    case 16: ZT_CAU_MMA(16, KK);      \
+    case 32: ZT_CAU_MMA(32, KK);      \
+    case 64: ZT_CAU_MMA(64, KK);      \
+    case 128: ZT_CAU_MMA(128, KK);    \
+    default: return ZT_UNSUPPORTED;   \
+  }
+  if (q_dtype == BF16 && kv_dtype == BF16) { ZT_CAU_MMA_D(__nv_bfloat16) }
+  if (q_dtype == BF16 && kv_dtype == I8) { ZT_CAU_MMA_D(int8_t) }
+#undef ZT_CAU_MMA_D
+#undef ZT_CAU_MMA
 #define ZT_CAU(DD, QQ, KK)                                                                     \
   return launch_causal<DD, QQ, KK>(q, k, v, ksc, vsc, positions, kv_len, out, B, S, Hkv, T, G, \
                                    q_sb, q_ss, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, sc_sb, \
@@ -170,9 +343,7 @@ extern "C" int zt_flash_causal(const void* q, const void* k, const void* v, cons
     default: return ZT_UNSUPPORTED;  \
   }
   if (q_dtype == F32 && kv_dtype == F32) { ZT_CAU_D(float, float) }
-  if (q_dtype == BF16 && kv_dtype == BF16) { ZT_CAU_D(__nv_bfloat16, __nv_bfloat16) }
   if (q_dtype == F32 && kv_dtype == I8) { ZT_CAU_D(float, int8_t) }
-  if (q_dtype == BF16 && kv_dtype == I8) { ZT_CAU_D(__nv_bfloat16, int8_t) }
 #undef ZT_CAU_D
 #undef ZT_CAU
   return ZT_UNSUPPORTED;

@@ -3,25 +3,50 @@
 // Replaces zoomearth_tpu/ops/flash_attention.py::flash_segment_attention (Pallas,
 // pallas_call at :156, body _kernel at :29).
 //
-// What bounds it on the card: compute. At the ViT's full-attention blocks every
-// 512 px image is one 1296-token segment, so each q tile does ~1296 x D x 2 x 2
-// flops per row against 3 x 1296 x D x 2 bytes of k/v per head — far above the
-// H100's ~295 flops/byte bf16 balance point once k/v tiles are reused by 64 rows.
+// Semantics: row s attends to the rows t with seg[t] == seg[s]; segment ids ascend,
+// pad rows share the id PAD_SEG and attend among themselves.
 //
-// What the design does about it: a block owns 64 query rows of one head and walks
-// only the contiguous kv range of the segments its rows belong to (segment ids
-// ascend, so the range [kv_first, kv_last) comes from two searchsorteds in the
-// wrapper). A kv tile of 32 rows is converted to fp32 once in shared memory and
-// reused by all 64 rows; each row's D dims are spread over 4 threads (the dot
-// product is a 2-shuffle reduction), and the softmax is online in fp32, so the
-// (S, S) logits never exist. D = 80 is handled as is (no padding to 128), and
-// q/k/v are read through their strides (the ViT passes views of the fused qkv
-// projection). This is the simple first version: plain fp32 FMA, no tensor cores.
-#include "common.cuh"
+// What bounds it on the card: operations. At the ViT's full-attention blocks every
+// 512 px image is one 1296-token segment, so a tile of query rows does ~1296 x D x 4
+// flops per row against 2 x 1296 x D x 2 bytes of k/v per head: far above the H100's
+// ~295 flops/byte bf16 balance point once a k/v tile is reused by 128 rows, and the
+// rate for such products is in the tensor cores. As measured with the products on
+// the tensor cores, the tile copies from L2 and the softmax share the bound
+// (flash_mma.cuh says how that was found).
+//
+// What the design does about it (bf16, D a multiple of 16: the model's path, D = 80):
+// the tensor-core flash core of flash_mma.cuh (wgmma at D = 80 and 128, mma.sync at
+// the smaller head dims; a ring of three stages of cp.async copies; two blocks an SM
+// up to D = 80). A block owns 128 consecutive rows of
+// one head and walks only the contiguous key range [kv_first, kv_last) of the
+// segments its rows belong to (two searchsorteds in the wrapper). The segment
+// compare runs only on tiles that need it: a tile whose keys all carry the one id
+// of a single-segment block skips it, so a 1296-row image masks at its two ends only;
+// with segments of 16-64 rows (the windowed blocks when they take this kernel) every
+// tile is masked and most of each product is discarded, as in the TPU kernel. D = 80
+// is handled as is: 5 k-steps for Q K^T, 10 n-tiles for P V, rows padded to 88
+// elements in shared memory. q/k/v are read through their strides (16-byte aligned):
+// the ViT passes views of the fused qkv projection.
+//
+// fp32 inputs (the tiny config's parity runs) and head dims that are no multiple of
+// 16 keep the first version below: plain fp32 FMA over an fp32 tile of 32 keys, 64
+// rows a block. zt_flash_segment_variant says which of the two a dtype and head dim
+// get; the wrapper computes the key ranges for that block size.
+#include "flash_mma.cuh"
+
+// Tile copies bypass L1 (cp.async.cg): with two blocks an SM the shared-memory
+// carve-out leaves little L1, and on the card .cg ran 15 % faster here than .ca.
+#ifndef ZT_FM_K1_L1
+#define ZT_FM_K1_L1 0
+#endif
 
 namespace zt {
 
-constexpr int SEG_ROWS = 64;  // query rows per block (BLOCK_Q in ops/flash_attention.py)
+// ---------------------------------------------------------------------------
+// The fp32 variant: a block owns 64 rows of one head; each row's D dims are spread
+// over 4 threads; online softmax in fp32 over fp32 tiles.
+// ---------------------------------------------------------------------------
+constexpr int SEG_ROWS = 64;  // query rows per block
 constexpr int SEG_TPR = 4;    // threads per query row
 constexpr int SEG_BKV = 32;   // kv rows per shared-memory tile
 
@@ -112,9 +137,118 @@ static int launch_segment(const void* q, const void* k, const void* v, const int
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core variant: the policy of flash_mma.cuh's core for K1.
+// ---------------------------------------------------------------------------
+struct SegmentPolicy {
+  static constexpr bool kCopiesThroughL1 = ZT_FM_K1_L1;
+  int lo, hi;
+  int s0, S, H, D;
+  int block_id;  // the block's one segment id, or -1 when its rows span several
+  const int* seg;
+  const __nv_bfloat16* qb;  // q + h * q_sh, and so on
+  const __nv_bfloat16* kb;
+  const __nv_bfloat16* vb;
+  long long q_ss, k_ss, v_ss;
+  __nv_bfloat16* ob;  // out + h * D
+  int seg_row[2];
+
+  __device__ __forceinline__ const __nv_bfloat16* q_row_any() const { return qb; }
+  __device__ __forceinline__ const __nv_bfloat16* q_row(int r) const {
+    return s0 + r < S ? qb + (long long)(s0 + r) * q_ss : nullptr;
+  }
+  __device__ __forceinline__ __nv_bfloat16* out_row(int r) const {
+    return s0 + r < S ? ob + (long long)(s0 + r) * H * D : nullptr;
+  }
+  __device__ __forceinline__ const __nv_bfloat16* k_row(int t) const { return kb + (long long)t * k_ss; }
+  __device__ __forceinline__ const __nv_bfloat16* v_row(int t) const { return vb + (long long)t * v_ss; }
+  // aux[col] = segment id of key t0 + col (0 past hi: live() checks the bound itself)
+  __device__ __forceinline__ void load_aux(int* aux, int t0, int tid) const {
+    if (tid < FM_BKV) {
+      const bool ok = t0 + tid < hi;
+      cp_async4_z(aux + tid, seg + (ok ? t0 + tid : lo), ok);
+    }
+  }
+  // real ids are >= 0: a row past S matches nothing
+  __device__ __forceinline__ void set_rows(int r_lo, int r_hi) {
+    seg_row[0] = s0 + r_lo < S ? seg[s0 + r_lo] : -1;
+    seg_row[1] = s0 + r_hi < S ? seg[s0 + r_hi] : -1;
+  }
+  // ids ascend: a whole tile whose first and last keys carry the block's one id needs no compare
+  __device__ __forceinline__ bool needs_mask(const int* aux, int t0) const {
+    return !(t0 + FM_BKV <= hi && aux[0] == block_id && aux[FM_BKV - 1] == block_id);
+  }
+  __device__ __forceinline__ bool live(int half, const int* aux, int col, int t) const {
+    return t < hi && aux[col] == seg_row[half];
+  }
+};
+
+// Two blocks an SM up to D = 80 (128 registers a thread: one block's products and
+// copies then fill the other's softmax and barrier waits), one at D = 128.
+template <int D>
+__global__ void __launch_bounds__(FM_THREADS, D <= 80 ? 2 : 1)
+    flash_segment_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
+                             const int* __restrict__ kv_first, const int* __restrict__ kv_last,
+                             __nv_bfloat16* __restrict__ out, int S, long long q_ss, long long q_sh,
+                             long long k_ss, long long k_sh, long long v_ss, long long v_sh,
+                             float scale) {
+  extern __shared__ __align__(16) unsigned char fm_smem[];
+  const int qb = blockIdx.x;
+  const int h = blockIdx.y;
+  SegmentPolicy pol;
+  pol.lo = kv_first[qb];
+  pol.hi = kv_last[qb];
+  pol.s0 = qb * FM_ROWS;
+  pol.S = S;
+  pol.H = gridDim.y;
+  pol.D = D;
+  const int id_first = seg[pol.s0], id_last = seg[min(pol.s0 + FM_ROWS, S) - 1];
+  pol.block_id = id_first == id_last ? id_first : -1;
+  pol.seg = seg;
+  pol.qb = q + (long long)h * q_sh;
+  pol.kb = k + (long long)h * k_sh;
+  pol.vb = v + (long long)h * v_sh;
+  pol.q_ss = q_ss;
+  pol.k_ss = k_ss;
+  pol.v_ss = v_ss;
+  pol.ob = out + (long long)h * D;
+  flash_mma_block<D, __nv_bfloat16>(pol, fm_smem, scale * LOG2E);
+}
+
+template <int D>
+static int launch_segment_mma(const void* q, const void* k, const void* v, const int* seg,
+                              const int* kv_first, const int* kv_last, void* out, int S, int H,
+                              long long q_ss, long long q_sh, long long k_ss, long long k_sh,
+                              long long v_ss, long long v_sh, float scale, cudaStream_t stream) {
+  constexpr int smem = fm_smem_bytes<D, false>();
+  static const int allowed = fm_allow_smem(flash_segment_mma_kernel<D>, smem);  // once
+  if (allowed != 0) return allowed;
+  const dim3 grid((S + FM_ROWS - 1) / FM_ROWS, H);
+  flash_segment_mma_kernel<D><<<grid, FM_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), seg, kv_first, kv_last, static_cast<__nv_bfloat16*>(out), S,
+      q_ss, q_sh, k_ss, k_sh, v_ss, v_sh, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace zt
 
-// out must be a contiguous (S, H, D) tensor; q/k/v are (S, H, D) with unit stride on D.
+// Query rows per block of the variant a dtype and head dim get: FM_ROWS (the
+// tensor-core variant: bf16, D a multiple of 16), SEG_ROWS (fp32 FMA) or
+// ZT_UNSUPPORTED. kv_first / kv_last are per block of that many rows.
+extern "C" int zt_flash_segment_variant(int dtype, int D) {
+  using namespace zt;
+  if (D != 8 && D != 16 && D != 32 && D != 64 && D != 80 && D != 128) return ZT_UNSUPPORTED;
+  if (dtype == BF16) return D % 16 == 0 ? FM_ROWS : SEG_ROWS;
+  if (dtype == F32) return SEG_ROWS;
+  return ZT_UNSUPPORTED;
+}
+
+// out must be a contiguous (S, H, D) tensor; q/k/v are (S, H, D) with unit stride on D;
+// kv_first / kv_last hold one key range per block of zt_flash_segment_variant rows.
+// The tensor-core variant copies 16-byte vectors: q/k/v bases and strides must be
+// whole 16-byte multiples (the wrapper checks).
 extern "C" int zt_flash_segment(const void* q, const void* k, const void* v, const int* seg,
                                 const int* kv_first, const int* kv_last, void* out, int S, int H,
                                 int D, long long q_ss, long long q_sh, long long k_ss,
@@ -123,6 +257,20 @@ extern "C" int zt_flash_segment(const void* q, const void* k, const void* v, con
   using namespace zt;
   cudaGetLastError();  // clear any stale error so the return value is this launch's
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (zt_flash_segment_variant(dtype, D) == FM_ROWS) {
+#define ZT_SEG_MMA(DD)                                                                           \
+  return launch_segment_mma<DD>(q, k, v, seg, kv_first, kv_last, out, S, H, q_ss, q_sh, k_ss, k_sh, \
+                                v_ss, v_sh, scale, st)
+    switch (D) {
+      case 16: ZT_SEG_MMA(16);
+      case 32: ZT_SEG_MMA(32);
+      case 64: ZT_SEG_MMA(64);
+      case 80: ZT_SEG_MMA(80);
+      case 128: ZT_SEG_MMA(128);
+      default: return ZT_UNSUPPORTED;
+    }
+#undef ZT_SEG_MMA
+  }
 #define ZT_SEG(DD, TT)                                                                         \
   return launch_segment<DD, TT>(q, k, v, seg, kv_first, kv_last, out, S, H, q_ss, q_sh, k_ss, \
                                 k_sh, v_ss, v_sh, scale, st)
@@ -137,7 +285,7 @@ extern "C" int zt_flash_segment(const void* q, const void* k, const void* v, con
     default: return ZT_UNSUPPORTED; \
   }
   if (dtype == F32) { ZT_SEG_D(float) }
-  if (dtype == BF16) { ZT_SEG_D(__nv_bfloat16) }
+  if (dtype == BF16 && D == 8) { ZT_SEG(8, __nv_bfloat16); }
 #undef ZT_SEG_D
 #undef ZT_SEG
   return ZT_UNSUPPORTED;

@@ -36,7 +36,8 @@
 //   16-row tile of the block's N * G query rows on the tensor cores (mma.sync
 //   m16n8k16, bf16 in, fp32 accumulate), of which the warp keeps the half tile that
 //   holds its own pair's queries; P @ V is an mma over the diagonal block only, with
-//   the other pair's half of the 16-row tile zero.
+//   the other pair's half of the 16-row tile zero. The fragment helpers are
+//   common.cuh's, shared with K1/K2's flash core.
 #include "common.cuh"
 
 namespace zt {
@@ -47,34 +48,6 @@ constexpr int BIG_MAXN = 8; // pairs per row block (warps per block)
 constexpr int BIG_KT = 16;  // keys per staged tile (the mma's k)
 constexpr int BIG_LD = BIG_D + 8;  // padded shared-memory row (conflict-free ldmatrix)
 constexpr int BIG_TILE = 2 * BIG_KT * BIG_LD;  // one stage of a warp: k tile, then v tile
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d = a (16x16 bf16, row) * b (16x8 bf16, col) + c, fp32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1, const float (&c)[4]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]),
-        "f"(c[2]), "f"(c[3]));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&h);
-}
 
 // q (B, H, D) contiguous; k/v (B, Hkv, T, D) contiguous; kv_len (B,) clipped to
 // [0, T]; ncb (B / RB,) chunks each row block walks; part the split scratch

@@ -1,7 +1,7 @@
 """Batch two-stage inference over LRS-GRO (port of eval/infer.py).
 
 Writes jsonl result records with the reference's exact schema, one file per rank,
-so the shared scorer (zoomearth_tpu.eval.score) consumes them unchanged.
+so the reference package's scorer (zoomearth_tpu/eval/score.py) consumes them unchanged.
 """
 
 from __future__ import annotations
@@ -11,8 +11,10 @@ import os
 from typing import Optional, Sequence
 
 from ..agent.episode import EpisodeResult, run_episodes
+from ..agent.processor import Processor
+from ..image.geometry import extract_bbox
 from ..runtime.generate import GenerationConfig, Generator
-from ..shared import LRSGROSample, Processor, batched, extract_bbox
+from ..train.data import LRSGROSample, batched
 
 DEFAULT_MODEL_ID = "zoomearth-tpu-torch"
 

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from ..ops.flash_causal import flash_causal_attention
 from ..ops.flash_decode import flash_decode_attention
-from ..shared import TextConfig
+from ..config import TextConfig
 from .rope import apply_rotary, mrope_cos_sin
 from .vit import rms_norm
 

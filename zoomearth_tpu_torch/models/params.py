@@ -20,7 +20,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..shared import TextConfig, VisionConfig, VLMConfig
+from ..config import TextConfig, VisionConfig, VLMConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

@@ -22,9 +22,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..config import VisionConfig
+from ..image.preprocess import IMAGE_MEAN, IMAGE_STD
 from ..ops.attention import LOCAL_BLOCK, gather_window_attention, window_block_attention
 from ..ops.flash_attention import PAD_SEG, flash_segment_attention
-from ..shared import IMAGE_MEAN, IMAGE_STD, VisionConfig
 from .rope import apply_rotary, vision_pos_ids, vision_rope_cos_sin
 
 

@@ -11,7 +11,7 @@ from typing import Optional
 
 import torch
 
-from ..shared import VLMConfig
+from ..config import VLMConfig
 from .decoder import KVCache, decoder_forward, logits_from_hidden
 from .vit import vit_forward
 

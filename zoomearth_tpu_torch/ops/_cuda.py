@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("common.cuh", "flash_segment.cu", "flash_causal.cu", "flash_decode.cu", "paged_decode.cu",
+SOURCES = ("common.cuh", "flash_mma.cuh", "flash_segment.cu", "flash_causal.cu", "flash_decode.cu", "paged_decode.cu",
            "probe_stream.cu", "probe_bigmm.cu", "split_merge.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,21 +51,19 @@ def library_path() -> Path:
     return BUILD_DIR / f"libzt_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless this exact source set is already built: one nvcc
-    per source, all at once, then one link. The library is linked in a temporary
+def compile_library(path: Path, csrc: Path = CSRC, extra_flags=(), units=None) -> None:
+    """Compile the sources under `csrc` (all of SOURCES, or the `units` named) into
+    the shared library `path`: one nvcc per source, all at once, then one link. The library is linked in a temporary
     directory and renamed into place, so concurrent builders never load a
     half-written file. The compiler's output (ptxas register and spill counts) is
     kept beside it as `<library>.log`."""
-    path = library_path()
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
-        units = [s for s in SOURCES if s.endswith(".cu")]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=path.parent) as work:
+        units = [s for s in (units or SOURCES) if s.endswith(".cu")]
         objs = [os.path.join(work, s[:-3] + ".o") for s in units]
-        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)], stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True) for s, o in zip(units, objs)]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, *extra_flags, "-c", "-o", o, str(csrc / s)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(units, objs)]
         logs = [p.communicate()[0] for p in procs]
         failed = [f"{s} ({p.returncode}):\n{log[-4000:]}" for s, p, log in zip(units, procs, logs) if p.returncode]
         tmp = os.path.join(work, "lib.so")
@@ -78,12 +76,21 @@ def build() -> Path:
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
         os.replace(tmp, path)
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact source set is already built."""
+    path = library_path()
+    if not path.exists():
+        compile_library(path)
     return path
 
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "zt_flash_segment": [_P] * 7 + [_I] * 3 + [_L] * 6 + [_F, _I, _P],
+    "zt_flash_segment_variant": [_I, _I],
+    "zt_flash_causal_variant": [_I, _I, _I],
     "zt_flash_causal": [_P] * 8 + [_I] * 6 + [_L] * 11 + [_F, _I, _I, _P],
     "zt_flash_decode": [_P] * 8 + [_I] * 7 + [_L] * 10 + [_F, _I, _I, _P],
     "zt_paged_decode": [_P] * 7 + [_I] * 5 + [_L] * 4 + [_F, _I, _P],
@@ -92,18 +99,25 @@ _SIGNATURES = {
 }
 
 
+def load_library(path: Path, only=None) -> ctypes.CDLL:
+    """Load a kernel library and declare its entry points' C signatures (`only`:
+    the names to declare, for a library built from other sources)."""
+    handle = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        if only is None or name in only:
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    handle.zt_error_string.argtypes = [ctypes.c_int]
+    handle.zt_error_string.restype = ctypes.c_char_p
+    return handle
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        handle.zt_error_string.argtypes = [ctypes.c_int]
-        handle.zt_error_string.restype = ctypes.c_char_p
-        _lib = handle
+        _lib = load_library(build())
     return _lib
 
 
@@ -114,12 +128,15 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: launch failed with code {rc}: {msg}")
 
 
-def count_launch(wrapper) -> None:
-    """Add one to `wrapper.launches` for the kernel it has just launched. A call made
-    while a CUDA graph is being captured launches nothing (the graph's replays run the
+def count_launch(wrapper, variant: str | None = None) -> None:
+    """Add one to `wrapper.launches` (and to `wrapper.variants[variant]`, where the
+    kernel has variants) for the kernel it has just launched. A call made while a
+    CUDA graph is being captured launches nothing (the graph's replays run the
     kernel without passing through the wrapper), so it is not counted."""
     if not torch.cuda.is_current_stream_capturing():
         wrapper.launches += 1
+        if variant is not None:
+            wrapper.variants[variant] += 1
 
 
 def ptr(t) -> ctypes.c_void_p:
@@ -145,3 +162,14 @@ def require_cuda(name: str, *tensors) -> None:
             raise ValueError(f"{name}: all tensors must be on one CUDA device (got {t.device})")
         if t.stride(-1) != 1 and t.dim() > 1:
             raise ValueError(f"{name}: last dim must have unit stride (strides {t.stride()})")
+
+
+def require_aligned16(name: str, *tensors) -> None:
+    """Raise unless each tensor's base address and every stride but the last are whole
+    16-byte multiples: a kernel that copies 16-byte vectors refuses other views."""
+    for t in tensors:
+        item = t.element_size()
+        if t.data_ptr() % 16 or any((x * item) % 16 for x in (t.shape[-1], *t.stride()[:-1])):
+            raise ValueError(f"{name}: rows and strides must be whole 16-byte multiples from a 16-byte aligned "
+                             f"base (the kernel copies 16-byte vectors; shape {tuple(t.shape)}, strides "
+                             f"{t.stride()}, offset {t.storage_offset()})")

@@ -9,7 +9,8 @@ any T (no T % 512 rule) and reads a strided prefix view of the cache in place.
   kernel (or raises).
 - `flash_decode_attention_plain` is the plain torch version, int8 algebra included.
 - `live_lengths` is the launch prep: the slots each row reads (kv_len clipped to
-  [0, T]); `read_bytes` is the cache traffic that follows from it.
+  [0, T]); `read_bytes` is the cache traffic that follows from it, `work` the least
+  (flops, bytes) of a call.
 - `split_plan` is how the kernel splits the key axis across blocks, from the
   shapes alone; `decode_partials_plain` and `merge_splits_plain` are the plain
   versions of its two passes (the per-split softmax states and the split merge
@@ -51,6 +52,18 @@ def live_lengths(kv_len: torch.Tensor, T: int) -> torch.Tensor:
 def read_bytes(kv_len: torch.Tensor, T: int, Hkv: int, D: int, itemsize: int) -> int:
     """Cache bytes one K3 call reads: k and v rows of the live slots only."""
     return int(live_lengths(kv_len, T).sum()) * Hkv * D * itemsize * 2
+
+
+def work(kv_len: torch.Tensor, T: int, H: int, Hkv: int, D: int, itemsize: int,
+         q_itemsize: int = 2) -> tuple[int, int]:
+    """(flops, bytes) one decode-attention call needs at the least: both products over
+    each row's live slots (4 * D * H * sum of kv_len), the live k/v rows (read_bytes;
+    with their fp32 scales for int8 caches) read once, q read and out written once."""
+    live = int(live_lengths(kv_len, T).sum())
+    nbytes = read_bytes(kv_len, T, Hkv, D, itemsize) + 2 * kv_len.shape[0] * H * D * q_itemsize
+    if itemsize == 1:
+        nbytes += 2 * live * Hkv * 4
+    return 4 * D * H * live, nbytes
 
 
 def split_plan(B: int, Hkv: int, T: int) -> tuple[int, int]:

@@ -42,6 +42,18 @@ def read_bytes(lengths: torch.Tensor, block_table: torch.Tensor, page_size: int,
     return int(_live_lengths(lengths, block_table, page_size).sum()) * Hkv * D * itemsize * 2
 
 
+def work(lengths: torch.Tensor, block_table: torch.Tensor, page_size: int, H: int, Hkv: int, D: int,
+         itemsize: int) -> tuple[int, int]:
+    """(flops, bytes) one K4 call needs at the least: both products over each row's
+    live slots, the live k/v rows (read_bytes) and their pages' block-table entries
+    read once, q read and out written once."""
+    live = _live_lengths(lengths, block_table, page_size)
+    pages = int(torch.div(live + page_size - 1, page_size, rounding_mode="floor").sum())
+    nbytes = read_bytes(lengths, block_table, page_size, Hkv, D, itemsize) + 4 * pages \
+        + 2 * lengths.shape[0] * H * D * itemsize
+    return 4 * D * H * int(live.sum()), nbytes
+
+
 def _gather(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
     """(P, Hkv, page, D) pages named by (B, max_pages) -> contiguous (B, Hkv, max_pages * page, D)."""
     B, max_pages = block_table.shape

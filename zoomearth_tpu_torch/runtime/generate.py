@@ -25,13 +25,13 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..config import VLMConfig
 from ..models.decoder import KVCache
 from ..models.params import torch_dtype
 from ..models.rope import mrope_position_ids_batch
 from ..models.vit import meta_to_device, vision_metadata
 from ..models.vlm import vlm_forward
 from ..ops.sampling import greedy, sample
-from ..shared import VLMConfig
 
 DEFAULT_LENGTH_BUCKETS = (128, 256, 384, 512, 768, 1024, 1536, 2048)
 DEFAULT_CACHE_BUCKETS = (256, 512, 768, 1024, 1280, 1536, 2048, 3072, 4096)

@@ -51,9 +51,14 @@ def to_pages(k, v, page, rng):
     return pool(k), pool(v), block_table
 
 
+def cell_lengths(rng, B, T, live_frac):
+    """The reference cell's lengths, at 20-40 % of T (paged_256_test.py:46): rng's first draw."""
+    return ((rng.random(B) * 0.2 + (live_frac - 0.1)) * T).astype(np.int32)
+
+
 def cell_inputs(rng, B, T, live_frac, device):
-    """The reference cell's tensors: lengths at 20-40 % of T (paged_256_test.py:46)."""
-    lens = ((rng.random(B) * 0.2 + (live_frac - 0.1)) * T).astype(np.int32)
+    """The reference cell's tensors, the lengths drawn first."""
+    lens = cell_lengths(rng, B, T, live_frac)
 
     def bf16(shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, torch.bfloat16)

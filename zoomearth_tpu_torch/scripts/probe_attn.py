@@ -30,6 +30,7 @@ import torch
 from ..ops import _cuda
 from ..ops.attention import NEG_INF, decode_attention
 from ..ops.flash_decode import decode_attention_cuda
+from ..ops.flash_decode import work as flash_decode_work
 from .timing import PLAIN, time_in_turns
 
 LAYERS = 36
@@ -109,6 +110,12 @@ def stream_bytes(k_cache) -> int:
     return 2 * k_cache.numel() * k_cache.element_size()
 
 
+def stream_work(q, k_cache, rb: int = 4) -> tuple[int, int]:
+    """(flops, bytes) one P1 call needs at the least: one fp32 add per k and v element
+    (the row blocks' sums), every element read once, out and the sums written once."""
+    return 2 * k_cache.numel(), stream_bytes(k_cache) + q.numel() * q.element_size() + 4 * (q.shape[0] // rb)
+
+
 # ---------------- (P2) big-product attention ----------------
 
 MAX_PAIRS = 8  # (row, kv head) pairs per row block: warps per block in csrc/probe_bigmm.cu
@@ -138,6 +145,13 @@ def walked_bytes(kv_len, T: int, chunk: int, Hkv: int, D: int) -> int:
     """Cache bytes one P2 call reads: k and v (bf16) of every slot its row blocks walk."""
     RB = row_block(kv_len.shape[0])
     return int(block_chunks(kv_len, T, chunk, RB).sum()) * chunk * RB * Hkv * D * 2 * 2
+
+
+def bigmm_work(kv_len, T: int, H: int, Hkv: int, D: int) -> tuple[int, int]:
+    """(flops, bytes) the function P2 computes needs at the least: decode attention
+    over each row's live slots (flash_decode.work, bf16), not the slots its row blocks
+    walk nor its N / 2-fold extra multiplies."""
+    return flash_decode_work(kv_len, T, H, Hkv, D, 2)
 
 
 def bigmm_partials_plain(q, k_cache, v_cache, kv_len, *, chunk=512, split=SPLIT):
@@ -258,10 +272,11 @@ def probe_inputs(device):
     return q, k, v, lens
 
 
-def measure(q, k, v, lens):
+def measure(q, k, v, lens, extra=()):
     """Time, in turns: plain decode attention and K3 at the ragged lengths, P2 at
     chunk 512 ragged and at len = T, and P1 at len = T, each of P1 and P2 beside its
-    plain version. Returns {case: (ms per call, device ms per call, GB/s of cache
+    plain version; then the caller's `extra` (name, function, bytes or None) cases, in
+    the same turns. Returns {case: (ms per call, device ms per call, GB/s of cache
     read (P1) or walked (P2) on device time, or None)}."""
     Hkv, T, D = k.shape[1], k.shape[2], k.shape[3]
     full = torch.full_like(lens, T)
@@ -276,6 +291,7 @@ def measure(q, k, v, lens):
                    lambda ln=ln: bigmm_decode_attention_plain(q, k, v, ln, chunk=CHUNK), None)]
     cases += [("P1 stream_only (copy floor) len=T", lambda: stream_only(q, k, v, full), stream_bytes(k)),
               (f"P1 stream_only (copy floor) len=T{PLAIN}", lambda: stream_only_plain(q, k, v, full), stream_bytes(k))]
+    cases += list(extra)
     ms, dev = time_in_turns([c[1] for c in cases])
     return {name: (t, d, None if nbytes is None else nbytes / d / 1e6)
             for (name, _, nbytes), t, d in zip(cases, ms, dev)}
