@@ -37,7 +37,12 @@ Phases, each fatal on failure (nothing is caught):
 6. decode-variants — the decode-attention entry points beside the serving path, at
    the reference's shapes. First the checks: K4 (paged decode) against its plain
    version and K3 at (B=32|64, T=4096, 30 % live, pages 64|256); P1 (stream probe)
-   and P2 (big-product decode) against their plain versions at B=32, T=1536. Then,
+   and P2 (big-product decode) against their plain versions at B=32, T=1536; then,
+   untimed, K4 and P1 at their edges: K4 at pages of 16, 64 and 256 with lengths 0,
+   1, either side of a split and of a page boundary, capacity and past it, and
+   block-table tails of ids far outside the pool, bf16 and fp32, against its plain
+   version and K3; P1 at row blocks of 4, 2 and 1, chunks of 512 and under 64, bf16
+   and fp32. Then,
    with the counts at 0, the entry points' own runs (zoomearth_tpu_torch.scripts
    probe_attn.measure and paged_256_test.measure_cell, which time each kernel beside
    its plain version in turns; P1's rate is of the cache it reads, P2's of the cache
@@ -49,8 +54,9 @@ Phases, each fatal on failure (nothing is caught):
 The second-to-last line is {"kernels": [...]} (every case of each kernel with its
 time, its plain version's, the library call's where there is one, its bound and the
 share of it reached; the untimed checks; launches from the path that runs it: calls
-of the wrapper, and each K3 or P2 call runs two kernels, its split pass and the split
-merge); the last is the device contract line.
+of the wrapper, and each K3, K4 or P2 call runs two kernels, its split pass and the
+split merge; a P1 call is one memset and one kernel); the last is the device contract
+line.
 """
 
 from __future__ import annotations
@@ -274,16 +280,16 @@ def check_kernels(card):
                   "flash_decode_attention": check_k3_edges(randn, int8, scales)}
 
 
-def edge_check(label, out, ref):
+def edge_check(label, out, ref, tol=TOL_BF16):
     """One untimed check: log and return it; raise if the kernel disagrees."""
     import torch
 
     torch.cuda.synchronize()
     err = max_err(out, ref)
-    log(f"  {label}: max_abs_err {err:.3e} (tol {TOL_BF16}), untimed")
-    if not (err <= TOL_BF16 and bool(torch.isfinite(out.float()).all())):
+    log(f"  {label}: max_abs_err {err:.3e} (tol {tol}), untimed")
+    if not (err <= tol and bool(torch.isfinite(out.float()).all())):
         raise AssertionError(f"{label}: kernel disagrees with its plain version ({err})")
-    return {"case": label, "max_abs_err": err, "tol": TOL_BF16}
+    return {"case": label, "max_abs_err": err, "tol": tol}
 
 
 def check_k1_edges(randn):
@@ -641,6 +647,81 @@ def profile_slice(card):
             log(f"    {ms:9.1f} ms {100 * ms / total:5.1f} % {count:7d} calls {1e3 * ms / count:9.1f} us  {key[:100]}")
 
 
+def check_k4_edges():
+    """K4 against its plain version and against K3 on the same k/v, untimed, where the
+    split pass meets pages: pages of 16 (a 32-slot tile crosses them), 64 and 256; rows
+    of length 0 (K4 gives 0 and reads nothing), 1, either side of a split and of a page
+    boundary, capacity and past it; block-table entries past each row's pages set to
+    ids far outside the pool (a read of one would fault); bf16 D=128 (tol 2e-2) and
+    fp32 D=32 (tol 1e-4: fp32 sums in another order). Returns the checks."""
+    import numpy as np
+    import torch
+
+    from zoomearth_tpu_torch.ops import flash_decode as K3
+    from zoomearth_tpu_torch.ops import paged_attention as K4
+    from zoomearth_tpu_torch.scripts import paged_256_test as PT
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, H, Hkv = 8, 16, 2
+    checks = []
+    for page in (16, 64, 256):
+        for dtype, D, tol in ((torch.bfloat16, 128, TOL_BF16), (torch.float32, 32, 1e-4)):
+            T = max(4 * page, 256)
+            split = K3.split_plan(B, Hkv, T)[0]
+            q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                       for shape in ((B, H, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+            kpool, vpool, bt = PT.to_pages(k, v, page, np.random.default_rng(6))
+            lens = torch.tensor([0, 1, split - 1, split + 1, page - 1, page + 1, T, T + 9], device=dev)
+            tail = torch.arange(T // page, device=dev)[None] >= K4.page_counts(lens.clamp(max=T), page)[:, None]
+            bt = torch.where(tail, torch.full_like(bt, 2**30), bt)
+            out = K4.paged_decode_cuda(q, kpool, vpool, bt, lens, page_size=page)
+            label = f"K4 page {page} {str(dtype).split('.')[1]} D={D} T={T} (split {split}), lengths {lens.tolist()}"
+            checks.append(edge_check(label, out, K4.paged_decode_attention_plain(q, kpool, vpool, bt, lens,
+                                                                                 page_size=page), tol))
+            checks.append(edge_check(label + " vs K3 on the same k/v, rows with a live slot", out[1:],
+                                     K3.decode_attention_cuda(q, k, v, lens)[1:], tol))
+            if bool(out[0].any()):
+                raise AssertionError(f"{label}: a row with no live slot must give 0")
+    return checks
+
+
+def check_p1_edges():
+    """P1 against its plain version, untimed, where its tiling has edges: row blocks of
+    4, 2 and 1 rows, chunks of 512 and chunks under 64 (the first 64 flattened rows
+    then span several kv heads and rows), row blocks that are no whole number of
+    tiles, bf16 and fp32. out to one step of its dtype (fp32 sums in another order,
+    one rounding), sums to 1e-6 of the summed magnitudes (atomics in any order).
+    Returns the checks."""
+    import torch
+
+    from zoomearth_tpu_torch.scripts import probe_attn as PA
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    checks = []
+    for B, H, Hkv, D, T, chunk, rb in ((8, 16, 2, 128, 1536, 512, 4), (6, 16, 2, 128, 1024, 512, 2),
+                                       (3, 16, 2, 64, 1536, 512, 1), (4, 8, 2, 32, 96, 16, 2),
+                                       (4, 4, 1, 16, 200, 40, 4), (5, 16, 2, 64, 96, 8, 1)):
+        for dtype, step in ((torch.bfloat16, 2.0**-7), (torch.float32, 1e-6)):
+            q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                       for shape in ((B, 1, H, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+            (out, sums), (ref, ref_sums) = (fn(q, k, v, chunk=chunk, rb=rb)
+                                            for fn in (PA.stream_only_cuda, PA.stream_only_plain))
+            torch.cuda.synchronize()
+            step_ok = bool(((out.float() - ref.float()).abs() <= step * ref.float().abs() + 1e-5).all())
+            mass = (k.double().abs() + v.double().abs()).reshape(B // rb, -1).sum(1)
+            sum_err = ((sums.double() - ref_sums.double()).abs() / mass).max().item()
+            label = f"P1 B={B} H={H} Hkv={Hkv} D={D} T={T} chunk {chunk} rb {rb} {str(dtype).split('.')[1]}"
+            log(f"  {label}: out max_abs_err {max_err(out, ref):.3e} (tol one step, {step:.1e} of the value), sums "
+                f"{sum_err:.3e} of the summed magnitudes (tol 1e-6), untimed")
+            if not (step_ok and sum_err <= 1e-6):
+                raise AssertionError(f"{label}: P1 disagrees with its plain version")
+            checks.append({"case": label, "max_abs_err": max_err(out, ref), "sum_err_over_mass": sum_err,
+                           "tol": f"{step:.1e} of the value; sum 1e-6 of the summed magnitudes"})
+    return checks
+
+
 def cell_label(B, T, live):
     return f"B={B} T={T} {int(live * 100)}% live"
 
@@ -815,8 +896,11 @@ def main(argv=()) -> int:
     check_tiny_parity()
     log("[slice] Qwen2.5-VL-3B bf16, run_inference + run_episodes(reuse_cache=True)")
     launches = run_slice(card)
-    log("[decode-variants] K4 / P1 / P2 checked at the reference's shapes, then the entry points' runs")
-    variant_rows, variant_launches = run_decode_variants(card, check_decode_variants())
+    log("[decode-variants] K4 / P1 / P2 checked at the reference's shapes and at their edges, then the entry "
+        "points' runs")
+    checks = check_decode_variants()
+    untimed.update({"paged_decode_attention": check_k4_edges(), "stream_only": check_p1_edges()})
+    variant_rows, variant_launches = run_decode_variants(card, checks)
     rows.update(variant_rows)
     launches.update(variant_launches)
 

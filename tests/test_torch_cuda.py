@@ -16,7 +16,9 @@ from zoomearth_tpu.config import VLMConfig
 from zoomearth_tpu_torch.ops import flash_attention as K1
 from zoomearth_tpu_torch.ops import flash_causal as K2
 from zoomearth_tpu_torch.ops import flash_decode as K3
+from zoomearth_tpu_torch.ops import _cuda
 from zoomearth_tpu_torch.ops import paged_attention as K4
+from zoomearth_tpu_torch.scripts import paged_256_test as PT
 from zoomearth_tpu_torch.scripts import probe_attn as P
 
 pytestmark = pytest.mark.cuda
@@ -284,6 +286,88 @@ def test_k4_matches_plain(dev, dtype, B, H, Hkv, D, page, max_pages):
     assert bool((out[0] == 0).all())
 
 
+def _k4_case(dev, page, dtype, D, H=16, Hkv=2):
+    """B = 8 rows over a contiguous cache laid out in pages of `page` at shuffled ids:
+    lengths 0, 1, either side of a split and of a page boundary, capacity and past it;
+    table entries past each row's pages are ids far outside [0, P)."""
+    B, T = 8, max(4 * page, 256)
+    split = K3.split_plan(B, Hkv, T)[0]
+    assert split + 1 < T and page + 1 < T
+    q = _randn((B, H, D), dev, dtype, 70)
+    k, v = _randn((B, Hkv, T, D), dev, dtype, 71), _randn((B, Hkv, T, D), dev, dtype, 72)
+    kpool, vpool, bt = PT.to_pages(k, v, page, np.random.default_rng(73))
+    lens = torch.tensor([0, 1, split - 1, split + 1, page - 1, page + 1, T, T + 9], device=dev)
+    tail = torch.arange(T // page, device=dev)[None] >= K4.page_counts(lens.clamp(max=T), page)[:, None]
+    bt = torch.where(tail, torch.tensor([2**30, -(2**29)], dtype=torch.int32, device=dev).repeat(T // page)[: T // page],
+                     bt)
+    return q, k, v, kpool, vpool, bt, lens
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 32), (torch.bfloat16, 128)])
+@pytest.mark.parametrize("page", [16, 64, 256])
+def test_k4_edges_match_plain_and_k3_on_the_same_kv(dev, page, dtype, D):
+    """A tile of 32 slots crosses pages of 16; a row with no live slot gives 0 and one
+    past capacity reads its capacity; a table entry past a row's pages is never read
+    (a read of pool[2**30] would fault)."""
+    q, k, v, kpool, vpool, bt, lens = _k4_case(dev, page, dtype, D)
+    n0 = K4.paged_decode_cuda.launches
+    out = K4.paged_decode_cuda(q, kpool, vpool, bt, lens, page_size=page)
+    torch.cuda.synchronize()
+    assert K4.paged_decode_cuda.launches == n0 + 1
+    assert _err(out, K4.paged_decode_attention_plain(q, kpool, vpool, bt, lens, page_size=page)) <= TOL[dtype]
+    assert not bool(out[0].any())
+    k3 = K3.decode_attention_cuda(q, k, v, lens)
+    assert _err(out[1:], k3[1:]) <= TOL[dtype]  # row 0: K3 gives the mean of v, K4 gives 0
+
+
+def test_k4_refuses_misaligned_pools_and_odd_head_dims(dev):
+    """K4 copies 16-byte vectors, as K3 does: a pool off a 16-byte boundary, a slot
+    stride that is no whole number of vectors, or D % 8 is refused before launch."""
+    B, H, Hkv, D, page = 2, 16, 2, 128, 16
+    q = _randn((B, H, D), dev, torch.bfloat16, 74)
+    bt = torch.arange(4, dtype=torch.int32, device=dev).reshape(B, 2)
+    lens = torch.tensor([3, 2 * page], device=dev)
+    off = _randn((4 * Hkv * page * D + 1,), dev, torch.bfloat16, 75)[1:].view(4, Hkv, page, D)
+    wide = _randn((4, Hkv, page, D + 4), dev, torch.bfloat16, 76)[..., :D]
+    n0 = K4.paged_decode_cuda.launches
+    for pool in (off, wide):
+        with pytest.raises(ValueError, match="16-byte"):
+            K4.paged_decode_cuda(q, pool, pool, bt, lens, page_size=page)
+    odd = _randn((4, Hkv, page, 20), dev, torch.float32, 77)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K4.paged_decode_cuda(_randn((B, H, 20), dev, torch.float32, 78), odd, odd, bt, lens, page_size=page)
+    assert K4.paged_decode_cuda.launches == n0
+
+
+def test_k4_and_p1_replay_in_a_cuda_graph(dev):
+    """Capture fails on a host sync, so neither wrapper waits for the device. K4's
+    replay equals the eager result bit for bit (no atomics); P1's out too (each vector
+    has one owner), its sums to 1e-6 of the summed magnitudes (atomics in any order)."""
+    q, k, v, kpool, vpool, bt, lens = _k4_case(dev, 16, torch.bfloat16, 128)
+    fns = (lambda: K4.paged_decode_cuda(q, kpool, vpool, bt, lens, page_size=16),
+           lambda: P.stream_only_cuda(q[:, None], k, v, chunk=64, rb=4))
+    eager = [f() for f in fns]
+    torch.cuda.synchronize()
+    n0 = (K4.paged_decode_cuda.launches, P.stream_only_cuda.launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [f() for f in fns]
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert n0 == (K4.paged_decode_cuda.launches, P.stream_only_cuda.launches)
+    assert torch.equal(outs[0], eager[0])
+    assert torch.equal(outs[1][0], eager[1][0])
+    mass = (k.double().abs() + v.double().abs()).reshape(2, -1).sum(1)
+    assert bool(((outs[1][1].double() - eager[1][1].double()).abs() <= 1e-6 * mass).all())
+
+
+def test_shared_split_pass_tile_matches_the_plan(dev):
+    """split_plan makes splits of whole tiles: the Python constant is the kernels'."""
+    assert _cuda.lib().zt_decode_split_tile() == K3.TILE
+    assert _cuda.lib().zt_probe_stream_plan(4) == 0  # the wrapper's build leaves no part out
+
+
 def test_append_to_pages_on_card_drops_at_capacity(dev):
     """A write at capacity is dropped without indexing page P (a device-side assert)."""
     P_, Hkv, page, D = 6, 2, 8, 16
@@ -300,7 +384,8 @@ def test_append_to_pages_on_card_drops_at_capacity(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Hkv,D,T,chunk,rb", [(8, 16, 2, 128, 1536, 512, 4), (4, 8, 2, 32, 96, 16, 2),
-                                                  (4, 4, 1, 16, 200, 40, 4)])
+                                                  (4, 4, 1, 16, 200, 40, 4), (6, 16, 2, 128, 1024, 512, 2),
+                                                  (3, 16, 2, 64, 1536, 512, 1), (5, 16, 2, 64, 96, 8, 1)])
 def test_p1_matches_plain(dev, dtype, B, H, Hkv, D, T, chunk, rb):
     q = _randn((B, 1, H, D), dev, dtype, 26)
     k = _randn((B, Hkv, T, D), dev, dtype, 27)

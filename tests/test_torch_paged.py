@@ -8,6 +8,13 @@ whose entries past each row's pages are garbage ids outside [0, P) (neither read
 them). The gather oracle is held against the JAX oracle and against the contiguous
 plain decode attention; `append_to_pages` must equal the JAX scatter exactly,
 including the dropped write at capacity. fp32 to atol 5e-5 (the repo's parity bar).
+
+The kernel's two passes in plain torch (the split pass K4 shares with K3, with K4's
+rule for a row with no live slot, then the split merge) are held against the plain
+version and the Pallas kernel to 1e-5 at the lengths where they could part: 0, 1,
+either side of a split and of a page boundary, capacity and past it, with pages that
+a 32-slot tile crosses (16) and pages that hold whole tiles (64). The address policy's
+plain mirror must index exactly as the gather oracle does.
 """
 
 import jax
@@ -20,6 +27,7 @@ from zoomearth_tpu.ops.attention import decode_attention as jax_decode_attention
 from zoomearth_tpu.ops.paged_attention import append_to_pages as jax_append
 from zoomearth_tpu.ops.paged_attention import paged_decode_attention as jax_paged
 from zoomearth_tpu.ops.paged_attention import paged_decode_attention_reference as jax_oracle
+from zoomearth_tpu_torch.ops import flash_decode as K3
 from zoomearth_tpu_torch.ops import paged_attention as K4
 from zoomearth_tpu_torch.ops.attention import decode_attention
 from zoomearth_tpu_torch.scripts import paged_256_test
@@ -163,3 +171,69 @@ def test_paged_decode_loop_on_cpu():
     err, unchanged, same = paged_256_test.decode_loop(torch.device("cpu"), B=3, steps=5, page=16, max_pages=3)
     assert unchanged and same
     assert err <= 1e-6  # the same fp32 algorithm over the same values, gathered or not
+
+
+def _edge_setup(page, max_pages, seed):
+    """B = 8 rows of H = 4, Hkv = 2, D = 32 whose lengths sit on every edge of the split
+    pass: 0, 1, either side of a split boundary and of a page boundary, capacity and
+    past capacity. Disjoint shuffled page ids; table entries past a row's pages are
+    ids far outside the pool."""
+    B, H, Hkv, D = 8, 4, 2, 32
+    cap = page * max_pages
+    split, nsplit = K3.split_plan(B, Hkv, cap)
+    assert nsplit >= 2 and split + 1 < cap and page + 1 < cap
+    rng = np.random.default_rng(seed)
+    P = B * max_pages + 3
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    kpool = rng.standard_normal((P, Hkv, page, D)).astype(np.float32)
+    vpool = rng.standard_normal((P, Hkv, page, D)).astype(np.float32)
+    bt = rng.permutation(P)[: B * max_pages].reshape(B, max_pages).astype(np.int32)
+    lengths = np.array([0, 1, split - 1, split + 1, page - 1, page + 1, cap, cap + 7], np.int32)
+    n = -(-np.minimum(lengths, cap) // page)
+    for b in range(B):
+        bt[b, n[b]:] = 10**6 + b
+    return q, kpool, vpool, bt, lengths, split
+
+
+@pytest.mark.parametrize("page,max_pages", [(16, 5), (64, 3)])
+def test_k4_two_passes_match_plain_and_pallas_kernel(page, max_pages):
+    q, kpool, vpool, bt, lengths, split = _edge_setup(page, max_pages, seed=8)
+    B, H, D = q.shape
+    m, l, acc, walked = K4.paged_partials_plain(_t(q), _t(kpool), _t(vpool), _t(bt), _t(lengths), split,
+                                                page_size=page)
+    Hkv = kpool.shape[1]
+    cap = page * max_pages
+    assert walked.tolist() == [w for n in np.minimum(lengths, cap) for w in [-(-int(n) // split)] * Hkv]
+    two = K3.merge_splits_plain(m, l, acc, walked).reshape(B, H, D).numpy()
+    plain = K4.paged_decode_attention_plain(_t(q), _t(kpool), _t(vpool), _t(bt), _t(lengths), page_size=page).numpy()
+    np.testing.assert_allclose(two, plain, atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(two[0], 0.0)  # no live slot: no split walked, the merge gives 0
+    safe = np.where(np.arange(max_pages)[None] < -(-np.minimum(lengths, cap)[:, None] // page), bt, 0)
+    ref = np.asarray(jax_paged(jnp.asarray(q), jnp.asarray(kpool), jnp.asarray(vpool), jnp.asarray(safe),
+                               jnp.asarray(np.minimum(lengths, cap)), page_size=page, interpret=True))
+    np.testing.assert_allclose(two, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("page,max_pages", [(16, 5), (64, 3), (7, 9)])
+def test_k4_address_policy_indexes_as_the_gather_oracle(page, max_pages):
+    """slot_address(t) = (block_table[b, t // page], t % page) reaches exactly the
+    element the oracle's gathered cache holds at slot t, for every slot of every row."""
+    B, Hkv, D = 3, 2, 8
+    rng = np.random.default_rng(9)
+    P = B * max_pages
+    pool = _t(rng.standard_normal((P, Hkv, page, D)).astype(np.float32))
+    bt = _t(rng.permutation(P).reshape(B, max_pages).astype(np.int32))
+    t = torch.arange(page * max_pages)[None].expand(B, -1)
+    ids, slots = K4.slot_address(bt, t, page)
+    assert ids.shape == slots.shape == t.shape
+    got = pool[ids, :, slots]  # (B, T, Hkv, D)
+    assert torch.equal(got.transpose(1, 2), K4._gather(pool, bt))
+
+
+@pytest.mark.parametrize("B,Hkv,page,max_pages", [(32, 2, 64, 64), (64, 2, 256, 16), (8, 2, 16, 5), (3, 1, 7, 9),
+                                                  (1, 8, 256, 1)])
+def test_split_plan_covers_the_paged_capacity(B, Hkv, page, max_pages):
+    cap = page * max_pages
+    split, nsplit = K3.split_plan(B, Hkv, cap)
+    assert split > 0 and split % K3.TILE == 0
+    assert (nsplit - 1) * split < cap <= nsplit * split  # the splits cover [0, capacity), none is empty

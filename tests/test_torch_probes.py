@@ -65,6 +65,8 @@ def _inputs(B, H, Hkv, D, T, seed):
     (8, 16, 2, 32, 64, 32, 4),  # 3B heads; 64 summed rows = row 0's two kv heads
     (4, 8, 2, 32, 96, 16, 2),  # the 64 rows span both rows of the row block
     (4, 4, 1, 16, 256, 128, 4),  # the 64 rows are the first slots of one (row, head)
+    (3, 16, 2, 32, 128, 64, 1),  # row blocks of one row
+    (6, 16, 2, 16, 64, 16, 2),  # chunks under 64: the 32 output rows span both kv heads of row 0
 ])
 def test_p1_plain_matches_pallas_probe(B, H, Hkv, D, T, chunk, rb):
     q, k, v = _inputs(B, H, Hkv, D, T, seed=B + T)
@@ -79,6 +81,21 @@ def test_p1_plain_matches_pallas_probe(B, H, Hkv, D, T, chunk, rb):
     mass = (np.abs(k.astype(np.float64)) + np.abs(v)).reshape(B // rb, -1).sum(1)
     assert sums.dtype == torch.float32 and sums.shape == (B // rb,)
     assert np.all(np.abs(sums.numpy() - want) <= 1e-6 * mass)
+
+
+@pytest.mark.parametrize("B,H,Hkv,D,T,chunk,rb", [(8, 16, 2, 16, 128, 64, 4), (4, 8, 2, 8, 96, 16, 2),
+                                                  (5, 16, 2, 8, 96, 8, 1), (4, 4, 1, 8, 200, 40, 4)])
+def test_p1_kernel_row_ownership_reproduces_the_plain_output(B, H, Hkv, D, T, chunk, rb):
+    """The kernel sums out's rows straight from the cache: row f of a row block is one
+    (row, kv head, slot) in every chunk (stream_out_rows). Gathering those and summing
+    over the chunks gives the plain version's out."""
+    q, k, v = _inputs(B, H, Hkv, D, T, seed=B * T)
+    want, _ = P.stream_only_plain(_t(q), _t(k), _t(v), chunk=chunk, rb=rb)
+    r, h, s = P.stream_out_rows(H, Hkv, chunk, rb)
+    assert int(r.max()) < rb
+    kv = (_t(k) + _t(v)).reshape(B // rb, rb, Hkv, T // chunk, chunk, D).permute(0, 3, 1, 2, 4, 5)
+    got = kv[:, :, r, h, s].sum(1)  # (B / rb, chunks, rb * H, D) summed over the chunks
+    np.testing.assert_allclose(got.reshape(B, 1, H, D).numpy(), want.numpy(), atol=1e-5, rtol=1e-6)
 
 
 def test_p1_refuses_what_the_probe_cannot_tile():

@@ -67,117 +67,6 @@ __device__ __forceinline__ float group4_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// Single-token GQA decode for one (row, kv head), K4's (page pool; K3 used it too
-// before it split the key axis): a block of DEC_WARPS warps takes the live slots in
-// turn, one slot per warp; lane j owns dims j + 32 i. Each k/v row is read once and
-// serves the G query heads of its kv head, each with its own fp32 online softmax.
-// The warps' states merge through shared memory at the end (decode_finish).
-// ---------------------------------------------------------------------------
-constexpr int DEC_WARPS = 8;
-constexpr int DEC_MAXG = 8;  // query heads per kv head
-
-template <int DPL>
-struct DecodeSmem {
-  float m[DEC_WARPS][DEC_MAXG];
-  float l[DEC_WARPS][DEC_MAXG];
-  float a[DEC_WARPS][DEC_MAXG][DPL * 32];
-};
-
-template <int DPL>
-struct DecodeState {
-  float qv[DEC_MAXG][DPL], acc[DEC_MAXG][DPL], m[DEC_MAXG], l[DEC_MAXG];
-};
-
-// q points at query head 0 of this kv head's group; heads are q_sh apart.
-template <int DPL, typename QT>
-__device__ __forceinline__ void decode_init(DecodeState<DPL>& st, const QT* q, long long q_sh,
-                                            int D, int G, float scale, int lane) {
-#pragma unroll
-  for (int g = 0; g < DEC_MAXG; ++g) {
-    st.m[g] = NEG_INF;
-    st.l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      st.acc[g][i] = 0.f;
-      st.qv[g][i] = 0.f;
-      if (g < G && d < D) st.qv[g][i] = to_f(q[(long long)g * q_sh + d]) * scale;
-    }
-  }
-}
-
-// One slot: k row kr and v row vr (unit stride on D); kscale/vscale are the int8
-// per-token scales (1 otherwise).
-template <int DPL, typename KT>
-__device__ __forceinline__ void decode_step(DecodeState<DPL>& st, const KT* kr, const KT* vr,
-                                            float kscale, float vscale, int D, int G, int lane) {
-  constexpr bool QUANT = sizeof(KT) == 1;
-  float kk[DPL], vv[DPL];
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    const int d = lane + 32 * i;
-    kk[i] = 0.f;
-    vv[i] = 0.f;
-    if (d < D) {
-      kk[i] = to_f(kr[d]);
-      vv[i] = to_f(vr[d]);
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < DEC_MAXG; ++g) {
-    if (g < G) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) part = fmaf(st.qv[g][i], kk[i], part);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-      const float s = QUANT ? part * kscale : part;
-      const float m_new = fmaxf(st.m[g], s);
-      const float alpha = expf(st.m[g] - m_new);
-      const float p = expf(s - m_new);
-      st.l[g] = st.l[g] * alpha + p;
-      const float pv = QUANT ? p * vscale : p;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) st.acc[g][i] = fmaf(pv, vv[i], st.acc[g][i] * alpha);
-      st.m[g] = m_new;
-    }
-  }
-}
-
-// Merge the warps' partial softmax states and write the (G, D) outputs at out
-// (contiguous). A warp that saw no slot holds m = NEG_INF, l = 0 and adds nothing;
-// a block with no live slot writes 0.
-template <int DPL, typename QT>
-__device__ __forceinline__ void decode_finish(const DecodeState<DPL>& st, DecodeSmem<DPL>& sm,
-                                              QT* out, int D, int G, int warp, int lane) {
-#pragma unroll
-  for (int g = 0; g < DEC_MAXG; ++g) {
-    if (lane == 0) {
-      sm.m[warp][g] = st.m[g];
-      sm.l[warp][g] = st.l[g];
-    }
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) sm.a[warp][g][lane + 32 * i] = st.acc[g][i];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
-    const int g = idx / D;
-    const int d = idx - g * D;
-    float M = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < DEC_WARPS; ++w) M = fmaxf(M, sm.m[w][g]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int w = 0; w < DEC_WARPS; ++w) {
-      const float f = expf(sm.m[w][g] - M);
-      L = fmaf(sm.l[w][g], f, L);
-      A = fmaf(sm.a[w][g][d], f, A);
-    }
-    out[idx] = from_f<QT>(A / fmaxf(L, 1e-30f));
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Asynchronous 16-byte copies from device memory to shared memory (cp.async .cg:
 // cached in L2 only). A thread's copies are visible to the block after
 // cp_async_wait and a barrier.
@@ -220,6 +109,60 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// Bulk asynchronous copies (the TMA's 1-D copy: no tensor map) and the shared-memory
+// barriers (mbarrier) that count their bytes in. One thread starts a copy of any
+// multiple of 16 bytes between 16-byte aligned addresses; the barrier's phase
+// completes when its expected arrivals have arrived and its expected bytes have
+// landed, and a thread that sees the phase complete sees the bytes. A wait names the
+// parity of the phase it waits for: phases alternate 0, 1, 0, ... from init, and a
+// wait on the parity of the phase before the current one passes at once.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(void* bar, unsigned arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(arrivals) : "memory");
+}
+
+// after the inits, by the thread that made them, before a barrier of the block: makes
+// them visible to the other threads and to the copy engine
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(void* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// one arrival that also tells the barrier how many copied bytes this phase expects
+__device__ __forceinline__ void mbar_arrive_expect_tx(void* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(void* bar, unsigned parity) {
+  const unsigned addr = smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16) from device memory to shared memory, counted in on `bar`
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, unsigned bytes, void* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -271,7 +214,7 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// The split merge shared by K3 and P2. Both split the key axis of each (row, kv
+// The split merge shared by K3, K4 and P2. All three split the key axis of each (row, kv
 // head) pair across blocks; each block leaves, per query head g of the pair, its
 // softmax state over its keys: m (max logit), l (sum of e^(logit - m)) and acc[D]
 // (sum of e^(logit - m) v), all fp32, in one scratch buffer laid out as
@@ -280,7 +223,8 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 // The merge writes out[pair][g][d] = sum_s e^(m_s - M) acc_s[d] / max(sum_s
 // e^(m_s - M) l_s, 1e-30), M = max_s m_s, over the splits the pair walked: the
 // first ceil(walked / split_len), with walked = len[pair / len_div] * len_mul, or
-// dead_len where that is 0. G <= SPLIT_MAXG, D a multiple of 4 up to 128.
+// dead_len where that is 0 (dead_len 0: such a pair walked nothing and gets 0).
+// G <= SPLIT_MAXG, D a multiple of 4 up to 128.
 // Implemented in split_merge.cu.
 // ---------------------------------------------------------------------------
 constexpr int SPLIT_MAXG = 8;

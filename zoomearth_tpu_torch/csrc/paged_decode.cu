@@ -9,76 +9,85 @@
 // page count ceil(lengths[b] / page) are arbitrary and are never read. A row with no
 // live slot returns 0, as the Pallas kernel does (acc / max(l, 1e-30) with l = 0).
 //
-// What bounds it on the card: bytes, like K3. Each pool byte is used by the G = 8
-// query heads of its kv head for one multiply-add each.
+// What bounds it on the card: bytes, and how many of them are in flight, exactly as
+// K3: it is K3's function with another answer to "where does slot t live". One block
+// per (row, kv head) walking its pages slot by slot, as the first version did, put 64
+// or 128 blocks on 132 SMs with one row load in flight per warp and ran ten times
+// slower than K3 on the same k/v (NVIDIA H100 80GB HBM3, 700 W).
 //
-// What the design does about it: it walks exactly the row's pages, page by page, and
-// in each page reads only the live slots t < lengths[b]. The block reads its own row
-// of the block table (the counterpart of the TPU's scalar prefetch): one id per page,
-// a broadcast load, then a 64-bit offset into the pool. Inside a page the work is
-// K3's (common.cuh decode_step): 8 warps take slots in turn, each k/v row is read
-// once, coalesced across a warp's lanes, and serves all G query heads. One block per
-// (row, kv head): the reference's shapes (B = 32 and 64, Hkv = 2) launch 64 and 128
-// blocks on 132 SMs, against K3's 16 in the smoke. No split along the pages yet.
-#include "common.cuh"
+// What the design does about it: K4 is the split pass of decode_split.cuh (the key
+// axis split across (B * Hkv) x nsplit blocks from the shapes alone, a cp.async ring
+// of 32-slot tiles, fp32 FMA in three phases, then the shared split merge of
+// split_merge.cu) instantiated with a paged address policy:
+// - Each copied row looks its page up by itself: id = bt[b, t / page], then a 64-bit
+//   offset id * page stride + (t % page) * slot stride into the pool. A tile of 32
+//   slots may therefore cross pages (pages of 16 hold half a tile), and a split need
+//   not start on a page boundary. The table reads are broadcast loads that stay in L1.
+// - The pass asks for rows t < lengths[b] only, so a table entry past the row's pages
+//   is never read: the copy loop stops at the split's last live slot.
+// - A row with no live slot reads nothing (DEAD_READS_ALL = false): its blocks exit
+//   at once and the merge, told that such a row walked 0 splits, writes 0.
+#include "decode_split.cuh"
 
 namespace zt {
 
-template <int DPL, typename T>
-__global__ void __launch_bounds__(DEC_WARPS * 32)
-    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                        const T* __restrict__ vpool, const int* __restrict__ block_table,
-                        const int* __restrict__ npages, const int* __restrict__ lengths,
-                        T* __restrict__ out, int Hkv, int page, int D, int G, long long bt_sb,
-                        long long p_sp, long long p_sh, long long p_st, float scale) {
-  __shared__ DecodeSmem<DPL> sm;
+struct PagedKV {
+  static constexpr bool DEAD_READS_ALL = false;
+  const char *kpool, *vpool;
+  const int* block_table;
+  long long bt_sb;              // block-table row stride in entries
+  long long p_sp, p_sh, p_st;   // page, kv head and slot strides of both pools in bytes
+  int page;
 
-  const int b = blockIdx.x / Hkv;
-  const int kh = blockIdx.x % Hkv;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int len = lengths[b];
-  const int n = npages[b];
-  const int* bt = block_table + (long long)b * bt_sb;
-
-  DecodeState<DPL> st;
-  decode_init(st, q + ((long long)b * Hkv * G + kh * G) * D, (long long)D, D, G, scale, lane);
-  for (int i = 0; i < n; ++i) {
-    const long long base = (long long)__ldg(bt + i) * p_sp + (long long)kh * p_sh;
-    const int live = min(page, len - i * page);  // slots of this page below lengths[b]
-    for (int s = warp; s < live; s += DEC_WARPS) {
-      const long long o = base + (long long)s * p_st;
-      decode_step(st, kpool + o, vpool + o, 1.f, 1.f, D, G, lane);
+  struct Rows {
+    const char *kbase, *vbase;
+    const int* bt;
+    long long p_sp, p_st;
+    int page;
+    __device__ __forceinline__ long long offset(int t) const {
+      const int pg = t / page;
+      return (long long)__ldg(bt + pg) * p_sp + (long long)(t - pg * page) * p_st;
     }
+    __device__ __forceinline__ const char* k(int t) const { return kbase + offset(t); }
+    __device__ __forceinline__ const char* v(int t) const { return vbase + offset(t); }
+  };
+
+  __device__ __forceinline__ Rows rows(int b, int kh) const {
+    return {kpool + kh * p_sh, vpool + kh * p_sh, block_table + b * bt_sb, p_sp, p_st, page};
   }
-  decode_finish(st, sm, out + ((long long)b * Hkv * G + kh * G) * D, D, G, warp, lane);
-}
+};
 
 }  // namespace zt
 
-// q (B, H, D) contiguous; kpool/vpool (P, Hkv, page, D) with one set of strides and
-// unit stride on D; block_table (B, max_pages) int32 with unit stride on pages;
-// npages and lengths (B,) int32, lengths clipped to [0, max_pages * page] and
-// npages = ceil(lengths / page); out a contiguous (B, H, D) tensor.
+// q (B, H, D) contiguous; kpool/vpool (P, Hkv, page, D) with one set of strides, unit
+// stride on D, rows and strides whole 16-byte multiples from 16-byte aligned bases;
+// block_table (B, max_pages) int32 with unit stride on pages; lengths (B,) int32
+// clipped to [0, max_pages * page]; part the fp32 split scratch of B * Hkv * nsplit *
+// G * (D + 2) values, 16-byte aligned; out a contiguous (B, H, D) tensor. Launches the
+// split pass over (B * Hkv) x nsplit blocks of split_len slots (a multiple of
+// K3_TILE; nsplit covers the capacity max_pages * page), then the split merge.
 extern "C" int zt_paged_decode(const void* q, const void* kpool, const void* vpool,
-                               const int* block_table, const int* npages, const int* lengths,
-                               void* out, int B, int H, int Hkv, int page, int D,
-                               long long bt_sb, long long p_sp, long long p_sh, long long p_st,
-                               float scale, int dtype, void* stream) {
+                               const int* block_table, const int* lengths, void* part, void* out,
+                               int B, int H, int Hkv, int page, int max_pages, int D, int split_len,
+                               int nsplit, long long bt_sb, long long p_sp, long long p_sh,
+                               long long p_st, float scale, int dtype, void* stream) {
   using namespace zt;
   cudaGetLastError();
-  if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || page <= 0) return ZT_UNSUPPORTED;
+  if (B <= 0 || page <= 0 || max_pages <= 0 || (long long)page * max_pages > 0x7fffffffLL) return ZT_UNSUPPORTED;
+  const int item = dtype == BF16 ? 2 : 4;
+  const int T = page * max_pages;  // the slots a row can hold
+  if (!decode_split_supported(H, Hkv, T, D, item, split_len, nsplit)) return ZT_UNSUPPORTED;
   const int G = H / Hkv;
-  if (G > DEC_MAXG || D <= 0 || D > 128) return ZT_UNSUPPORTED;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ZT_PAGED(TT)                                                                         \
-  paged_decode_kernel<4, TT><<<B * Hkv, DEC_WARPS * 32, 0, st>>>(                            \
-      static_cast<const TT*>(q), static_cast<const TT*>(kpool), static_cast<const TT*>(vpool), \
-      block_table, npages, lengths, static_cast<TT*>(out), Hkv, page, D, G, bt_sb, p_sp, p_sh, \
-      p_st, scale);                                                                          \
-  return static_cast<int>(cudaGetLastError());
-  if (dtype == F32) { ZT_PAGED(float) }
-  if (dtype == BF16) { ZT_PAGED(__nv_bfloat16) }
+  float* pt = static_cast<float*>(part);
+  const PagedKV pool = {static_cast<const char*>(kpool), static_cast<const char*>(vpool), block_table, bt_sb,
+                        p_sp * item, p_sh * item, p_st * item, page};
+  const long long q_sb = (long long)H * D, q_sh = D;
+#define ZT_PAGED(TT)                                                                                \
+  return launch_decode_split<TT, TT>(pool, q, nullptr, nullptr, lengths, pt, out, B, Hkv, T, D, G, \
+                                     split_len, nsplit, q_sb, q_sh, 0, 0, scale, dtype, st)
+  if (dtype == F32) { ZT_PAGED(float); }
+  if (dtype == BF16) { ZT_PAGED(__nv_bfloat16); }
 #undef ZT_PAGED
   return ZT_UNSUPPORTED;
 }

@@ -1,13 +1,15 @@
-// The split merge shared by K3 (flash_decode.cu) and P2 (probe_bigmm.cu).
+// The split merge shared by K3 (flash_decode.cu), K4 (paged_decode.cu) and P2
+// (probe_bigmm.cu).
 //
-// Both kernels split the key axis of every (row, kv head) pair across blocks, so
+// These kernels split the key axis of every (row, kv head) pair across blocks, so
 // that a small batch still fills the card; each block leaves a partial softmax state
 // per query head (see SplitPartials in common.cuh). This second pass combines them:
-// decode_finish's algebra, lifted from the warps of one block to the blocks of one
-// pair. It reads only the splits the pair walked, a count it computes on the device
-// from the row lengths (K3: kv_len) or the chunk counts (P2: ncb), so the host
+// the online-softmax merge of two states, taken over the blocks of one pair. It
+// reads only the splits the pair walked, a count it computes on the device from the
+// row lengths (K3: kv_len, K4: lengths) or the chunk counts (P2: ncb), so the host
 // never waits for those values. Splits with equal m weigh alike, which is what gives
-// a row with every logit masked (or, in K3, every logit equal) the mean of v.
+// a row with every logit masked (or, in K3, every logit equal) the mean of v. A pair
+// that walked no split (K4's row with no live slot, dead_len 0) gets 0.
 //
 // What bounds it: latency. It reads pairs x walked splits x G x (D + 2) fp32 values
 // that the first pass has just written (L2-resident). So every load of a block is

@@ -23,8 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("common.cuh", "flash_mma.cuh", "flash_segment.cu", "flash_causal.cu", "flash_decode.cu", "paged_decode.cu",
-           "probe_stream.cu", "probe_bigmm.cu", "split_merge.cu")
+SOURCES = ("common.cuh", "flash_mma.cuh", "decode_split.cuh", "flash_segment.cu", "flash_causal.cu", "flash_decode.cu",
+           "paged_decode.cu", "probe_stream.cu", "probe_bigmm.cu", "split_merge.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -93,23 +93,27 @@ _SIGNATURES = {
     "zt_flash_causal_variant": [_I, _I, _I],
     "zt_flash_causal": [_P] * 8 + [_I] * 6 + [_L] * 11 + [_F, _I, _I, _P],
     "zt_flash_decode": [_P] * 8 + [_I] * 7 + [_L] * 10 + [_F, _I, _I, _P],
-    "zt_paged_decode": [_P] * 7 + [_I] * 5 + [_L] * 4 + [_F, _I, _P],
-    "zt_probe_stream": [_P] * 5 + [_I] * 7 + [_I, _I, _P],
+    "zt_decode_split_tile": [],
+    "zt_paged_decode": [_P] * 7 + [_I] * 8 + [_L] * 4 + [_F, _I, _P],
+    "zt_probe_stream": [_P] * 4 + [_I] * 7 + [_I, _I, _P],
+    "zt_probe_stream_plan": [_I],
     "zt_probe_bigmm": [_P] * 7 + [_I] * 8 + [_F, _P],
 }
 
 
 def load_library(path: Path, only=None) -> ctypes.CDLL:
-    """Load a kernel library and declare its entry points' C signatures (`only`:
-    the names to declare, for a library built from other sources)."""
+    """Load a kernel library and declare the C signatures of the entry points it has
+    (`only`: the names to declare, for a library built from other sources, whose
+    other entry points may take other arguments)."""
     handle = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
-        if only is None or name in only:
+        if (only is None or name in only) and hasattr(handle, name):
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    handle.zt_error_string.argtypes = [ctypes.c_int]
-    handle.zt_error_string.restype = ctypes.c_char_p
+    if hasattr(handle, "zt_error_string"):  # lives in flash_segment.cu, which a partial build may leave out
+        handle.zt_error_string.argtypes = [ctypes.c_int]
+        handle.zt_error_string.restype = ctypes.c_char_p
     return handle
 
 
@@ -124,7 +128,8 @@ def lib() -> ctypes.CDLL:
 def check(rc: int, name: str) -> None:
     """Raise if a kernel entry point reported a failed or refused launch."""
     if rc != 0:
-        msg = lib().zt_error_string(rc).decode()
+        describe = getattr(lib(), "zt_error_string", None)
+        msg = describe(rc).decode() if describe else "no description in this build"
         raise RuntimeError(f"{name}: launch failed with code {rc}: {msg}")
 
 

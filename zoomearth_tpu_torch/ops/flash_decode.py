@@ -1,9 +1,11 @@
 """K3: single-token GQA decode attention over the slot cache.
 
 Replaces zoomearth_tpu/ops/flash_decode.py::flash_decode_attention (Pallas). The
-kernel is hand-written CUDA C++ for Hopper (csrc/flash_decode.cu, whose header says
-what bounds it and what its design does about it). Unlike the TPU kernel it takes
-any T (no T % 512 rule) and reads a strided prefix view of the cache in place.
+kernel is hand-written CUDA C++ for Hopper: the split pass it shares with K4
+(csrc/decode_split.cuh, whose header says what bounds it and what its design does
+about it) instantiated with the slot cache's addresses (csrc/flash_decode.cu).
+Unlike the TPU kernel it takes any T (no T % 512 rule) and reads a strided prefix
+view of the cache in place.
 
 - `flash_decode_attention` dispatches by device: CPU -> plain version, CUDA ->
   kernel (or raises).
@@ -14,7 +16,7 @@ any T (no T % 512 rule) and reads a strided prefix view of the cache in place.
 - `split_plan` is how the kernel splits the key axis across blocks, from the
   shapes alone; `decode_partials_plain` and `merge_splits_plain` are the plain
   versions of its two passes (the per-split softmax states and the split merge
-  that P2 shares).
+  that K4 and P2 share).
 - `decode_attention_cuda.launches` counts calls of the kernel, each of which runs
   two launches: the split pass and the merge.
 
@@ -35,7 +37,7 @@ import torch
 from . import _cuda
 from .attention import NEG_INF, decode_attention
 
-MAX_G = 8  # query heads per kv head (K3_MAXG in csrc/flash_decode.cu)
+MAX_G = 8  # query heads per kv head (K3_MAXG in csrc/decode_split.cuh)
 TILE = 32  # slots per staged tile (K3_TILE): a split is a whole number of tiles
 # Blocks per call: four waves of the three blocks each of the H100's 132 SMs holds.
 # Rows' live lengths are not known on the host, and many short splits keep the SMs

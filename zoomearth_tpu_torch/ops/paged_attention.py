@@ -3,17 +3,25 @@
 Replaces zoomearth_tpu/ops/paged_attention.py (Pallas). KV lives in pools of
 fixed-size pages `(P, Hkv, page, D)`; each row owns a block table of page ids, and
 slot t of row b lives at `pool[block_table[b, t // page], :, t % page]`. The kernel
-is hand-written CUDA C++ for Hopper (csrc/paged_decode.cu, whose header says what
-bounds it and what its design does about it).
+is hand-written CUDA C++ for Hopper: K3's split pass (csrc/decode_split.cuh, whose
+header says what bounds it and what its design does about it) instantiated with a
+paged address policy (csrc/paged_decode.cu), then the shared split merge. It reads
+only the live slots, never a block-table entry past a row's pages, and a row with no
+live slot reads nothing and gives 0.
 
 - `paged_decode_attention` dispatches by device: CPU -> plain version, CUDA ->
   kernel (or raises).
 - `paged_decode_attention_plain` is the plain torch version of the kernel.
 - `paged_decode_attention_reference` is the gather oracle, as in the reference.
-- `page_counts` is the launch prep: the pages each row walks, ceil(len / page).
+- `slot_address` is the kernel's address policy in plain torch; `paged_partials_plain`
+  the plain version of its split pass (K3's `decode_partials_plain` over the gathered
+  pages, with K4's rule for a row with no live slot), which `merge_splits_plain`
+  finishes.
+- `page_counts` is the pages each row walks, ceil(len / page).
 - `append_to_pages` writes one decode step's k/v into the pools (plain torch: the
   reference's is an XLA scatter, not a Pallas kernel).
-- `paged_decode_cuda.launches` counts kernel launches.
+- `paged_decode_cuda.launches` counts calls of the kernel, each of which runs two
+  launches: the split pass and the merge.
 """
 
 from __future__ import annotations
@@ -22,8 +30,7 @@ import torch
 
 from . import _cuda
 from .attention import decode_attention
-
-MAX_G = 8  # query heads per kv head (DEC_MAXG in csrc/common.cuh)
+from .flash_decode import MAX_G, decode_partials_plain, split_plan
 
 
 def page_counts(lengths: torch.Tensor, page_size: int) -> torch.Tensor:
@@ -86,32 +93,62 @@ def paged_decode_attention_plain(q, kpool, vpool, block_table, lengths, *, page_
     return out.to(q.dtype)
 
 
+def slot_address(block_table: torch.Tensor, t: torch.Tensor, page_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's address policy: slots t (B, n) of each row -> (page id, slot in the
+    page), so that slot t[b, i] of row b is pool[id[b, i], :, slot[b, i]]. Reads table
+    entry t // page_size only: for t below a row's live length, one of its pages."""
+    t = t.long()
+    return torch.gather(block_table.long(), 1, t // page_size), t % page_size
+
+
+def paged_partials_plain(q, kpool, vpool, block_table, lengths, split_len, *, page_size=256):
+    """K4's split pass in fp32: K3's (flash_decode.decode_partials_plain) over each
+    row's pages gathered into a contiguous cache of max_pages * page_size slots, except
+    that a row with no live slot walks no split (K3 reads such a row as all its slots
+    with equal logits). Returns (m, l, acc, walked) as decode_partials_plain does;
+    merge_splits_plain turns them into K4's output."""
+    lens = _live_lengths(lengths, block_table, page_size)
+    live = torch.arange(block_table.shape[1], device=q.device)[None] < page_counts(lens, page_size)[:, None]
+    ids = torch.where(live, block_table.to(torch.int32), 0)
+    m, l, acc, walked = decode_partials_plain(q, _gather(kpool, ids), _gather(vpool, ids), lens, split_len)
+    dead = (lens == 0).repeat_interleave(kpool.shape[1])
+    return m, l, acc, torch.where(dead, 0, walked)
+
+
 def paged_decode_cuda(q, kpool, vpool, block_table, lengths, *, page_size=256):
-    """Launch K4. q (B, H, D); pools (P, Hkv, page_size, D) of q's dtype (fp32 or
-    bf16) with unit stride on D; block_table (B, max_pages) int32 whose first
-    ceil(lengths[b] / page_size) entries of row b are page ids in [0, P)."""
+    """Launch K4: one C call that runs the split pass over (B * Hkv) x nsplit blocks
+    (flash_decode.split_plan over the capacity max_pages * page_size: from the shapes
+    alone) and then the split merge. q (B, H, D); pools (P, Hkv, page_size, D) of q's
+    dtype (fp32 or bf16) sharing strides, unit stride on D, rows and other strides
+    whole 16-byte multiples from 16-byte aligned bases; block_table (B, max_pages)
+    int32 whose first ceil(lengths[b] / page_size) entries of row b are page ids in
+    [0, P). Nothing here waits for the device."""
     name = "paged_decode_attention"
     _cuda.require_cuda(name, q, kpool, vpool, block_table, lengths)
     B, H, D = q.shape
     P, Hkv, page, _ = kpool.shape
+    max_pages = block_table.shape[1]
     if page != page_size or vpool.shape != kpool.shape:
         raise ValueError(f"{name}: pools must both be (P, Hkv, {page_size}, D), got {tuple(kpool.shape)}, "
                          f"{tuple(vpool.shape)}")
     if vpool.stride() != kpool.stride():
         raise ValueError(f"{name}: k/v pools must share strides")
-    if H % Hkv or H // Hkv > MAX_G or D > 128:
-        raise ValueError(f"{name}: needs H / Hkv <= {MAX_G} and D <= 128 (H={H}, Hkv={Hkv}, D={D})")
+    if H % Hkv or H // Hkv > MAX_G or D > 128 or D % 8 or max_pages < 1:
+        raise ValueError(f"{name}: needs H / Hkv <= {MAX_G}, D <= 128 a multiple of 8 and a block table of at least "
+                         f"one page (H={H}, Hkv={Hkv}, D={D}, max_pages={max_pages})")
     code = _cuda.dtype_code(q, name, (torch.float32, torch.bfloat16))
     if kpool.dtype != q.dtype or vpool.dtype != q.dtype:
         raise TypeError(f"{name}: pools must have q's dtype {q.dtype}")
+    _cuda.require_aligned16(name, kpool, vpool)
     q = q.contiguous()
     bt = block_table.to(torch.int32).contiguous()
     lens = _live_lengths(lengths, bt, page_size).contiguous()
-    npages = page_counts(lens, page_size).contiguous()
+    split, nsplit = split_plan(B, Hkv, max_pages * page_size)
+    part = torch.empty(B * Hkv * nsplit * (H // Hkv) * (D + 2), dtype=torch.float32, device=q.device)
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     rc = _cuda.lib().zt_paged_decode(
-        _cuda.ptr(q), _cuda.ptr(kpool), _cuda.ptr(vpool), _cuda.ptr(bt), _cuda.ptr(npages),
-        _cuda.ptr(lens), _cuda.ptr(out), B, H, Hkv, page_size, D, bt.stride(0),
+        _cuda.ptr(q), _cuda.ptr(kpool), _cuda.ptr(vpool), _cuda.ptr(bt), _cuda.ptr(lens), _cuda.ptr(part),
+        _cuda.ptr(out), B, H, Hkv, page_size, max_pages, D, split, nsplit, bt.stride(0),
         kpool.stride(0), kpool.stride(1), kpool.stride(2), D**-0.5, code, _cuda.stream(q.device),
     )
     _cuda.check(rc, name)

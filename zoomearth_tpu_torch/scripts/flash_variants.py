@@ -1,4 +1,5 @@
-"""Time builds of K1 and K2 against each other on the card, in turns in one call.
+"""Time builds of K1 and K2 against each other on the card, in turns in one call
+(scripts/decode_variants.py does the same for K3, K4 and P1).
 
 A variant is a label, a directory of kernel sources and extra nvcc flags: the
 checkout's own csrc with -DZT_FM_WGMMA=0 (mma.sync at every head dim), -DZT_FM_BKV /
@@ -38,13 +39,20 @@ UNITS = ("flash_segment.cu", "flash_causal.cu")
 ENTRY_POINTS = ("zt_flash_segment", "zt_flash_causal")
 
 
-def build_variant(spec: str):
+def compile_variant(spec: str, units, entry_points):
+    """Build one variant `label=dir[:flag,flag...]` of the kernel sources `units` into
+    build/variants/<label>.so and load it with `entry_points` declared. Returns
+    (label, library, its path)."""
     label, _, rest = spec.partition("=")
     d, _, flags = rest.partition(":")
     csrc = _cuda.CSRC if d == "csrc" else REPO / d
     path = REPO / "build" / "variants" / f"{label}.so"
-    _cuda.compile_library(path, csrc, tuple(f for f in flags.split(",") if f), UNITS)
-    lib = _cuda.load_library(path, ENTRY_POINTS)
+    _cuda.compile_library(path, csrc, tuple(f for f in flags.split(",") if f), units)
+    return label, _cuda.load_library(path, entry_points), path
+
+
+def build_variant(spec: str):
+    label, lib, path = compile_variant(spec, UNITS, ENTRY_POINTS)
     # an older tree has no variant query: its kernels are the 64-row ones
     rows = {}
     for name, args in (("zt_flash_segment_variant", (1, 80)), ("zt_flash_causal_variant", (1, 1, 128))):

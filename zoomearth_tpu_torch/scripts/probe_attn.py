@@ -2,7 +2,10 @@
 design (P2). Port of scripts/probe_attn.py.
 
 (P1) `stream_only` reads the same (rb, Hkv, chunk, D) k/v blocks as decode attention
-     with a trivial reduction: its time is the copy floor K3 is held against.
+     with a trivial reduction: its time is the copy floor K3 and K4 are held against.
+     Its kernel is one persistent launch that streams k and v through a shared-memory
+     ring with bulk asynchronous copies (csrc/probe_stream.cu, whose header says what
+     bounds it and what its design does about it); a call is one memset and one launch.
 (P2) `bigmm_decode_attention` is decode attention with one (N*C, D) @ (D, N*G)
      product per chunk over the N = RB * Hkv (row, kv head) pairs of a row block,
      of which only the diagonal blocks are kept. Its kernel splits the chunk walk
@@ -70,8 +73,20 @@ def stream_only_plain(q, k_cache, v_cache, kv_len=None, *, chunk=512, rb=4):
     return out, sums
 
 
+def stream_out_rows(H: int, Hkv: int, chunk: int, rb: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Where the kernel finds out's rows: flattened row f < rb * H of a chunk's
+    (rb, Hkv, chunk, D) block is slot s[f] of kv head h[f] of row r[f] of the row block,
+    in every chunk (f = (r * Hkv + h) * chunk + s). Returns (r, h, s), each (rb * H,)."""
+    f = torch.arange(rb * H)
+    return f // chunk // Hkv, f // chunk % Hkv, f % chunk
+
+
 def stream_only_cuda(q, k_cache, v_cache, kv_len=None, *, chunk=512, rb=4):
-    """Launch P1. k/v (B, Hkv, T, D) contiguous, fp32 or bf16, rows a multiple of 16 bytes."""
+    """Launch P1: one memset (of sums) and one kernel. k/v (B, Hkv, T, D) contiguous,
+    fp32 or bf16, rows a multiple of 16 bytes from 16-byte aligned bases (the kernel's
+    bulk copies need both). sums is added with atomics, in an order that changes from
+    run to run: equal to the plain version's to ~1e-7 of the summed magnitudes, not
+    bit for bit. Nothing here waits for the device."""
     name = "stream_only"
     _cuda.require_cuda(name, q, k_cache, v_cache)
     B, H, Hkv, T, D = _stream_shapes(q, k_cache, chunk, rb)
@@ -83,11 +98,10 @@ def stream_only_cuda(q, k_cache, v_cache, kv_len=None, *, chunk=512, rb=4):
         raise ValueError(f"{name}: k/v caches must be contiguous")
     if (D * k_cache.element_size()) % 16 or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError(f"{name}: k/v rows must be whole 16-byte vectors, 16-byte aligned")
-    acc = torch.zeros((B // rb, 64, D), dtype=torch.float32, device=q.device)
-    sums = torch.zeros((B // rb,), dtype=torch.float32, device=q.device)
+    sums = torch.empty((B // rb,), dtype=torch.float32, device=q.device)  # cleared by the C call
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     rc = _cuda.lib().zt_probe_stream(
-        _cuda.ptr(k_cache), _cuda.ptr(v_cache), _cuda.ptr(acc), _cuda.ptr(sums), _cuda.ptr(out),
+        _cuda.ptr(k_cache), _cuda.ptr(v_cache), _cuda.ptr(sums), _cuda.ptr(out),
         B, H, Hkv, T, D, rb, chunk, kc, oc, _cuda.stream(q.device),
     )
     _cuda.check(rc, name)
@@ -258,10 +272,10 @@ SHAPE = (32, 16, 2, 128, 1536)  # B, H, Hkv, D, T: the reference probe's (probe_
 CHUNK = 512
 
 
-def probe_inputs(device):
+def probe_inputs(device, B=SHAPE[0]):
     """The reference probe's tensors from a numpy generator seeded with SEED, bf16 on
-    `device`; lengths 600-1199."""
-    B, H, Hkv, D, T = SHAPE
+    `device`; lengths 600-1199. B: another batch than the probe's, for a longer stream."""
+    _, H, Hkv, D, T = SHAPE
     rng = np.random.default_rng(SEED)
 
     def bf16(shape):
