@@ -10,7 +10,10 @@ Phases, each fatal on failure (nothing is caught):
 2. build   — compiles the hand-written kernels (csrc/*.cu) with nvcc for sm_90a.
 3. kernels — K1 (segment), K2 (causal prefill / chunk prefill, int8) and K3 (decode,
    int8, strided prefix view) against their plain torch versions at the main path's
-   shapes, in bf16: max abs error against a stated tolerance, and the times (CUDA
+   shapes, in bf16; the int8 variants also in the forms the int8 KV cache gives them
+   (K2 over the 4096-row int8 cache at prefill and, untimed, at chunk prefill; K3 over
+   the [:, :, :attend_len] views of its values and of its fp32 scales, which must go
+   in without a copy): max abs error against a stated tolerance, and the times (CUDA
    events, timed in turns: plain, kernel, library, library, kernel, plain, ...; median
    of 10 each after 2 warm-ups each; L2 flushed before every call), per call and on
    the device (CUDA graph replays). The library call is one
@@ -30,11 +33,25 @@ Phases, each fatal on failure (nothing is caught):
    kernels (K2's tensor-core variant) against the same weights through the plain
    versions.
 5. slice   — Qwen2.5-VL-3B at full width with random bf16 weights from a seeded
-   torch.Generator: run_inference over 16 synthetic 5000 px LRS-GRO-shaped samples
-   (batch 8, greedy, 64 + 64 new tokens, forced bbox so stage 2 always runs), then
+   torch.Generator: run_inference over 8 synthetic 5000 px LRS-GRO-shaped samples
+   (batch 8, greedy, 64 + 64 new tokens, forced bbox so stage 2 always runs; 16
+   samples until the pipelined phase came, which now carries the longer run), then
    one run_episodes(reuse_cache=True) batch. Every record must be written and every
    kernel launched by that run, K1 and K2 through their tensor-core variants only.
-6. decode-variants — the decode-attention entry points beside the serving path, at
+6. pipelined — the same model (built once): run_inference(mode="pipelined") over 24
+   samples in waves of 8 (bootstrap, two real pairs, drain), budgets 64 / 48 so that
+   stage 1's solo tail runs, greedy, forced bbox; K1, K2 and K3 must launch, K1/K2
+   through the tensor-core variant only, K3 twice per layer per pair step. Then the
+   same 24 through run_episodes(reuse_cache=True) batch by batch for the comparison
+   (wall seconds, share of identical tokens); one wave of 8 again with every
+   Generator stage timed between device synchronizations (ms per pair step and per
+   solo step, share of the wall time that is host preparation with the device idle);
+   that wave with edges="solo" (peak memory of both edge modes); the first pair step's
+   logits against the solo step's; 8 samples with Generator(cache_dtype=torch.int8),
+   where K2 and K3 must take their int8 entries and nine tokens in ten must equal the
+   bf16 cache's, then K2 and K3 against their plain versions on a cache that this
+   path's prefill quantized, in the decoder's forms; then the scorer over the jsonl.
+7. decode-variants — the decode-attention entry points beside the serving path, at
    the reference's shapes. First the checks: K4 (paged decode) against its plain
    version and K3 at (B=32|64, T=4096, 30 % live, pages 64|256); P1 (stream probe)
    and P2 (big-product decode) against their plain versions at B=32, T=1536; then,
@@ -61,6 +78,7 @@ line.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -74,7 +92,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 TOL_BF16 = 2e-2
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM, dense bf16 tensor-core rate and HBM rate
 LIBRARY = " (library call)"  # a case's library yardstick among an entry point's timed cases
-SAMPLES, BATCH, NEW_TOKENS = 16, 8, 64
+SAMPLES, BATCH, NEW_TOKENS = 8, 8, 64
+PIPE_SAMPLES, PIPE_NEW_TOKENS_2 = 24, 48  # the pipelined phase: three waves of BATCH, budgets NEW_TOKENS / 48
+# first pair step's logits against the solo step's, bf16 at 3B width: the same arithmetic, but cuBLAS may
+# choose another kernel for 16 rows than for 8, and 36 layers of bf16 roundings follow: three bf16 steps
+# (2^-5) of a logit near 4.5, the largest here
+TOL_PAIR_LOGITS = 0.1
 
 
 def log(msg):
@@ -191,6 +214,9 @@ def check_kernels(card):
         return (torch.rand(shape, generator=g, device=dev) * 0.02 + 0.005).to(bf)
 
     rows = {}
+    # an int8 KV cache as the model keeps it: 4096 rows of int8 values, bf16-rounded scales in fp32
+    B, Hkv, D, T = 8, 2, 128, 4096
+    cache8 = (int8(B, Hkv, T, D), int8(B, Hkv, T, D), scales(B, Hkv, T).float(), scales(B, Hkv, T).float())
     # K1: stage-1 ViT full-attention block at B=8: 7 full 512 px images (1296 patches),
     # one partial image and a pad tail, S = 10368, H = 16, D = 80; q/k/v are strided
     # views of the fused qkv projection, as the ViT passes them.
@@ -224,6 +250,12 @@ def check_kernels(card):
                lambda: K2.flash_causal_attention_plain(q2, kc, vc, pos, kvl), card,
                K2.work(pos, kvl, H, Hkv, D, T, 2),
                lambda: sdpa(q2.transpose(1, 2), kc, vc, mask_a).transpose(1, 2))
+    # K2 (a) on the int8 cache: the scales go in as they are, no copy
+    assert_scale_views_as_is(cache8[2], cache8[3])
+    e2a8 = case("K2 prefill int8 B=8 S=512 T=4096, the cache's fp32 scales",
+                lambda: K2.causal_attention_cuda(q2, cache8[0], cache8[1], pos, kvl, cache8[2], cache8[3]),
+                lambda: K2.flash_causal_attention_plain(q2, cache8[0], cache8[1], pos, kvl, cache8[2], cache8[3]),
+                card, K2.work(pos, kvl, H, Hkv, D, T, 2, 1))
     # K2 (b): stage-2 chunk prefill, B=8, S=384 into T=1280 at ragged keep_len.
     S, T = 384, 1280
     q3 = randn(B, S, H, D)
@@ -241,7 +273,7 @@ def check_kernels(card):
                lambda: K2.flash_causal_attention_plain(q3, k8, v8, pos2, kvl2, ks, vs), card,
                K2.work(pos2, kvl2, H, Hkv, D, T, 2, 1))  # no single PyTorch call takes int8 K/V with scales
     rows["flash_causal_attention"] = ("zoomearth_tpu_torch/csrc/flash_causal.cu",
-                                      "zoomearth_tpu/ops/flash_causal.py:124", [e2a, e2b, e2c])
+                                      "zoomearth_tpu/ops/flash_causal.py:124", [e2a, e2b, e2c, e2a8])
 
     def length_mask(kvl, T):
         return (torch.arange(T, device=dev)[None] < kvl[:, None])[:, None, None]
@@ -272,12 +304,28 @@ def check_kernels(card):
                    K3.work(kvl4, 1280, H, Hkv, D, 2),
                    lambda: sdpa(qd.transpose(1, 2), kv_view, vv_view, m4).transpose(1, 2),
                    K3.read_bytes(kvl4, 1280, Hkv, D, 2)))
+    # the same prefix view of the int8 cache: values and fp32 scales read in place at the 4096-row strides
+    view8 = tuple(t[:, :, :1280] for t in cache8)
+    assert_scale_views_as_is(view8[2], view8[3])
+    e3.append(case("K3 decode int8 attend_len=1280 view of T=4096, fp32 scale views",
+                   lambda: K3.decode_attention_cuda(qd, view8[0], view8[1], kvl4, view8[2], view8[3]),
+                   lambda: K3.flash_decode_attention_plain(qd, view8[0], view8[1], kvl4, view8[2], view8[3]), card,
+                   K3.work(kvl4, 1280, H, Hkv, D, 1), None, K3.read_bytes(kvl4, 1280, Hkv, D, 1)))
     rows["flash_decode_attention"] = ("zoomearth_tpu_torch/csrc/flash_decode.cu",
                                       "zoomearth_tpu/ops/flash_decode.py:94", e3)
     log("[kernels] untimed checks where the kernels have edges")
     return rows, {"flash_segment_attention": check_k1_edges(randn),
-                  "flash_causal_attention": check_k2_edges(randn, int8, scales),
+                  "flash_causal_attention": check_k2_edges(randn, int8, scales) + check_k2_int8_chunk(randn, cache8),
                   "flash_decode_attention": check_k3_edges(randn, int8, scales)}
+
+
+def assert_scale_views_as_is(ks, vs):
+    """An int8 cache's fp32 scales, or their prefix views, must reach the kernels as they
+    are (the zero-copy route of ops/_cuda.py::scale_views), not as converted copies."""
+    from zoomearth_tpu_torch.ops import _cuda
+
+    a, b = _cuda.scale_views("chip_smoke", ks, vs)
+    assert a is ks and b is vs, "scale_views copied an int8 cache's fp32 scales"
 
 
 def edge_check(label, out, ref, tol=TOL_BF16):
@@ -373,6 +421,26 @@ def check_k2_edges(randn, int8, scales):
     ran = {name: n - before[name] for name, n in K2.causal_attention_cuda.variants.items()}
     assert ran == {"mma": len(checks), "fma": 0}, f"K2 edge checks ran {ran}"
     return checks
+
+
+def check_k2_int8_chunk(randn, cache8):
+    """K2 as the stage-2 chunk prefill meets the int8 cache, untimed: S=384 at a ragged
+    keep_len into the 4096-row cache (the continuation stays in the stage-1 cache),
+    scales fp32 as the cache holds them. Returns the check."""
+    import torch
+
+    from zoomearth_tpu_torch.ops import flash_causal as K2
+
+    dev = torch.device("cuda")
+    B, S, H = 8, 384, 16
+    q = randn(B, S, H, cache8[0].shape[3])
+    keep = torch.tensor([500, 896, 640, 513, 777, 720, 600, 896], device=dev)
+    pos = keep[:, None] + torch.arange(S, device=dev)[None]
+    before = K2.causal_attention_cuda.int8_launches
+    out = K2.causal_attention_cuda(q, cache8[0], cache8[1], pos, keep + S, cache8[2], cache8[3])
+    assert K2.causal_attention_cuda.int8_launches == before + 1
+    return [edge_check("K2 chunk int8 B=8 S=384 into the T=4096 int8 cache, ragged keep, fp32 scales", out,
+                       K2.flash_causal_attention_plain(q, cache8[0], cache8[1], pos, keep + S, cache8[2], cache8[3]))]
 
 
 def check_k3_edges(randn, int8, scales):
@@ -476,8 +544,9 @@ def synthetic_tile(seed, size=5000):
 
 def slice_setup():
     """The 3B slice's model and inputs: Qwen2.5-VL-3B at full width with random bf16
-    weights from seed 0, the processor, 16 LRS-GRO-shaped samples over 4 synthetic
-    tiles, greedy generation of NEW_TOKENS tokens per stage."""
+    weights from seed 0, the processor, PIPE_SAMPLES LRS-GRO-shaped samples over 4
+    synthetic tiles (the slice phase takes the first SAMPLES of them), greedy
+    generation of NEW_TOKENS tokens per stage."""
     import types
 
     import torch
@@ -510,14 +579,14 @@ def slice_setup():
     samples = [LRSGROSample(question_id=str(i), image_name=f"tile{i % 4}.png", category="object",
                             question=f"what is near the marked area {i}?", higher_level="perception",
                             ground_truth="ship", bbox=[2200, 2200, 2380, 2350], type="object")
-               for i in range(SAMPLES)]
+               for i in range(PIPE_SAMPLES)]
     return types.SimpleNamespace(
-        cfg=cfg, processor=processor, tiles=tiles, samples=samples, init_s=init_s,
+        cfg=cfg, params=params, processor=processor, tiles=tiles, samples=samples, init_s=init_s,
         generator=Generator(params, cfg, max_cache_len=4096),
         gen=GenerationConfig(max_new_tokens=NEW_TOKENS, temperature=0.0))
 
 
-def run_slice(card):
+def run_slice(card, env):
     import torch
 
     from zoomearth_tpu_torch.agent import episode as EP
@@ -526,9 +595,8 @@ def run_slice(card):
     from zoomearth_tpu_torch.ops import flash_causal as K2
     from zoomearth_tpu_torch.ops import flash_decode as K3
 
-    env = slice_setup()
-    cfg, generator, processor, samples, tiles, gen = (env.cfg, env.generator, env.processor, env.samples, env.tiles,
-                                                     env.gen)
+    cfg, generator, processor, samples, tiles, gen = (env.cfg, env.generator, env.processor, env.samples[:SAMPLES],
+                                                     env.tiles, env.gen)
     phases = {"init_params_s": env.init_s}
     kernels = (K1.segment_attention_cuda, K2.causal_attention_cuda, K3.decode_attention_cuda)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
@@ -579,6 +647,261 @@ def run_slice(card):
     return {"flash_segment_attention": launches["segment_attention_cuda"],
             "flash_causal_attention": launches["causal_attention_cuda"],
             "flash_decode_attention": launches["decode_attention_cuda"]}
+
+
+def run_pipelined(card, env):
+    """The pair-pipelined evaluation path at 3B width (see the module docstring,
+    phase 6). Returns {kernel name: {"launches_pipelined": n[, "launches_pipelined_int8": n]}}."""
+    import torch
+
+    from zoomearth_tpu_torch.agent import episode as EP
+    from zoomearth_tpu_torch.eval.infer import record_dict, run_inference
+    from zoomearth_tpu_torch.eval.score import evaluation_metrics
+    from zoomearth_tpu_torch.models.vlm import vlm_forward
+    from zoomearth_tpu_torch.ops import flash_attention as K1
+    from zoomearth_tpu_torch.ops import flash_causal as K2
+    from zoomearth_tpu_torch.ops import flash_decode as K3
+    from zoomearth_tpu_torch.ops.sampling import greedy
+    from zoomearth_tpu_torch.runtime import generate as G
+    from zoomearth_tpu_torch.runtime import pipeline as PL
+
+    cfg, generator, processor, samples, tiles = env.cfg, env.generator, env.processor, env.samples, env.tiles
+    L = cfg.text.num_hidden_layers
+    gen1 = G.GenerationConfig(max_new_tokens=NEW_TOKENS, temperature=0.0)
+    gen2 = G.GenerationConfig(max_new_tokens=PIPE_NEW_TOKENS_2, temperature=0.0)
+    kernels = (K1.segment_attention_cuda, K2.causal_attention_cuda, K3.decode_attention_cuda)
+    names = ("flash_segment_attention", "flash_causal_attention", "flash_decode_attention")
+    loader = lambda s: tiles[s.image_name]  # noqa: E731
+    pair_steps = [0]
+    pair_forward, paired_waves = G.decoder_forward_pair, PL.run_paired_waves
+
+    def counted_pair_forward(*a, **kw):
+        before = K3.decode_attention_cuda.launches
+        out = pair_forward(*a, **kw)
+        assert K3.decode_attention_cuda.launches - before == 2 * L, "K3 must launch twice per layer per pair step"
+        pair_steps[0] += 1
+        return out
+
+    def reset():
+        for k in kernels:
+            k.launches = 0
+        for k in kernels[:2]:
+            k.variants = dict.fromkeys(k.variants, 0)
+        for k in kernels[1:]:
+            k.int8_launches = 0
+        pair_steps[0] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def run(g, fn):
+        """fn() with the counts at 0: (wall seconds, fn's result, the token lists of every stage in
+        the order they were read back: stage 1 then stage 2 of each wave or batch)."""
+        tokens = []
+        g.trim_generated = lambda buf, _fn=g.trim_generated: (tokens.append(_fn(buf)), tokens[-1])[1]
+        reset()
+        t0 = time.time()
+        try:
+            out = fn()
+        finally:
+            del g.trim_generated  # the instance attribute shadowed the class's method
+        torch.cuda.synchronize()
+        return time.time() - t0, out, tokens
+
+    def pipelined(g, path, chosen):
+        wall, _, tokens = run(g, lambda: run_inference(g, processor, chosen, path, batch_size=BATCH, gen=gen1,
+                                                       stage2_gen=gen2, image_loader=loader, mode="pipelined"))
+        return wall, [json.loads(line) for line in open(path)], tokens
+
+    def same_tokens(a, b):
+        """(identical, compared) tokens of two runs' stages, position by position."""
+        assert len(a) == len(b) and all(len(x) == len(y) for x, y in zip(a, b)), "runs of other shapes"
+        rows = [(ra, rb) for x, y in zip(a, b) for ra, rb in zip(x, y)]
+        return (sum(p == q for ra, rb in rows for p, q in zip(ra, rb)), sum(max(len(ra), len(rb)) for ra, rb in rows))
+
+    G.decoder_forward_pair = counted_pair_forward
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+            # (1) the main path of this phase, as a user runs it
+            wall, records, tokens = pipelined(generator, os.path.join(out_dir, "pipe0.jsonl"), samples)
+            launches = {n: k.launches for n, k in zip(names, kernels)}
+            variants = {n: dict(k.variants) for n, k in zip(names[:2], kernels[:2])}
+            int8_bf16 = {n: k.int8_launches for n, k in zip(names[1:], kernels[1:])}
+            steps_pair, peak_dummy = pair_steps[0], torch.cuda.max_memory_allocated()
+            assert len(records) == PIPE_SAMPLES, f"{len(records)} of {PIPE_SAMPLES} records written"
+            assert sorted(r["question_id"] for r in records) == sorted(s.question_id for s in samples)
+            assert all(r["error"] is False and isinstance(r["stage2"], str) for r in records)
+            assert len(tokens) == 2 * (PIPE_SAMPLES // BATCH) and all(
+                len(row) == budget for i, stage in enumerate(tokens) for row in stage
+                for budget in ((NEW_TOKENS, PIPE_NEW_TOKENS_2)[i % 2],)), "a stage stopped short of its budget"
+            assert all(n > 0 for n in launches.values()), f"kernel launches of the pipelined run: {launches}"
+            assert all(v == {"mma": launches[n], "fma": 0} for n, v in variants.items()), variants
+            assert int8_bf16 == dict.fromkeys(names[1:], 0), f"int8 entries taken with a bf16 cache: {int8_bf16}"
+            waves = PIPE_SAMPLES // BATCH
+            # every iteration pairs (bootstrap and drain with a dummy partner); the loop may leave early
+            # only at an all-done check, and random weights emit no stop token
+            assert steps_pair == (waves + 1) * min(NEW_TOKENS, PIPE_NEW_TOKENS_2), steps_pair
+            solo_steps, odd = divmod(launches[names[2]] - 2 * L * steps_pair, L)
+            assert odd == 0 and solo_steps == waves * (NEW_TOKENS - PIPE_NEW_TOKENS_2), (solo_steps, odd)
+            log(f"  {len(records)} records written in {wall:.2f} s; launches {launches}; K1/K2 by variant {variants}; "
+                f"{steps_pair} pair steps x 2 x {L} layers + {solo_steps} solo-tail steps x {L} layers of K3 | {card}")
+
+            # (2) the same samples through the sequential cache-reuse path, batch by batch
+            by_image = sorted(samples, key=lambda s: s.image_name)  # run_inference's order (group_by_image)
+            waves_in = [([s.question for s in by_image[i:i + BATCH]], [loader(s) for s in by_image[i:i + BATCH]])
+                        for i in range(0, PIPE_SAMPLES, BATCH)]
+            wall_seq, res, tokens_seq = run(generator, lambda: [
+                EP.run_episodes(generator, processor, qs, ims, gen=gen1, stage2_gen=gen2, reuse_cache=True)
+                for qs, ims in waves_in])
+            seq = [record_dict(s, r) for s, r in zip(by_image, (r for batch in res for r in batch))]
+            assert [r["question_id"] for r in seq] == [r["question_id"] for r in records]
+            same, total = same_tokens(tokens, tokens_seq)
+            log(f"  wall: pipelined {wall:.3f} s, sequential run_episodes(reuse_cache=True) {wall_seq:.3f} s over the same "
+                f"{PIPE_SAMPLES} samples ({PIPE_SAMPLES / wall:.3f} and {PIPE_SAMPLES / wall_seq:.3f} samples/s) | {card}")
+            log(f"  tokens identical between pipelined and sequential: {same} of {total} ({same / total:.4f}; bf16 at 3B "
+                f"width with random weights: near-flat logits, not asserted) | {card}")
+
+            # (3) one wave (bootstrap and drain, each a pair with the dummy partner) with every Generator
+            # stage between two device synchronizations: the first wave's samples, so its stage-1 tokens
+            # must be the main run's
+            one = by_image[:BATCH]
+            spent = {name: [0.0, 0] for name in ("run_prefill", "run_chunk_prefill", "run_decode_pair", "run_decode")}
+            for name in spent:
+                def timed(*a, _fn=getattr(generator, name), _name=name, **kw):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = _fn(*a, **kw)
+                    torch.cuda.synchronize()
+                    spent[_name][0] += time.perf_counter() - t0
+                    spent[_name][1] += 1
+                    return out
+                setattr(generator, name, timed)
+            try:
+                wall_t, _, again = pipelined(generator, os.path.join(out_dir, "pipe_timed.jsonl"), one)
+            finally:
+                for name in spent:
+                    delattr(generator, name)  # the instance attributes shadow the class's methods
+            peak_dummy1, steps_t = torch.cuda.max_memory_allocated(), pair_steps[0]
+            assert again[0] == tokens[0], "the pipelined run is not repeatable"
+            assert steps_t == 2 * min(NEW_TOKENS, PIPE_NEW_TOKENS_2) and spent["run_decode"][1] == 1, (steps_t, spent)
+            in_stages = sum(t for t, _ in spent.values())
+            log(f"  timed pipelined run of one wave ({BATCH} samples): wall {wall_t:.3f} s; " + "; ".join(
+                f"{name} {t:.3f} s in {n} calls" for name, (t, n) in spent.items()) + f" | {card}")
+            log(f"  per step: pair {1e3 * spent['run_decode_pair'][0] / steps_t:.3f} ms ({2 * BATCH} rows, two caches), "
+                f"solo {1e3 * spent['run_decode'][0] / (NEW_TOKENS - PIPE_NEW_TOKENS_2):.3f} ms ({BATCH} rows) | {card}")
+            log(f"  host preparation with the device idle (image resize and crop, tokenize, patchify, trim; everything "
+                f"outside the Generator's stages): {wall_t - in_stages:.3f} s of the wave's {wall_t:.3f} s, share "
+                f"{(wall_t - in_stages) / wall_t:.4f} | {card}")
+
+            # (4) the same wave with edges="solo": no dummy partner's cache at the bootstrap and the drain.
+            # run_episodes_pipelined takes the runner's default, so the runner is wrapped for this pass.
+            PL.run_paired_waves = functools.partial(paired_waves, edges="solo")
+            try:
+                wall_solo, _, tokens_solo = pipelined(generator, os.path.join(out_dir, "pipe_solo.jsonl"), one)
+            finally:
+                PL.run_paired_waves = paired_waves
+            peak_solo1 = torch.cuda.max_memory_allocated()
+            assert pair_steps[0] == 0, "edges='solo' over one wave pairs nothing"
+            same_s, total_s = same_tokens(again, tokens_solo)
+            log(f"  peak memory allocated: the {waves}-wave run {peak_dummy / 2**30:.3f} GiB; one wave, edges='dummy' "
+                f"{peak_dummy1 / 2**30:.3f} GiB, edges='solo' {peak_solo1 / 2**30:.3f} GiB (weights and the slice's "
+                f"leftovers included; one cache of {BATCH} rows x {generator.max_cache_len} slots is "
+                f"{cache_bytes(generator, BATCH) / 2**30:.3f} GiB); edges='solo' wall {wall_solo:.3f} s, tokens identical "
+                f"to edges='dummy' {same_s} of {total_s} | {card}")
+
+            # (5) the first pair step's logits against the solo step's, on one stage-1 batch paired with itself
+            qs, ims = [s.question for s in samples[:BATCH]], [loader(s) for s in samples[:BATCH]]
+            batch = EP._stage1_inputs(generator, processor, qs, ims, 512)[-1]
+            la, ca, aa = generator.run_prefill(batch, max_new=NEW_TOKENS)
+            cb, cs = ca.clone(), ca.clone()
+            with torch.inference_mode():
+                tok = greedy(la)
+                pos3 = torch.as_tensor(batch.next_pos, device=la.device).long()[None, :, None].expand(3, BATCH, 1)
+                solo_logits = vlm_forward(env.params, cfg, tok[:, None], pos3, attn_positions=cs.length[:, None],
+                                          cache=cs, attend_len=aa)[0][:, 0]
+            _, _, pa, _, _, _, pb, _ = generator.run_decode_pair((la, ca, batch.next_pos, aa, None),
+                                                                 (la.clone(), cb, batch.next_pos, aa, None), steps=1)
+            torch.cuda.synchronize()
+            err = max(max_err(pa, solo_logits), max_err(pb, solo_logits))
+            agree = float(((pa.argmax(-1) == solo_logits.argmax(-1)) & (pb.argmax(-1) == solo_logits.argmax(-1)))
+                          .float().mean())
+            log(f"  first pair step's logits vs the solo step's: max_abs_err {err:.3e} (tol {TOL_PAIR_LOGITS}; max |logit| "
+                f"{solo_logits.abs().max().item():.2f}); rows whose argmax agrees {agree:.3f} | {card}")
+            assert err <= TOL_PAIR_LOGITS and bool(torch.isfinite(pa).all() and torch.isfinite(pb).all())
+            assert pa.shape == (BATCH, cfg.text.vocab_size) and pa.dtype == torch.float32
+            del la, ca, cb, cs, pa, pb, solo_logits
+
+            # (6) the int8 KV cache: K2's and K3's int8 entries on a path
+            g8 = G.Generator(env.params, cfg, max_cache_len=4096, cache_dtype=torch.int8)
+            wall8, rec8, tokens8 = pipelined(g8, os.path.join(out_dir, "pipe_int8.jsonl"), by_image[:BATCH])
+            launches8 = {n: k.launches for n, k in zip(names, kernels)}
+            int8 = {n: k.int8_launches for n, k in zip(names[1:], kernels[1:])}
+            assert len(rec8) == BATCH and all(r["error"] is False for r in rec8)
+            assert int8 == {n: launches8[n] for n in names[1:]} and all(n > 0 for n in int8.values()), (int8, launches8)
+            same8, total8 = same_tokens(tokens[:2], tokens8)
+            log(f"  int8 KV cache, {BATCH} samples pipelined: {wall8:.3f} s; launches {launches8}, all of K2's and K3's "
+                f"through the int8 entry; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (one int8 cache "
+                f"{cache_bytes(g8, BATCH) / 2**30:.3f} GiB); tokens identical to the bf16 cache's {same8} of {total8} "
+                f"| {card}")
+            # wrong scales would give finite, wrong tokens: the int8 cache's error is far from flipping one
+            # token in ten, even on these near-flat logits
+            assert same8 >= 0.9 * total8, f"int8 cache: only {same8} of {total8} tokens equal the bf16 cache's"
+            # K2 and K3 against their plain versions on a cache that this path's prefill has just
+            # quantized, in the forms the decoder hands them: K2 the whole 4096-row cache, K3 the
+            # [:, :, :attend] prefix views of the values and of the fp32 scales
+            t = cfg.text
+            _, c8, a8 = g8.run_prefill(batch, max_new=NEW_TOKENS)
+
+            def held(label, out, ref):
+                # the model's own values run past 2, where TOL_BF16 was stated: one bf16 step (2^-7) of
+                # the largest output, which a scale read from a wrong slot exceeds by orders
+                return edge_check(label, out, ref, max(TOL_BF16, 2.0 ** -7 * ref.abs().max().item()))
+
+            with torch.inference_mode():
+                gq = torch.Generator(device="cuda").manual_seed(1)
+                S8 = batch.input_ids.shape[1]
+                q8 = torch.randn((BATCH, S8, t.num_attention_heads, t.head_dim), generator=gq, device="cuda").bfloat16()
+                q1 = q8[:, :1].contiguous()
+                pos8 = torch.arange(S8, device="cuda")[None].expand(BATCH, S8)
+                for layer in (0, L - 1):
+                    k8, v8, ks8, vs8 = c8.layer(layer)
+                    assert_scale_views_as_is(ks8, vs8)
+                    held(f"K2 int8 on the path's cache, layer {layer}, B={BATCH} S={S8} T={k8.shape[2]}",
+                         K2.causal_attention_cuda(q8, k8, v8, pos8, c8.length, ks8, vs8),
+                         K2.flash_causal_attention_plain(q8, k8, v8, pos8, c8.length, ks8, vs8))
+                    assert a8 is not None and a8 < k8.shape[2], a8
+                    view = tuple(x[:, :, :a8] for x in (k8, v8, ks8, vs8))
+                    assert_scale_views_as_is(view[2], view[3])
+                    held(f"K3 int8 on the path's cache, layer {layer}, attend {a8} view of T={k8.shape[2]}",
+                         K3.decode_attention_cuda(q1, view[0], view[1], c8.length, view[2], view[3]),
+                         K3.flash_decode_attention_plain(q1, view[0], view[1], c8.length, view[2], view[3]))
+            del c8, q8, q1, k8, v8, ks8, vs8, view
+            del g8
+
+            # (7) the scorer over the jsonl the pipelined run wrote
+            metrics = evaluation_metrics(os.path.join(out_dir, "pipe0.jsonl"), verbose=False)
+            assert metrics["n"] == PIPE_SAMPLES and 0.0 <= metrics["overall_acc2"] <= 1.0 and "per_type" in metrics
+            log(f"  scorer: n {metrics['n']}, overall_acc1 {metrics['overall_acc1']:.3f}, overall_acc2 "
+                f"{metrics['overall_acc2']:.3f} (random weights), wordnet backend {metrics['wordnet_backend']}")
+    finally:
+        G.decoder_forward_pair = pair_forward
+    out = {n: {"launches_pipelined": launches[n]} for n in names}
+    for n in names[1:]:
+        out[n]["launches_pipelined_int8"] = int8[n]
+    return out
+
+
+def cache_bytes(generator, batch):
+    """Bytes of one KV cache of `batch` rows in the generator's layout (scales included)."""
+    t = generator.cfg.text
+    slots = 2 * t.num_hidden_layers * batch * t.num_key_value_heads * generator.max_cache_len
+    item = torch_itemsize(generator.cache_dtype)
+    return slots * t.head_dim * item + (slots * 4 if item == 1 else 0)
+
+
+def torch_itemsize(dtype):
+    import torch
+
+    return torch.empty((), dtype=dtype).element_size()
 
 
 def profile_slice(card):
@@ -895,7 +1218,12 @@ def main(argv=()) -> int:
     log("[parity] tiny config: fp32 card kernels vs CPU plain path, bf16 card kernels vs plain versions on the card")
     check_tiny_parity()
     log("[slice] Qwen2.5-VL-3B bf16, run_inference + run_episodes(reuse_cache=True)")
-    launches = run_slice(card)
+    env = slice_setup()
+    launches = run_slice(card, env)
+    log("[pipelined] Qwen2.5-VL-3B bf16, run_inference(mode='pipelined') over 3 waves of 8, then the int8 KV cache")
+    pipelined = run_pipelined(card, env)
+    del env
+    torch.cuda.empty_cache()
     log("[decode-variants] K4 / P1 / P2 checked at the reference's shapes and at their edges, then the entry "
         "points' runs")
     checks = check_decode_variants()
@@ -909,7 +1237,8 @@ def main(argv=()) -> int:
         checks = untimed.get(name, [])
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": max(c["max_abs_err"] for c in cases + checks),
+            "launches": launches[name], **pipelined.get(name, {}),
+            "max_abs_err": max(c["max_abs_err"] for c in cases + checks),
             **{key: cases[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
                                               "library_device_ms", "share_of_bound")},
             "cases": cases,

@@ -609,3 +609,121 @@ def test_k1_and_k2_replay_in_a_cuda_graph_to_the_eager_result(dev):
         assert torch.equal(out, ref)
     assert counts == (K1.segment_attention_cuda.launches, K2.causal_attention_cuda.launches,
                       K1.segment_attention_cuda.variants, K2.causal_attention_cuda.variants)
+
+
+# ---------------------------------------------------------------------------
+# The pair runner, the int8 KV cache and the pinned readback on the card
+# ---------------------------------------------------------------------------
+
+def _wave_hooks(cfg, B=2):
+    """Text-only two-stage hooks for run_paired_waves (host code, seeded)."""
+    from zoomearth_tpu_torch.runtime.generate import prepare_batch, prepare_continuation
+
+    tok = cfg.tokens
+
+    def build_stage1(w):
+        rngw = np.random.default_rng(w)
+        seqs = [[tok.im_start] + [int(t) for t in rngw.integers(1, 300, size=4 + b)] for b in range(B)]
+        return prepare_batch(cfg, seqs, [[] for _ in range(B)], length_buckets=(16,), patch_buckets=(0,))
+
+    def build_stage2(w, out1, base_lengths, base_next):
+        rngw = np.random.default_rng(100 + w)
+        chunks = [[int(t) for t in rngw.integers(1, 300, size=3)] for _ in range(B)]
+        keep = np.asarray([int(base_lengths[b]) + len(out1[b]) for b in range(B)], np.int32)
+        starts = [int(base_next[b]) + len(out1[b]) for b in range(B)]
+        return prepare_continuation(cfg, chunks, [[] for _ in range(B)], starts, length_buckets=(16,)), keep, None
+
+    return build_stage1, build_stage2
+
+
+@pytest.mark.parametrize("edges", ["dummy", "solo"])
+def test_tiny_pair_runner_on_card_matches_cpu(dev, edges):
+    """run_paired_waves, tiny config in fp32: three waves with budgets 7 / 4 on the
+    card (K2 for prefill and chunk prefill, K3 twice per layer per pair step, tokens
+    read back through pinned buffers) give the CPU plain path's tokens."""
+    from zoomearth_tpu_torch.models.params import init_vlm_params, map_tree
+    from zoomearth_tpu_torch.runtime.generate import GenerationConfig, Generator
+    from zoomearth_tpu_torch.runtime.pipeline import run_paired_waves
+
+    cfg = VLMConfig.tiny()
+    params = init_vlm_params(cfg, torch.Generator().manual_seed(0))
+    s1, s2 = _wave_hooks(cfg)
+    g1, g2 = GenerationConfig(max_new_tokens=7, temperature=0.0), GenerationConfig(max_new_tokens=4, temperature=0.0)
+    outs = []
+    for p in (params, map_tree(lambda t: t.to(dev), params)):
+        n = K3.decode_attention_cuda.launches
+        res = run_paired_waves(Generator(p, cfg, max_cache_len=64), 3, s1, s2, gen1=g1, gen2=g2, edges=edges)
+        outs.append([(r.wave, r.out1, r.out2) for r in res])
+    assert outs[1] == outs[0] and [w for w, _, _ in outs[1]] == [0, 1, 2]
+    ran = K3.decode_attention_cuda.launches - n
+    if all(len(row) == budget for _, o1, o2 in outs[1] for out, budget in ((o1, 7), (o2, 4)) for row in out):
+        # no row stopped early: 4 joint steps a pair loop, stage 1's 3-step tails, the solo bootstrap and drain
+        pair_loops, solo_steps = (4, 3 * 3) if edges == "dummy" else (2, 2 * 3 + 7 + 4)
+        assert ran == cfg.text.num_hidden_layers * (2 * 4 * pair_loops + solo_steps)
+    assert ran > 0
+
+
+def test_int8_cache_on_card_matches_plain_versions(dev):
+    """Generator(cache_dtype=torch.int8), tiny config in bf16 on the card: prefill,
+    chunk prefill and decode logits through K2's and K3's int8 entries against the
+    same path through their plain versions on the card; the scales go to the kernels
+    as the cache's own fp32 views."""
+    import dataclasses
+
+    from zoomearth_tpu_torch.models import decoder
+    from zoomearth_tpu_torch.models.params import init_vlm_params, map_tree
+    from zoomearth_tpu_torch.runtime.generate import GenerationConfig, Generator, prepare_continuation
+
+    cfg = dataclasses.replace(VLMConfig.tiny(), dtype="bfloat16")
+    params = map_tree(lambda t: t.to(dev).to(torch.bfloat16), init_vlm_params(cfg, torch.Generator().manual_seed(0)))
+    s1, _ = _wave_hooks(cfg, B=3)
+    b1 = s1(0)
+    chunk = prepare_continuation(cfg, [[7, 8, 9], [10], [11, 12]], [[], [], []], np.asarray(b1.next_pos) + 2,
+                                 length_buckets=(16,))
+
+    def path():
+        g = Generator(params, cfg, max_cache_len=64, cache_dtype=torch.int8)
+        logits, cache, attend = g.run_prefill(b1, max_new=4)
+        toks, cache = g.run_decode(logits, cache, b1.next_pos, GenerationConfig(max_new_tokens=2), attend=attend)
+        logits2, cache, _ = g.run_chunk_prefill(cache, chunk, np.asarray(b1.lengths) + 2, max_new=4)
+        return logits, toks, logits2, cache
+
+    n = [K2.causal_attention_cuda.launches, K2.causal_attention_cuda.int8_launches,
+         K3.decode_attention_cuda.launches, K3.decode_attention_cuda.int8_launches]
+    l1, toks, l2, cache = path()
+    torch.cuda.synchronize()
+    m = [K2.causal_attention_cuda.launches, K2.causal_attention_cuda.int8_launches,
+         K3.decode_attention_cuda.launches, K3.decode_attention_cuda.int8_launches]
+    L = cfg.text.num_hidden_layers
+    assert [b - a for a, b in zip(n, m)] == [2 * L, 2 * L, 2 * L, 2 * L]
+    assert cache.quantized and cache.k[0].dtype == torch.int8 and cache.kscale[0].dtype == torch.float32
+    ks, vs = cache.kscale[0][:, :, :32], cache.vscale[0][:, :, :32]
+    assert _cuda.scale_views("test", ks, vs)[0] is ks  # a prefix view goes in as it is
+    _cuda.require_aligned16("test", cache.k[0][:, :, :32], cache.v[0][:, :, :32])
+    kernels = (decoder.flash_causal_attention, decoder.flash_decode_attention)
+    decoder.flash_causal_attention, decoder.flash_decode_attention = (K2.flash_causal_attention_plain,
+                                                                      K3.flash_decode_attention_plain)
+    try:
+        p1, ptoks, p2, pcache = path()
+    finally:
+        decoder.flash_causal_attention, decoder.flash_decode_attention = kernels
+    # bf16 activations through two layers (the bound of the tiny bf16 parity check of the chip smoke)
+    assert _err(l1, p1) <= 6e-2 and _err(l2, p2) <= 6e-2
+    assert bool(torch.isfinite(l1).all() and torch.isfinite(l2).all())
+    assert torch.equal(cache.k[0], pcache.k[0]) and torch.equal(cache.kscale[0], pcache.kscale[0])  # layer 0: same inputs
+
+
+def test_host_copy_waits_for_its_event(dev):
+    """HostCopy of a CUDA tensor: a pinned buffer, filled behind work still queued on
+    the stream, read only after the recorded event."""
+    from zoomearth_tpu_torch.runtime.generate import HostCopy
+
+    a = _randn((2048, 2048), dev, torch.float32, 1)
+    x = a
+    for _ in range(20):  # keep the stream busy so the copy is queued behind real work
+        x = (x @ a) * 1e-2
+    t = (x.abs().sum(1) > 0).to(torch.int64) * torch.arange(2048, device=dev)
+    h = HostCopy(t)
+    assert h._buf.is_pinned() and h._event is not None
+    np.testing.assert_array_equal(h.numpy(), t.cpu().numpy())
+    assert h.numpy().tolist() == list(range(2048))

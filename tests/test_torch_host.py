@@ -27,6 +27,7 @@ from zoomearth_tpu.agent import prompts as JP
 from zoomearth_tpu.cli import config as JCC
 from zoomearth_tpu.config import VLMConfig
 from zoomearth_tpu.image import geometry as JGEO
+from zoomearth_tpu.image import loader as JL
 from zoomearth_tpu.image import preprocess as JPP
 from zoomearth_tpu.models import rope as JR
 from zoomearth_tpu.models import vit as JV
@@ -40,6 +41,7 @@ from zoomearth_tpu_torch.agent import processor as TPR
 from zoomearth_tpu_torch.agent import prompts as TP
 from zoomearth_tpu_torch.cli import config as TCC
 from zoomearth_tpu_torch.image import geometry as TGEO
+from zoomearth_tpu_torch.image import loader as TL
 from zoomearth_tpu_torch.image import preprocess as TPP
 from zoomearth_tpu_torch.models import rope as TR
 from zoomearth_tpu_torch.models import vit as TV
@@ -394,6 +396,92 @@ def test_parse_with_yaml_equals_reference(tmp_path):
     for mod in (TCC, JCC):
         with pytest.raises(SystemExit, match="unknown config keys"):
             mod.parse_with_yaml(parser(), ["--config", str(tmp_path / "bad.yaml")])
+
+
+# ---------------------------------------------------------------------------
+# image/loader.py: TileImage, PrefetchLoader
+# ---------------------------------------------------------------------------
+
+def _tile(seed, h=90, w=130):
+    return np.random.default_rng(seed).integers(0, 255, (h, w, 3), dtype=np.uint8)
+
+
+@pytest.mark.parametrize("source", ["array", "pil", "strided"])
+def test_tile_image_crop_resize_size_equal_reference(source):
+    arr = _tile(1)
+    src = {"array": arr, "pil": Image.fromarray(arr), "strided": np.asfortranarray(arr)}[source]
+    t, j = TL.TileImage(src), JL.TileImage(src)
+    assert t.size == j.size == (130, 90) and (t.width, t.height) == (j.width, j.height)
+    assert t.array.flags["C_CONTIGUOUS"]
+    np.testing.assert_array_equal(t.array, j.array)
+    for box in ((0, 0, 130, 90), (10, 5, 77, 60), (3.7, 2.2, 50.9, 41.0), (120, 80, 130, 90)):
+        tc, jc = t.crop(box), j.crop(box)
+        np.testing.assert_array_equal(tc.array, jc.array)
+        assert tc.size == jc.size
+        x1, y1, x2, y2 = (int(v) for v in box)
+        np.testing.assert_array_equal(tc.array, np.asarray(Image.fromarray(arr).crop((x1, y1, x2, y2))))
+    for size in ((64, 48), (200, 31), (1, 1)):
+        np.testing.assert_array_equal(t.resize(size).array, j.resize(size).array)
+        assert t.resize(size).size == size
+    assert t.convert("RGB") is t
+    np.testing.assert_array_equal(np.asarray(t.to_pil()), np.asarray(j.to_pil()))
+    with pytest.raises(AssertionError):
+        t.convert("L")
+
+
+def test_tile_image_crop_without_the_native_library(monkeypatch):
+    arr = _tile(2)
+    with_native = TL.TileImage(arr).crop((4, 6, 90, 70)).array
+    monkeypatch.setattr(TN, "available", lambda: False)
+    np.testing.assert_array_equal(TL.TileImage(arr).crop((4, 6, 90, 70)).array, with_native)
+
+
+def test_tile_image_goes_through_the_geometry_helpers():
+    """A TileImage stands in for a PIL image in resize_image / cut_image (the episode's crop)."""
+    arr = _tile(3, 300, 400)
+    t, j, pil = TL.TileImage(arr), JL.TileImage(arr), Image.fromarray(arr)
+    np.testing.assert_array_equal(TGEO.resize_image(t, 128).array, JGEO.resize_image(j, 128).array)
+    np.testing.assert_array_equal(TGEO.resize_image(t, 128).array, np.asarray(TGEO.resize_image(pil, 128)))
+    box = [100, 90, 180, 150]
+    np.testing.assert_array_equal(TGEO.cut_image(t, box, 64).array, JGEO.cut_image(j, box, 64).array)
+    np.testing.assert_array_equal(TGEO.cut_image(t, box, 64).array, np.asarray(TGEO.cut_image(pil, box, 64)))
+
+
+@pytest.mark.parametrize("depth", [1, 2, 5])
+def test_prefetch_loader_order_depth_and_exception_position(depth):
+    def fn(i):
+        if i == 3:
+            raise ValueError(f"item {i}")
+        return i * i
+
+    for mod in (TL, JL):
+        assert list(mod.PrefetchLoader(range(6), lambda i: i * i, depth=depth)) == [0, 1, 4, 9, 16, 25]
+        assert list(mod.PrefetchLoader([], fn, depth=depth)) == []
+        loader = mod.PrefetchLoader(range(6), fn, depth=depth)
+        assert loader.q.maxsize == depth
+        got = []
+        with pytest.raises(ValueError, match="item 3"):
+            for v in loader:
+                got.append(v)
+        assert got == [0, 1, 4]  # the exception surfaces at the failing item's position
+
+
+def test_prefetch_loader_runs_ahead_of_the_consumer():
+    import threading
+
+    started = []
+    gate = threading.Event()
+
+    def fn(i):
+        started.append(i)
+        if i == 0:
+            gate.wait(5)
+        return i
+
+    it = iter(TL.PrefetchLoader(range(4), fn, depth=2))
+    gate.set()
+    assert next(it) == 0
+    assert list(it) == [1, 2, 3] and started == [0, 1, 2, 3]
 
 
 def test_port_imports_no_jax():

@@ -5,8 +5,8 @@ ORIGINAL full-res image around it, appends the crop as a second image continuing
 assistant turn, and stage 2 produces the final <answer>. Stage 2 either re-prefills
 the stitched two-image prompt (reuse_cache=False, the eval default) or continues
 from the stage-1 KV cache with a chunk prefill of the crop's tokens
-(reuse_cache=True). The pair-pipelined runner (run_episodes_pipelined) is not
-ported yet.
+(reuse_cache=True). run_episodes_pipelined runs a stream of equal-size waves with
+reuse_cache semantics through the pair-pipelined runner (runtime/pipeline.py).
 """
 
 from __future__ import annotations
@@ -124,6 +124,63 @@ def _stage2_continuation(
     inert = np.ones((n,), bool)
     inert[s2_idx] = False
     return results, bc, np.asarray(full_keep, np.int32), inert, s2_idx
+
+
+def run_episodes_pipelined(
+    generator: Generator,
+    processor: Processor,
+    waves: Sequence,  # (questions, images) pairs OR zero-arg callables returning one
+    #                     (lazy tile loading: only ~2 waves of images live at once),
+    #                     EQUAL batch sizes
+    *,
+    stage1_max_size: int = 512,
+    crop_min_size: int = 512,
+    crop_max_size: int = 512,
+    gen: GenerationConfig = GenerationConfig(max_new_tokens=1024, temperature=0.01),
+    seed: int = 0,
+    stage2_gen: Optional[GenerationConfig] = None,
+) -> List[List[EpisodeResult]]:
+    """Pair-pipelined cache-reuse episodes over a stream of equal-size waves.
+
+    Same semantics as run_episodes(reuse_cache=True) per wave, but wave n's stage-1
+    decode runs CO-BATCHED with wave n-1's stage-2 decode, one dense pass per step for
+    both (runtime.pipeline.run_paired_waves): the batch-eval throughput configuration."""
+    from ..runtime.pipeline import run_paired_waves
+
+    state: dict = {}
+    out: List[Optional[List[EpisodeResult]]] = [None] * len(waves)
+
+    def build_stage1(w):
+        entry = waves[w]
+        questions, images = entry() if callable(entry) else entry
+        texts, resized, scales, encoded, batch = _stage1_inputs(
+            generator, processor, questions, images, stage1_max_size
+        )
+        state[w] = (questions, images, texts, resized, scales, encoded, batch)
+        return batch
+
+    def build_stage2(w, out1, base_lengths, base_next):
+        questions, images, texts, resized, scales, encoded, batch = state[w]
+        results, bc, keep, inert, s2_idx = _stage2_continuation(
+            generator, processor, questions, images, texts, resized, scales,
+            encoded, batch, out1, crop_min_size, crop_max_size,
+        )
+        state[w] = (results, s2_idx)
+        return bc, keep, inert
+
+    def on_complete(w, out1, out2):
+        results, s2_idx = state.pop(w)
+        tk = processor.tokenizer
+        for i in s2_idx:
+            text2 = tk.decode(out2[i]).strip()
+            results[i] = dataclasses.replace(results[i], stage2=text2, answer2=extract_answer(text2))
+        out[w] = results
+
+    run_paired_waves(
+        generator, len(waves), build_stage1, build_stage2,
+        gen1=gen, gen2=stage2_gen or gen, seed=seed, on_complete=on_complete,
+    )
+    return out  # type: ignore[return-value]
 
 
 def run_episodes(

@@ -1,9 +1,11 @@
 """Batch LRS-GRO inference (port of cli/infer.py).
 
 python -m zoomearth_tpu_torch.cli.infer --model_name MODEL_DIR --exp_name NAME \
-    --data_file test.jsonl --image_folder ./image [--batch_size 8] [--device cuda]
-Writes results/{exp_name}{rank}.jsonl. Runs on the CUDA device unless --device names
-another; without a CUDA device and without --device cpu it raises.
+    --data_file test.jsonl --image_folder ./image [--batch_size 8] [--device cuda] \
+    [--mode pipelined]
+Writes results/{exp_name}{rank}.jsonl; python -m zoomearth_tpu_torch.cli.eval scores it.
+Runs on the CUDA device unless --device names another; without a CUDA device and
+without --device cpu it raises.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_pixels", type=int, default=128 * 128 * 28 * 28)
     p.add_argument("--limit", type=int, default=0, help="only the first N samples")
     p.add_argument("--mode", choices=("sequential", "pipelined"), default="sequential",
-                   help="pipelined (pair waves) is not ported yet and raises")
+                   help="pipelined: pair-pipelined waves + KV-reuse stage 2 (the throughput "
+                        "configuration; sequential is the eval-parity default)")
     add_device_arg(p)
     return p
 

@@ -1,7 +1,7 @@
 """Batch two-stage inference over LRS-GRO (port of eval/infer.py).
 
-Writes jsonl result records with the reference's exact schema, one file per rank,
-so the reference package's scorer (zoomearth_tpu/eval/score.py) consumes them unchanged.
+Writes jsonl result records with the reference's exact schema, one file per rank;
+eval/score.py (python -m zoomearth_tpu_torch.cli.eval) scores them.
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ import json
 import os
 from typing import Optional, Sequence
 
-from ..agent.episode import EpisodeResult, run_episodes
+from ..agent.episode import EpisodeResult, run_episodes, run_episodes_pipelined
 from ..agent.processor import Processor
 from ..image.geometry import extract_bbox
 from ..runtime.generate import GenerationConfig, Generator
@@ -60,12 +60,13 @@ def run_inference(
 
     image_loader(sample) -> PIL image; defaults to opening sample.image_path.
     group_by_image: process questions about the same tile consecutively so a small
-    loader cache decodes each ~5000 px tile once. Only mode="sequential" is ported."""
-    if mode != "sequential":
-        raise NotImplementedError(
-            f"mode={mode!r}: pair-pipelined waves are ROADMAP queue 1, item "
-            "'Pair waves' (run_episodes_pipelined / runtime/pipeline.py)"
-        )
+    loader cache decodes each ~5000 px tile once.
+
+    mode="pipelined": run the batches as PAIR-PIPELINED waves
+    (agent.episode.run_episodes_pipelined): wave n's stage-1 decode co-batches with
+    wave n-1's stage-2 decode. It uses cache-reuse stage-2 semantics (kept tokens are
+    the generated ids); eval-parity runs keep the default sequential mode. The last
+    partial batch runs sequentially with reuse_cache=True (waves share one batch size)."""
     if image_loader is None:
         from PIL import Image
 
@@ -87,12 +88,30 @@ def run_inference(
         shard = sorted(shard, key=lambda s: s.image_name or "")
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     with open(out_path, "w") as fout:
-        for batch in batched(shard, batch_size):
+        if mode == "pipelined":
+            groups = list(batched(shard, batch_size))
+            full = [g for g in groups if len(g) == batch_size]
+            remaining = [g for g in groups if len(g) != batch_size]
+            if full:
+                # lazy wave loaders: only ~2 waves of full-res tiles live at once
+                waves = [(lambda g=g: ([s.question for s in g], [cached_loader(s) for s in g])) for g in full]
+                wave_results = run_episodes_pipelined(
+                    generator, processor, waves,
+                    stage1_max_size=stage1_max_size, gen=gen, stage2_gen=stage2_gen,
+                )
+                for g, results in zip(full, wave_results):
+                    for s, r in zip(g, results):
+                        fout.write(json.dumps(record_dict(s, r, model_id), ensure_ascii=False) + "\n")
+                    fout.flush()
+        else:
+            remaining = batched(shard, batch_size)
+        for batch in remaining:
             images = [cached_loader(s) for s in batch]
             questions = [s.question for s in batch]
             results = run_episodes(
                 generator, processor, questions, images,
                 stage1_max_size=stage1_max_size, gen=gen, stage2_gen=stage2_gen,
+                reuse_cache=(mode == "pipelined"),
             )
             for s, r in zip(batch, results):
                 fout.write(json.dumps(record_dict(s, r, model_id), ensure_ascii=False) + "\n")

@@ -22,11 +22,11 @@ import torch
 
 from ..config import TextConfig, VisionConfig, VLMConfig
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """torch dtype from a torch dtype or a name ("bfloat16", "float32")."""
+    """torch dtype from a torch dtype or a name ("bfloat16", "float32"; "int8" for a KV cache)."""
     if isinstance(dtype, torch.dtype):
         return dtype
     return _DTYPES[str(dtype)]

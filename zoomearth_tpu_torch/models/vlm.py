@@ -67,20 +67,26 @@ def vlm_forward(
     write_pos: Optional[torch.Tensor] = None,
     win_mode: int = 0,
     attend_len: Optional[int] = None,
+    vision_embeds: Optional[torch.Tensor] = None,  # (N_merged, E) from compute_vision_embeds
+    write_index=None,  # decoder.write_index(write_pos, T), where the caller has it
 ):
     """Full forward -> (logits fp32, cache).
 
-    With `pixel_values` (+ vision_meta) the ViT runs here and its embeddings replace
+    Vision input: either raw `pixel_values` (+ vision_meta), and the ViT runs here, or
+    precomputed `vision_embeds` from compute_vision_embeds (a caller that runs the
+    tower once per image and reuses its output); either way the embeddings replace
     the image-pad tokens. logits is (B, S, V), or (B, V) when logit_index (B,) is
     given: then only that position's hidden state is projected."""
     x = embed_tokens(params, input_ids)
-    if pixel_values is not None:
+    if pixel_values is not None and vision_embeds is None:
         vision_embeds = compute_vision_embeds(params, cfg, pixel_values, vision_meta, win_mode)
+    if vision_embeds is not None:
         x = merge_vision_embeddings(x, vision_embeds, input_ids == cfg.tokens.image_pad)
     hidden, cache = decoder_forward(
         params["text"], cfg.text, x, position_ids,
         attn_positions=attn_positions, attn_valid=attn_valid, cache=cache,
         update_cache_len=update_cache_len, write_pos=write_pos, attend_len=attend_len,
+        index=write_index,
     )
     if logit_index is not None:
         hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device), logit_index.long()]

@@ -133,15 +133,18 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: launch failed with code {rc}: {msg}")
 
 
-def count_launch(wrapper, variant: str | None = None) -> None:
+def count_launch(wrapper, variant: str | None = None, int8: bool = False) -> None:
     """Add one to `wrapper.launches` (and to `wrapper.variants[variant]`, where the
-    kernel has variants) for the kernel it has just launched. A call made while a
-    CUDA graph is being captured launches nothing (the graph's replays run the
-    kernel without passing through the wrapper), so it is not counted."""
+    kernel has variants; to `wrapper.int8_launches`, where the launch read int8 K/V)
+    for the kernel it has just launched. A call made while a CUDA graph is being
+    captured launches nothing (the graph's replays run the kernel without passing
+    through the wrapper), so it is not counted."""
     if not torch.cuda.is_current_stream_capturing():
         wrapper.launches += 1
         if variant is not None:
             wrapper.variants[variant] += 1
+        if int8:
+            wrapper.int8_launches += 1
 
 
 def ptr(t) -> ctypes.c_void_p:
@@ -178,3 +181,15 @@ def require_aligned16(name: str, *tensors) -> None:
             raise ValueError(f"{name}: rows and strides must be whole 16-byte multiples from a 16-byte aligned "
                              f"base (the kernel copies 16-byte vectors; shape {tuple(t.shape)}, strides "
                              f"{t.stride()}, offset {t.storage_offset()})")
+
+
+def scale_views(name: str, ks, vs):
+    """The int8 caches' per-token scales (B, Hkv, T) as the kernels read them: fp32,
+    unit stride on T, and one set of strides for both. A view that already is all of
+    that (a cache's own fp32 scales, or their [:, :, :attend_len] prefix) goes in as it
+    is; anything else is converted and copied."""
+    if ks is None or vs is None:
+        raise ValueError(f"{name}: int8 k/v need ks and vs scales")
+    if all(s.dtype == torch.float32 and s.stride(-1) == 1 for s in (ks, vs)) and ks.stride() == vs.stride():
+        return ks, vs
+    return ks.float().contiguous(), vs.float().contiguous()

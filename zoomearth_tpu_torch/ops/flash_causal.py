@@ -16,7 +16,8 @@ fp32 queries, which bf16 products would cost their precision. Here:
 - `block_key_bounds` is what each block of the kernel works out for itself: where
   its key loop ends and below which key no compare is needed.
 - `work` is the least work a call needs (flops, bytes), from its inputs.
-- `causal_attention_cuda.launches` counts kernel launches, `.variants` by variant.
+- `causal_attention_cuda.launches` counts kernel launches, `.variants` by variant,
+  `.int8_launches` those on int8 K/V.
 """
 
 from __future__ import annotations
@@ -116,10 +117,7 @@ def causal_attention_cuda(q, k, v, positions, kv_len, ks=None, vs=None):
     if variant == "mma":
         _cuda.require_aligned16(name, q, k, v)
     if quant:
-        if ks is None or vs is None:
-            raise ValueError(f"{name}: int8 k/v need ks and vs scales")
-        ks = ks.float().contiguous()
-        vs = vs.float().contiguous()
+        ks, vs = _cuda.scale_views(name, ks, vs)
     else:
         ks = vs = None
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -134,12 +132,13 @@ def causal_attention_cuda(q, k, v, positions, kv_len, ks=None, vs=None):
         D**-0.5, qc, kc, _cuda.stream(q.device),
     )
     _cuda.check(rc, name)
-    _cuda.count_launch(causal_attention_cuda, variant)
+    _cuda.count_launch(causal_attention_cuda, variant, int8=quant)
     return out
 
 
 causal_attention_cuda.launches = 0
 causal_attention_cuda.variants = {"mma": 0, "fma": 0}
+causal_attention_cuda.int8_launches = 0  # of them, on int8 K/V
 
 
 def flash_causal_attention(q, k, v, positions, kv_len, ks=None, vs=None):

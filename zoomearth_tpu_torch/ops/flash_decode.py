@@ -18,7 +18,7 @@ view of the cache in place.
   versions of its two passes (the per-split softmax states and the split merge
   that K4 and P2 share).
 - `decode_attention_cuda.launches` counts calls of the kernel, each of which runs
-  two launches: the split pass and the merge.
+  two launches: the split pass and the merge; `.int8_launches` those on int8 caches.
 
 A row with kv_len == 0 gives the mean of v over all T slots it is handed: every
 logit is masked alike. That is what the JAX decoder's default decode gives
@@ -175,10 +175,7 @@ def decode_attention_cuda(q, k_cache, v_cache, kv_len, ks=None, vs=None):
                          f"base (the kernel copies 16-byte vectors; strides {k_cache.stride()}, "
                          f"{v_cache.stride()})")
     if quant:
-        if ks is None or vs is None:
-            raise ValueError(f"{name}: int8 caches need ks and vs scales")
-        ks = ks.float().contiguous()
-        vs = vs.float().contiguous()
+        ks, vs = _cuda.scale_views(name, ks, vs)
     else:
         ks = vs = None
     split, nsplit = split_plan(B, Hkv, T)
@@ -194,11 +191,12 @@ def decode_attention_cuda(q, k_cache, v_cache, kv_len, ks=None, vs=None):
         D**-0.5, qc, kc, _cuda.stream(q3.device),
     )
     _cuda.check(rc, name)
-    _cuda.count_launch(decode_attention_cuda)
+    _cuda.count_launch(decode_attention_cuda, int8=quant)
     return out[:, None] if had_s else out
 
 
 decode_attention_cuda.launches = 0
+decode_attention_cuda.int8_launches = 0  # of them, on int8 caches
 
 
 def flash_decode_attention(q, k_cache, v_cache, kv_len, ks=None, vs=None):

@@ -10,11 +10,17 @@ device:
 - decode is a fixed-shape Python step loop (attention K3) that keeps the token
   buffer on the device, checks for all-rows-done only every DONE_CHECK_EVERY steps
   (the only host sync of the loop), and reads the tokens back once at the end;
-- caches are written in place (see models.decoder.KVCache). A consumed cache is
-  never reused: `run_chunk_prefill` works on a copy whenever the reference would
-  not have donated its input (an explicit grow_to marks a reusable prefix holder).
+- `run_decode_pair` is the same loop over TWO row groups with a cache each: one
+  dense pass per step for both (models.decoder.decoder_forward_pair), after which
+  either group resumes in the solo loop;
+- caches are written in place and keep one `length` tensor for their lifetime (see
+  models.decoder.KVCache). A consumed cache is never reused: `run_chunk_prefill`
+  works on a copy whenever the reference would not have donated its input (an
+  explicit grow_to marks a reusable prefix holder);
+- `HostCopy` is the asynchronous token readback (`generate(block=False)` hands the
+  device buffer to a caller that reads it later).
 
-Not ported: the split-row prefill, `run_decode_pair` and the ZOOMEARTH_* switches.
+Not ported: the split-row prefill, `right_size_cache` and the ZOOMEARTH_* switches.
 """
 
 from __future__ import annotations
@@ -26,11 +32,11 @@ import numpy as np
 import torch
 
 from ..config import VLMConfig
-from ..models.decoder import KVCache
+from ..models.decoder import KVCache, decoder_forward_pair, logits_from_hidden, write_index
 from ..models.params import torch_dtype
 from ..models.rope import mrope_position_ids_batch
 from ..models.vit import meta_to_device, vision_metadata
-from ..models.vlm import vlm_forward
+from ..models.vlm import embed_tokens, vlm_forward
 from ..ops.sampling import greedy, sample
 
 DEFAULT_LENGTH_BUCKETS = (128, 256, 384, 512, 768, 1024, 1536, 2048)
@@ -176,6 +182,29 @@ def prepare_continuation(
     return PreparedBatch(ids, lengths, pos, next_pos, pixel_values, meta_dev)
 
 
+class HostCopy:
+    """A device tensor on its way to the host (the reference's copy_to_host_async,
+    then np.asarray): from a CUDA tensor, a non-blocking copy into a pinned buffer with
+    an event recorded behind it on the current stream, and `numpy()` waits for that
+    event before it hands out a view of the buffer (read earlier, the buffer would
+    hold whatever was there before). From a CPU tensor it is a plain copy."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cuda":
+            self._buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._buf.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(t.device))
+        else:
+            self._buf = t.detach().clone()
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._buf.numpy()
+
+
 class Generator:
     """Generation engine over a parameter tree on one device."""
 
@@ -185,6 +214,7 @@ class Generator:
         self.max_cache_len = max_cache_len
         self.cache_dtype = torch_dtype(cache_dtype or cfg.dtype)
         self.device = params["text"]["embed"]["weight"].device
+        self._stop = torch.as_tensor((cfg.tokens.eos, cfg.tokens.endoftext), device=self.device)
 
     def new_cache(self, batch: int) -> KVCache:
         """Fresh full-size cache in this generator's layout."""
@@ -204,10 +234,14 @@ class Generator:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     def _vision_kwargs(self, batch: PreparedBatch):
-        """(vlm_forward vision kwargs, win_mode) for the batch's packed images."""
+        """(vlm_forward vision kwargs, win_mode) for the batch's packed images.
+        pixel_values with vision_meta=None are PRECOMPUTED vision embeddings
+        (N_tokens, E), as compute_vision_embeds gives them."""
         if batch.pixel_values is None:
             return {}, 0
         pv = torch.as_tensor(batch.pixel_values, device=self.device)
+        if batch.vision_meta is None:
+            return {"vision_embeds": pv}, 0
         meta = meta_to_device(batch.vision_meta, self.device)
         return {"pixel_values": pv, "vision_meta": meta}, int(batch.vision_meta["win_mode"])
 
@@ -229,7 +263,7 @@ class Generator:
             cache=cache, update_cache_len=False, logit_index=lengths - 1,
             win_mode=win_mode, **vis,
         )
-        cache.length = lengths
+        cache.length.copy_(lengths)
         return logits, cache, self._attend_bucket(S + max_new, self.max_cache_len)
 
     @torch.inference_mode()
@@ -266,19 +300,37 @@ class Generator:
         iota = torch.arange(S, device=self.device)[None]
         attn_positions = keep[:, None] + iota
         attn_valid = iota < chunk_lens[:, None]
-        # pad tokens write to slot T2 -> dropped
-        write_pos = torch.where(attn_valid, attn_positions, torch.full_like(attn_positions, T2))
-        cache.length = keep
+        # pad tokens write to slot T2 -> dropped. The kept (row, slot) pairs come from
+        # the host arrays, once for every layer, so no layer waits for the device.
+        host_pos = keep_host.astype(np.int64)[:, None] + np.arange(S)[None]
+        host_pos = np.where(np.arange(S)[None] < np.asarray(batch.lengths)[:, None], host_pos, T2)
+        write_pos = self._tensor(host_pos, torch.int64)
+        index = write_index(host_pos, T2, self.device)
+        cache.length.copy_(keep)
         vis, win_mode = self._vision_kwargs(batch)
         logits, cache = vlm_forward(
             self.params, self.cfg, self._tensor(batch.input_ids, torch.int64),
             self._tensor(batch.position_ids, torch.int32),
             attn_positions=attn_positions, attn_valid=attn_valid, cache=cache,
             update_cache_len=False, logit_index=chunk_lens - 1, write_pos=write_pos,
-            win_mode=win_mode, **vis,
+            write_index=index, win_mode=win_mode, **vis,
         )
-        cache.length = keep + chunk_lens
+        cache.length.copy_(keep + chunk_lens)
         return logits, cache, self._attend_bucket(need, T2)
+
+    def _decode_state(self, B: int, max_new: int, done0):
+        """(token buffer (B, max_new) of pad ids, done (B,) bool) on the device."""
+        tokens = torch.full((B, max_new), self.cfg.tokens.pad, dtype=torch.int64, device=self.device)
+        done = (torch.zeros((B,), dtype=torch.bool, device=self.device) if done0 is None
+                else torch.as_tensor(done0, dtype=torch.bool, device=self.device))
+        return tokens, done
+
+    def _pick(self, logits, done, rng, temperature: float, top_p: float):
+        """The next token of each row (pad where the row is done) and the rows done
+        after it."""
+        tok = sample(logits, rng, temperature, top_p) if temperature > 0.0 else greedy(logits)
+        tok = torch.where(done, torch.full_like(tok, self.cfg.tokens.pad), tok)
+        return tok, done | torch.isin(tok, self._stop)
 
     @torch.inference_mode()
     def run_decode(self, first_logits, cache: KVCache, next_pos, gen: GenerationConfig, *,
@@ -287,23 +339,17 @@ class Generator:
         device, padded with the pad id after a stop token, cache). attend: prefix read
         span; done0: (B,) rows already finished (they stay inert)."""
         B = first_logits.shape[0]
-        pad_id = self.cfg.tokens.pad
-        stop = torch.as_tensor((self.cfg.tokens.eos, self.cfg.tokens.endoftext), device=self.device)
         rng = None
         if gen.temperature > 0.0:
             rng = torch.Generator(device=self.device).manual_seed(seed)
-        tokens = torch.full((B, gen.max_new_tokens), pad_id, dtype=torch.int64, device=self.device)
-        done = (torch.zeros((B,), dtype=torch.bool, device=self.device) if done0 is None
-                else torch.as_tensor(done0, dtype=torch.bool, device=self.device))
+        tokens, done = self._decode_state(B, gen.max_new_tokens, done0)
         pos = self._tensor(next_pos, torch.int64)
         logits = first_logits
         for step in range(gen.max_new_tokens):
             if step % DONE_CHECK_EVERY == 0 and bool(done.all()):
                 break
-            tok = sample(logits, rng, gen.temperature, gen.top_p) if rng is not None else greedy(logits)
-            tok = torch.where(done, torch.full_like(tok, pad_id), tok)
+            tok, done = self._pick(logits, done, rng, gen.temperature, gen.top_p)
             tokens[:, step] = tok
-            done = done | torch.isin(tok, stop)
             pos3 = pos[None, :, None].expand(3, B, 1)
             logits, cache = vlm_forward(
                 self.params, self.cfg, tok[:, None], pos3,
@@ -313,27 +359,84 @@ class Generator:
             pos = pos + 1
         return tokens, cache
 
+    @torch.inference_mode()
+    def run_decode_pair(self, a, b, *, steps: int, temperature: float = 0.0, top_p: float = 1.0,
+                        seed: int = 0, temperature_b: Optional[float] = None,
+                        top_p_b: Optional[float] = None):
+        """Co-batched decode of two stages sharing one dense pass per step (see
+        decoder_forward_pair): the weights are read once per step for both groups.
+
+        a, b: (first_logits, cache, next_pos, attend, done0-or-None) per group.
+        temperature_b/top_p_b: group b's sampling params (default: group a's); each
+        step draws for group a, then for group b, from one generator seeded by `seed`.
+        Returns (buf_a, done_a, next_logits_a, cache_a, buf_b, done_b, next_logits_b,
+        cache_b): either group resumes its remaining tokens via
+        run_decode(next_logits_*, cache_*, next_pos + steps, ..., done0=done_*).
+        The loop looks for both-groups-done every DONE_CHECK_EVERY steps, as the solo
+        loop does, so after an early stop a cache's `length` may stand up to
+        DONE_CHECK_EVERY - 1 past the reference's: done rows write pad, and a slot
+        past the cache's end is dropped."""
+        logits_a, cache_a, pos_a, attend_a, done0_a = a
+        logits_b, cache_b, pos_b, attend_b, done0_b = b
+        Ba, Bb = logits_a.shape[0], logits_b.shape[0]
+        temp_b = temperature if temperature_b is None else temperature_b
+        tp_b = top_p if top_p_b is None else top_p_b
+        rng = None
+        if temperature > 0.0 or temp_b > 0.0:
+            rng = torch.Generator(device=self.device).manual_seed(seed)
+        buf_a, done_a = self._decode_state(Ba, steps, done0_a)
+        buf_b, done_b = self._decode_state(Bb, steps, done0_b)
+        pos = torch.cat([self._tensor(pos_a, torch.int64), self._tensor(pos_b, torch.int64)])
+        logits = torch.cat([logits_a, logits_b])
+        text = self.params["text"]
+        for step in range(steps):
+            if step % DONE_CHECK_EVERY == 0 and bool((done_a.all() & done_b.all())):
+                break
+            tok_a, done_a = self._pick(logits[:Ba], done_a, rng, temperature, top_p)
+            tok_b, done_b = self._pick(logits[Ba:], done_b, rng, temp_b, tp_b)
+            buf_a[:, step] = tok_a
+            buf_b[:, step] = tok_b
+            tok = torch.cat([tok_a, tok_b])
+            pos3 = pos[None, :, None].expand(3, Ba + Bb, 1)
+            hidden, cache_a, cache_b = decoder_forward_pair(
+                text, self.cfg.text, embed_tokens(self.params, tok[:, None]), pos3,
+                cache_a, cache_b, attend_a, attend_b,
+            )
+            logits = logits_from_hidden(text, self.cfg.text, hidden)[:, 0]
+            pos = pos + 1
+        return buf_a, done_a, logits[:Ba], cache_a, buf_b, done_b, logits[Ba:], cache_b
+
     # -- public API ---------------------------------------------------------------
 
     def continue_generate(self, cache: KVCache, batch: PreparedBatch, keep_len,
                           gen: GenerationConfig = GenerationConfig(), *, seed: int = 0,
-                          return_cache: bool = False, inert_mask: Optional[np.ndarray] = None):
+                          return_cache: bool = False, inert_mask: Optional[np.ndarray] = None,
+                          block: bool = True):
         """Continue from a prior stage's cache: truncate row b to keep_len[b], prefill
         only the continuation chunk (stage-2 vision tokens), then decode. Consumes
-        `cache` (written in place unless it has to grow)."""
+        `cache` (written in place unless it has to grow).
+
+        block=False: returns (tokens on the device, cache) without reading the tokens
+        back, as generate(block=False) does."""
         first_logits, cache, attend = self.run_chunk_prefill(
             cache, batch, keep_len, max_new=gen.max_new_tokens
         )
         tokens, cache = self.run_decode(
             first_logits, cache, batch.next_pos, gen, seed=seed, attend=attend, done0=inert_mask,
         )
-        out = self.trim_generated(tokens.cpu().numpy())
+        if not block:
+            return tokens, cache
+        out = self.trim_generated(HostCopy(tokens).numpy())
         return (out, cache) if return_cache else out
 
     def generate(self, batch: PreparedBatch, gen: GenerationConfig = GenerationConfig(), *,
-                 seed: int = 0, return_cache: bool = False):
+                 seed: int = 0, return_cache: bool = False, block: bool = True):
         """Prefill + decode. Returns per-row generated token lists (stop token
-        excluded), and the cache when return_cache."""
+        excluded), and the cache when return_cache.
+
+        block=False: returns (tokens on the device, cache) without reading the tokens
+        back; the caller reads them later with trim_generated(HostCopy(tokens).numpy()),
+        after its own host work."""
         B, S = batch.input_ids.shape
         if S + gen.max_new_tokens > self.max_cache_len:
             raise ValueError(
@@ -342,7 +445,9 @@ class Generator:
             )
         first_logits, cache, attend = self.run_prefill(batch, max_new=gen.max_new_tokens)
         tokens, cache = self.run_decode(first_logits, cache, batch.next_pos, gen, seed=seed, attend=attend)
-        out = self.trim_generated(tokens.cpu().numpy())
+        if not block:
+            return tokens, cache
+        out = self.trim_generated(HostCopy(tokens).numpy())
         return (out, cache) if return_cache else out
 
     def trim_generated(self, tokens: np.ndarray):
