@@ -51,7 +51,32 @@ Phases, each fatal on failure (nothing is caught):
    where K2 and K3 must take their int8 entries and nine tokens in ten must equal the
    bf16 cache's, then K2 and K3 against their plain versions on a cache that this
    path's prefill quantized, in the decoder's forms; then the scorer over the jsonl.
-7. decode-variants — the decode-attention entry points beside the serving path, at
+7. serving — the same model behind the continuous-batching ServingEngine (8 slots of
+   2048, decode chunks of 8) with its pump thread running and an OpenAIServer on a free
+   port: real HTTP through ChatClient (a text chat, a chat with a 512 px image, an
+   over-long prompt that must come back as an error while the next request is served)
+   and one SSE stream read event by event (the endpoint's tokenizer reads every id as
+   a letter, since random weights pick ids the byte-level tokenizer has no text for:
+   one content event for the prefill's token and one per decode chunk must arrive, not
+   all at once, and spell the text chat's answer); then run_episodes_served over 16 samples on 4 tiles with
+   image_keys (more episodes than slots, budgets 64 / 48, greedy, forced bbox): every
+   episode must come back without error, K1, K2 and K3 must launch (K1/K2 through the
+   tensor-core variant only), the prefix pool must take hits, admissions must be
+   batched, compact decode chunks must run, and no slot may stay held or active. The
+   same 16 on an engine with cache_dtype=torch.int8: K2's and K3's launches all
+   through their int8 entries, nine tokens in ten equal to the bf16 run's. Each of the
+   three engines' device routines are shadowed to keep the shapes they were called at,
+   and after its run K1, K2 and K3 are held against their plain versions in every one
+   of those forms on that engine's own pool: K2 over gathered rows at each (row bucket,
+   length bucket), K3 over each (rows, attend span) view, gathered or in place, K1 at
+   each padded patch count, bf16 and int8 with the scale rows. The scheduler's own
+   containment (a failed batch retried row by row, a tick that raised in the pump) is
+   counted by the engine and must read 0 throughout, and the wait for the episodes is
+   bounded. Last, the
+   engine's decode step with 8 live rows timed over bf16 weights and over the int8
+   layout of ops/quant.py (which widens the weights for every product), in turns, and
+   one decoder matmul at that step's shape on the device, bf16 torch.mm beside qdot.
+8. decode-variants — the decode-attention entry points beside the serving path, at
    the reference's shapes. First the checks: K4 (paged decode) against its plain
    version and K3 at (B=32|64, T=4096, 30 % live, pages 64|256); P1 (stream probe)
    and P2 (big-product decode) against their plain versions at B=32, T=1536; then,
@@ -94,6 +119,8 @@ PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM, dense bf16 tensor-core rat
 LIBRARY = " (library call)"  # a case's library yardstick among an entry point's timed cases
 SAMPLES, BATCH, NEW_TOKENS = 8, 8, 64
 PIPE_SAMPLES, PIPE_NEW_TOKENS_2 = 24, 48  # the pipelined phase: three waves of BATCH, budgets NEW_TOKENS / 48
+SERVE_EPISODES, SERVE_SLOTS, SERVE_SEQ_LEN, SERVE_CHUNK = 16, 8, 2048, 8  # the serving phase (budgets as pipelined)
+SERVE_WAIT_S = 240  # the longest one episodes run may take; on the H100 it has taken 13 to 28 s
 # first pair step's logits against the solo step's, bf16 at 3B width: the same arithmetic, but cuBLAS may
 # choose another kernel for 16 rows than for 8, and 36 layers of bf16 roundings follow: three bf16 steps
 # (2^-5) of a logit near 4.5, the largest here
@@ -338,6 +365,13 @@ def edge_check(label, out, ref, tol=TOL_BF16):
     if not (err <= tol and bool(torch.isfinite(out.float()).all())):
         raise AssertionError(f"{label}: kernel disagrees with its plain version ({err})")
     return {"case": label, "max_abs_err": err, "tol": tol}
+
+
+def held_on_path(label, out, ref):
+    """edge_check for a kernel fed the model's own keys and values, which run past 2, where
+    TOL_BF16 was stated: one bf16 step (2^-7) of the largest output, which a scale or a row
+    read from a wrong slot exceeds by orders."""
+    return edge_check(label, out, ref, max(TOL_BF16, 2.0 ** -7 * ref.abs().max().item()))
 
 
 def check_k1_edges(randn):
@@ -851,11 +885,6 @@ def run_pipelined(card, env):
             t = cfg.text
             _, c8, a8 = g8.run_prefill(batch, max_new=NEW_TOKENS)
 
-            def held(label, out, ref):
-                # the model's own values run past 2, where TOL_BF16 was stated: one bf16 step (2^-7) of
-                # the largest output, which a scale read from a wrong slot exceeds by orders
-                return edge_check(label, out, ref, max(TOL_BF16, 2.0 ** -7 * ref.abs().max().item()))
-
             with torch.inference_mode():
                 gq = torch.Generator(device="cuda").manual_seed(1)
                 S8 = batch.input_ids.shape[1]
@@ -865,13 +894,13 @@ def run_pipelined(card, env):
                 for layer in (0, L - 1):
                     k8, v8, ks8, vs8 = c8.layer(layer)
                     assert_scale_views_as_is(ks8, vs8)
-                    held(f"K2 int8 on the path's cache, layer {layer}, B={BATCH} S={S8} T={k8.shape[2]}",
+                    held_on_path(f"K2 int8 on the path's cache, layer {layer}, B={BATCH} S={S8} T={k8.shape[2]}",
                          K2.causal_attention_cuda(q8, k8, v8, pos8, c8.length, ks8, vs8),
                          K2.flash_causal_attention_plain(q8, k8, v8, pos8, c8.length, ks8, vs8))
                     assert a8 is not None and a8 < k8.shape[2], a8
                     view = tuple(x[:, :, :a8] for x in (k8, v8, ks8, vs8))
                     assert_scale_views_as_is(view[2], view[3])
-                    held(f"K3 int8 on the path's cache, layer {layer}, attend {a8} view of T={k8.shape[2]}",
+                    held_on_path(f"K3 int8 on the path's cache, layer {layer}, attend {a8} view of T={k8.shape[2]}",
                          K3.decode_attention_cuda(q1, view[0], view[1], c8.length, view[2], view[3]),
                          K3.flash_decode_attention_plain(q1, view[0], view[1], c8.length, view[2], view[3]))
             del c8, q8, q1, k8, v8, ks8, vs8, view
@@ -888,6 +917,361 @@ def run_pipelined(card, env):
     for n in names[1:]:
         out[n]["launches_pipelined_int8"] = int8[n]
     return out
+
+
+def run_serving(card, env):
+    """The serving path at 3B width (see the module docstring, phase 7). Returns
+    {kernel name: {"launches_serving": n[, "launches_serving_int8": n]}} and {kernel name: [the
+    checks of that kernel against its plain version on this path's own pools]}."""
+    import copy
+    import http.client
+    import threading
+
+    import numpy as np
+    import torch
+
+    from zoomearth_tpu_torch.eval.client import ChatClient, encode_data_url
+    from zoomearth_tpu_torch.image.geometry import resize_image
+    from zoomearth_tpu_torch.ops import flash_attention as K1
+    from zoomearth_tpu_torch.ops import flash_causal as K2
+    from zoomearth_tpu_torch.ops import flash_decode as K3
+    from zoomearth_tpu_torch.ops.quant import qdot, quantize_decoder_int8, quantized_bytes
+    from zoomearth_tpu_torch.scripts.timing import time_in_turns
+    from zoomearth_tpu_torch.serve import engine as ENG
+    from zoomearth_tpu_torch.serve import episodes as SE
+    from zoomearth_tpu_torch.serve.engine import Request, ServingEngine
+    from zoomearth_tpu_torch.serve.server import OpenAIServer
+    from zoomearth_tpu_torch.tokenizer import FakeTokenizer
+
+    cfg, processor, tiles = env.cfg, env.processor, env.tiles
+    samples = env.samples[:SERVE_EPISODES]
+    kernels = (K1.segment_attention_cuda, K2.causal_attention_cuda, K3.decode_attention_cuda)
+    names = ("flash_segment_attention", "flash_causal_attention", "flash_decode_attention")
+    SE.extract_bboxes = lambda text, scale=1.0: [[2200, 2200, 2380, 2350]]  # random weights emit no bbox
+
+    def reset():
+        for k in kernels:
+            k.launches = 0
+        for k in kernels[:2]:
+            k.variants = dict.fromkeys(k.variants, 0)
+        for k in kernels[1:]:
+            k.int8_launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def counts():
+        return ({n: k.launches for n, k in zip(names, kernels)}, {n: dict(k.variants) for n, k in zip(names[:2], kernels[:2])},
+                {n: k.int8_launches for n, k in zip(names[1:], kernels[1:])})
+
+    def engine_for(params, cache_dtype=None):
+        return ServingEngine(params, cfg, max_slots=SERVE_SLOTS, max_seq_len=SERVE_SEQ_LEN, decode_chunk=SERVE_CHUNK,
+                             cache_dtype=cache_dtype)
+
+    def contained(engine):
+        """The failures the scheduler caught and served on after: the smoke allows none."""
+        return {key: engine.stats.get(key, 0) for key in ("errors", "admission_retries", "pump_errors")}
+
+    def watch(engine, seen):
+        """Shadow the engine's device routines (instance attributes over the class's methods)
+        and the ViT pass it calls, to keep for every distinct shape the host arguments of its
+        last call: what held_on_pool then gives the kernels. Returns the function that undoes it."""
+        pool, full, compact = engine._pool_prefill, engine._decode_steps, engine._decode_steps_compact
+        vision = ENG.compute_vision_embeds
+
+        def pool_prefill(slot_idx, ids, chunk_lens, keep_lens, *a):
+            seen["k2"][ids.shape] = (slot_idx.copy(), keep_lens.copy())
+            return pool(slot_idx, ids, chunk_lens, keep_lens, *a)
+
+        def decode_steps(active, temps, *, n_steps, attend_len=None):
+            seen["k3"][(engine.max_slots, attend_len or SERVE_SEQ_LEN, "in place on the pool")] = None
+            return full(active, temps, n_steps=n_steps, attend_len=attend_len)
+
+        def decode_steps_compact(slot_idx, active, temps, *, n_steps, attend_len=None):
+            seen["k3"][(len(slot_idx), attend_len or SERVE_SEQ_LEN, "gathered copy")] = slot_idx.copy()
+            return compact(slot_idx, active, temps, n_steps=n_steps, attend_len=attend_len)
+
+        def vision_embeds(params, cfg_, pv, meta, **kw):
+            seen["k1"][pv.shape[0]] = meta["seg_full"]
+            return vision(params, cfg_, pv, meta, **kw)
+
+        engine._pool_prefill, engine._decode_steps = pool_prefill, decode_steps
+        engine._decode_steps_compact, ENG.compute_vision_embeds = decode_steps_compact, vision_embeds
+
+        def undo():
+            del engine._pool_prefill, engine._decode_steps, engine._decode_steps_compact
+            ENG.compute_vision_embeds = vision
+        return undo
+
+    def held_on_pool(engine, seen, where):
+        """K1, K2 and K3 against their plain versions in every form this engine's run gave them,
+        on the engine's own pool as the run left it (the model's keys and values, int8 with their
+        scale rows): K2 over the gathered copy of the rows of each (row bucket, length bucket) at
+        that batch's kept lengths, K3 over the attend_len prefix views of each (rows, span) met,
+        gathered or in place, at the rows' own lengths, K1 over fused-qkv views at each padded
+        patch count with that pass's segment ids; first and last layer. Called with the pump
+        stopped and after the run's counts were read. Returns {kernel name: [checks]}."""
+        t, L = cfg.text, cfg.text.num_hidden_layers
+        H, D, T = t.num_attention_heads, t.head_dim, engine.max_seq_len
+        Hv, Dv = cfg.vision.num_heads, cfg.vision.hidden_size // cfg.vision.num_heads
+        gq = torch.Generator(device="cuda").manual_seed(3)
+        randn = lambda *shape: torch.randn(shape, generator=gq, device="cuda").bfloat16()  # noqa: E731
+        kind = "int8" if engine.cache.quantized else "bf16"
+        checks = {n: [] for n in names}
+        assert seen["k1"] and seen["k2"] and seen["k3"], seen
+        with engine._device_scope():
+            cache = engine.cache
+            for (RB, S), (slot_idx, keep_lens) in sorted(seen["k2"].items()):
+                cidx = engine._tensor(np.clip(slot_idx, 0, engine.max_slots - 1), torch.int64)
+                keep = engine._tensor(keep_lens, torch.int32)
+                g = engine._gather_rows(cache, cidx, keep)
+                q = randn(RB, S, H, D)
+                pos = keep.long()[:, None] + torch.arange(S, device="cuda")[None]
+                for layer in (0, L - 1):
+                    k, v, ks, vs = g.layer(layer)
+                    if ks is not None:
+                        assert_scale_views_as_is(ks, vs)
+                    checks[names[1]].append(held_on_path(
+                        f"K2 {kind} {where}, layer {layer}, gathered rows {slot_idx.tolist()} R={RB} S={S} T={T}, "
+                        f"kept {keep_lens.tolist()}", K2.causal_attention_cuda(q, k, v, pos, keep + S, ks, vs),
+                        K2.flash_causal_attention_plain(q, k, v, pos, keep + S, ks, vs)))
+            for (R, span, how), slot_idx in sorted(seen["k3"].items(), key=lambda kv: kv[0]):
+                if slot_idx is None:
+                    g = cache
+                else:
+                    cidx = engine._tensor(np.clip(slot_idx, 0, engine.max_slots - 1), torch.int64)
+                    g = engine._gather_rows(cache, cidx, cache.length[cidx])
+                kvl = g.length.clamp(1, span)
+                q1 = randn(R, 1, H, D)
+                for layer in (0, L - 1):
+                    view = tuple(x[:, :, :span] if x is not None else None for x in g.layer(layer))
+                    if view[2] is not None:
+                        assert_scale_views_as_is(view[2], view[3])
+                    checks[names[2]].append(held_on_path(
+                        f"K3 {kind} {where}, layer {layer}, {how}, R={R}, attend {span} view of T={T}, kv_len "
+                        f"{kvl.tolist()}", K3.decode_attention_cuda(q1, view[0], view[1], kvl, view[2], view[3]),
+                        K3.flash_decode_attention_plain(q1, view[0], view[1], kvl, view[2], view[3])))
+            for S, seg in sorted(seen["k1"].items()):
+                qkv = randn(S, 3, Hv, Dv)
+                q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+                out = K1.segment_attention_cuda(q, k, v, seg)
+                # the plain version is dense in fp32 (heads x S x S): four heads at a time
+                ref = torch.cat([K1.flash_segment_attention_plain(q[:, h:h + 4], k[:, h:h + 4], v[:, h:h + 4], seg)
+                                 for h in range(0, Hv, 4)], dim=1)
+                checks[names[0]].append(edge_check(
+                    f"K1 {where}, fused-qkv views, S={S} (patch bucket), {int((seg != K1.PAD_SEG).sum())} live patches "
+                    f"in {int(seg[seg != K1.PAD_SEG].unique().numel())} images", out, ref))
+                del qkv, out, ref
+        return checks
+
+    def episodes(engine):
+        """run_episodes_served over the samples on a running engine (no server holds its token hook):
+        (wall seconds, results, the tokens of every request by id, as the engine streamed them). The
+        call runs in a thread of its own so that this one can bound the wait: a pump that lost a decode
+        chunk would leave it waiting for an hour."""
+        tokens, out = {}, []
+        engine.on_tokens = lambda rid, toks: tokens.setdefault(rid, []).extend(toks)
+        t0 = time.time()
+        runner = threading.Thread(daemon=True, target=lambda: out.append(SE.run_episodes_served(
+            engine, processor, [s.question for s in samples], [tiles[s.image_name] for s in samples],
+            max_new_tokens=NEW_TOKENS, stage2_max_tokens=PIPE_NEW_TOKENS_2, temperature=0.0,
+            image_keys=[s.image_name for s in samples])))
+        runner.start()
+        while runner.is_alive() and time.time() - t0 < SERVE_WAIT_S and not any(contained(engine).values()):
+            runner.join(timeout=0.05)
+        assert out and not any(contained(engine).values()), (
+            f"run_episodes_served after {time.time() - t0:.1f} s: returned {bool(out)}, the scheduler contained "
+            f"{contained(engine)} (its tracebacks are on stderr), stats {engine.stats}")
+        torch.cuda.synchronize()
+        return time.time() - t0, out[0], tokens
+
+    def held_to(engine, res, tokens, launches, variants):
+        """What every episodes run must show, whatever the cache's dtype."""
+        st = engine.stats
+        assert len(res) == SERVE_EPISODES and all(r is not None and r.error is False for r in res), "an episode failed"
+        assert all(isinstance(r.stage2, str) and r.bbox == [2200, 2200, 2380, 2350] for r in res)
+        assert all(len(tokens[f"ep{i}-s1"]) == NEW_TOKENS and len(tokens[f"ep{i}-s2"]) == PIPE_NEW_TOKENS_2
+                   for i in range(SERVE_EPISODES)), "a stage stopped short of its budget"
+        assert all(n > 0 for n in launches.values()), f"kernel launches of the serving run: {launches}"
+        assert all(v == {"mma": launches[n], "fma": 0} for n, v in variants.items()), variants
+        assert st["prefix_hits"] > 0 and st["prefix_saves"] > 0, st
+        assert st["prefills"] < st["prefill_rows"], f"admissions were not batched: {st}"
+        assert st["decode_device_row_steps"] < SERVE_SLOTS * st["decode_steps"], f"no compact decode chunk ran: {st}"
+        assert not any(contained(engine).values()), f"the scheduler caught and served on after {contained(engine)}"
+        assert not engine.active.any() and not engine.held, (st, engine.held)
+        assert not any(s.held or s.request is not None for s in engine.slots)
+        L = cfg.text.num_hidden_layers
+        assert launches[names[1]] == L * st["prefills"] and launches[names[2]] == L * st["decode_steps"], (launches, st)
+
+    class LegibleTokenizer(FakeTokenizer):
+        """Random weights pick ids all over the model's vocabulary, where the byte-level tokenizer
+        has no text, and an answer without text streams no content event: the endpoint's
+        tokenizer reads every id that is no special token as a letter."""
+
+        def decode(self, ids, skip_special_tokens=True):
+            return "".join((self._id_to_special[int(i)] if not skip_special_tokens else "")
+                           if int(i) in self._id_to_special else chr(97 + int(i) % 26) for i in ids)
+
+    # (1) the endpoint: real HTTP against the pump thread
+    reset()
+    engine = engine_for(env.params)
+    legible = copy.copy(processor)
+    legible.tokenizer = LegibleTokenizer(cfg.tokens)
+    server = OpenAIServer(engine, legible, host="127.0.0.1", port=0)
+    # the tokens are read beside the server's router too, by request in order of arrival
+    routed, route = {}, engine.on_tokens
+    engine.on_tokens = lambda rid, toks: (routed.setdefault(rid, []).append(list(toks)), route(rid, toks))
+    seen = {"k1": {}, "k2": {}, "k3": {}}
+    undo = watch(engine, seen)
+    server.start()
+    try:
+        client = ChatClient(f"http://127.0.0.1:{server.port}", timeout=300)
+        t0 = time.time()
+        text = client.create([{"role": "user", "content": "What can you see from orbit?"}], max_tokens=24, temperature=0.0)
+        t_text = time.time() - t0
+        url = encode_data_url(resize_image(tiles["tile0.png"], 512))
+        t0 = time.time()
+        answer = client.create([{"role": "user", "content": [{"type": "image_url", "image_url": {"url": url}},
+                                                           {"type": "text", "text": "what is in this tile?"}]}],
+                             max_tokens=24, temperature=0.0)
+        t_image = time.time() - t0
+        assert 0 < len(text) <= 24 and 0 < len(answer) <= 24 and text.isalpha() and answer.isalpha(), (text, answer)
+        try:  # 2200 byte-level tokens: over max_seq_len, refused at submit, an HTTP 400 for the client
+            client.create([{"role": "user", "content": "w " * 1100}], max_tokens=8)
+        except RuntimeError as e:
+            assert "exceeds" in str(e), e
+        else:
+            raise AssertionError("an over-long prompt was served")
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=300)
+        t0 = time.time()
+        conn.request("POST", "/v1/chat/completions", json.dumps({
+            "messages": [{"role": "user", "content": "What can you see from orbit?"}], "max_tokens": 24,
+            "temperature": 0.0, "stream": True}), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        events, arrived = [], []  # each event as it comes off the socket, with its time
+        for line in iter(resp.readline, b""):
+            if line.startswith(b"data: "):
+                events.append(line[len(b"data: "):].decode().strip())
+                arrived.append(time.time() - t0)
+        conn.close()
+        t_sse = time.time() - t0
+        chunks = [json.loads(e) for e in events[:-1]]
+        content = [(c["choices"][0]["delta"]["content"], at) for c, at in zip(chunks, arrived)
+                   if "content" in c["choices"][0]["delta"]]
+        streamed = "".join(text_ for text_, _ in content)
+        assert resp.status == 200 and events[-1] == "[DONE]" and chunks[-1]["choices"][0]["finish_reason"] in ("stop", "length")
+        # the served request after the refusal, and the same prompt twice: greedy, so the same answer
+        assert streamed == text, (streamed, text)
+        first, _, last = routed.values()
+        assert sum(first, []) == sum(last, []) and len(sum(last, [])) == 24, (first, last)
+        # incrementally, over HTTP: the prefill's first token, then one event per decode chunk, each
+        # on the wire before the next chunk's steps were done
+        assert len(content) == len(last) >= 1 + 23 // SERVE_CHUNK, f"{len(content)} content events, {len(last)} batches"
+        assert content[-1][1] - content[0][1] > 0.01, f"the stream came as one blob: {content}"
+        chat_launches, chat_variants, _ = counts()
+        assert engine.stats["completed"] == 3 and all(n > 0 for n in chat_launches.values()), (engine.stats, chat_launches)
+        assert not any(contained(engine).values()), f"the scheduler caught and served on after {contained(engine)}"
+        assert all(v == {"mma": chat_launches[n], "fma": 0} for n, v in chat_variants.items()), chat_variants
+        assert not engine.active.any() and not engine.held
+        log(f"  endpoint on port {server.port}: text chat {t_text:.3f} s, image chat {t_image:.3f} s, SSE stream {t_sse:.3f} s "
+            f"in {len(chunks)} events, {len(content)} of them with content, arriving "
+            f"{[round(at, 3) for _, at in content]} s after the request (24 new tokens each), over-long prompt refused "
+            f"with HTTP 400; launches {chat_launches}; {engine.latency_percentiles()} | {card}")
+    finally:
+        server.stop()
+        undo()
+    checks = held_on_pool(engine, seen, "on the endpoint's pool")
+    del engine, server
+
+    def served(cache_dtype):
+        """The episodes on a fresh engine with its pump running, held to held_to and logged: (the
+        requests' tokens, launches, int8 launches)."""
+        reset()
+        engine = engine_for(env.params, cache_dtype)
+        seen = {"k1": {}, "k2": {}, "k3": {}}
+        undo = watch(engine, seen)
+        engine.start()
+        try:
+            wall, res, tokens = episodes(engine)
+        finally:
+            engine.stop()
+            undo()
+        launches, variants, int8 = counts()
+        peak = torch.cuda.max_memory_allocated()
+        held_to(engine, res, tokens, launches, variants)
+        st, lat = engine.stats, sorted(r.latency_s for r in res)
+        pools = [sum(t.numel() * t.element_size() for t in c.k + c.v + ((c.kscale + c.vscale) if c.quantized else []))
+                 for c in (engine.cache, engine._ppool)]
+        log(f"  run_episodes_served, {str(engine.cache_dtype).split('.')[1]} cache: {SERVE_EPISODES} episodes over "
+            f"{SERVE_SLOTS} slots in {wall:.3f} s ({SERVE_EPISODES / wall:.3f} episodes/s); episode latency p50 "
+            f"{lat[len(lat) // 2]:.3f} s, max {lat[-1]:.3f} s; per request {engine.latency_percentiles()} | {card}")
+        log(f"    engine stats {dict(st)}; live share of stepped rows "
+            f"{st['decode_live_row_steps'] / st['decode_device_row_steps']:.3f} | {card}")
+        log(f"    engine phases (host seconds, device waits included) {engine.stats_timing()} | {card}")
+        log(f"    launches {launches}, of them on int8 K/V {int8}; K1/K2 by variant {variants}; peak memory "
+            f"{peak / 2**30:.3f} GiB (slot pool {pools[0] / 2**30:.3f} GiB, prefix pool {pools[1] / 2**30:.3f} GiB; weights "
+            f"and earlier phases' leftovers included) | {card}")
+        for n, held in held_on_pool(engine, seen, "on the episodes' pool").items():
+            checks[n].extend(held)
+        return tokens, launches, int8
+
+    # (2) episodes on a running engine, bf16 cache
+    tokens, launches, int8_bf16 = served(None)
+    assert int8_bf16 == dict.fromkeys(names[1:], 0), f"int8 entries taken with a bf16 cache: {int8_bf16}"
+
+    # (3) the same episodes on an int8 KV cache
+    tokens8, launches8, int8 = served(torch.int8)
+    assert int8 == {n: launches8[n] for n in names[1:]}, (int8, launches8)
+    same = sum(p == q for rid in tokens for p, q in zip(tokens[rid], tokens8[rid]))
+    total = sum(len(t) for t in tokens.values())
+    log(f"  tokens of the int8 cache's run identical to the bf16 cache's: {same} of {total} ({same / total:.4f}) | {card}")
+    # wrong scales would give finite, wrong tokens; batching differs between the runs (it follows the
+    # host's timing), and a greedy row that departs once stays apart, so this is no exact bar
+    assert same >= 0.9 * total, f"int8 cache: only {same} of {total} tokens equal the bf16 cache's"
+
+    # (4) the decode step over bf16 weights and over the int8 layout, 8 live rows, in turns
+    qparams = quantize_decoder_int8(env.params)
+    rng_ids = [[cfg.tokens.im_start] + [40 + (7 * r + j) % 200 for j in range(100 + r)] for r in range(SERVE_SLOTS)]
+    times = {"bf16": [], "int8": []}
+    for label in ("bf16", "int8", "int8", "bf16"):
+        e = engine_for(env.params if label == "bf16" else qparams)
+        for r, ids in enumerate(rng_ids):
+            e.submit(Request(request_id=f"d{r}", token_ids=ids, images=[], max_tokens=SERVE_CHUNK * 8))
+        e.step()  # admission and a first chunk
+        assert e.active.all() and not any(contained(e).values()), contained(e)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            e.step()
+        torch.cuda.synchronize()
+        assert not any(contained(e).values()), contained(e)
+        times[label].append(1e3 * (time.perf_counter() - t0) / (5 * SERVE_CHUNK))
+        del e
+    log(f"  engine decode step, {SERVE_SLOTS} live rows, attend 512, wall ms per step over 5 chunks of {SERVE_CHUNK} (both "
+        f"runs each, in turns): bf16 weights {times['bf16']}, int8 layout through qdot (weights widened per product) "
+        f"{times['int8']}; trees {quantized_bytes(env.params) / 2**30:.3f} and {quantized_bytes(qparams) / 2**30:.3f} GiB "
+        f"| {card}")
+    # one decoder matmul at the decode step's shape, on the device: what a W8A16 kernel has to beat
+    w, qw = env.params["text"]["layers"][0]["mlp"]["wg"], qparams["text"]["layers"][0]["mlp"]["wg"]
+    x = torch.randn((SERVE_SLOTS, 1, w.shape[0]), device="cuda", generator=torch.Generator(device="cuda").manual_seed(2)
+                    ).to(w.dtype)
+    with torch.inference_mode():
+        ref = x @ (qw["q"].float() * qw["s"].float()).to(w.dtype)
+        err = max_err(qdot(x, qw), ref)
+        ms, dev = time_in_turns([lambda: x @ w, lambda: qdot(x, qw)])
+    # three bf16 roundings apart (qdot's product and its scale multiply; the reference's dequantized
+    # weight), each 2^-8 of the largest output
+    tol = 3 * 2.0 ** -8 * max(1.0, ref.abs().max().item())
+    assert err <= tol, (err, tol)
+    log(f"  one MLP gate product at the decode shape ({SERVE_SLOTS} x {w.shape[0]} @ {w.shape[0]} x {w.shape[1]}), "
+        f"L2 cold, in turns: bf16 torch.mm {ms[0]:.4f} ms per call, {dev[0]:.4f} ms device; qdot over int8 (widen, "
+        f"product, scale) {ms[1]:.4f} ms per call, {dev[1]:.4f} ms device; the int8 weight's bytes at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s {1e3 * qw['q'].numel() / PEAK_BYTES:.4f} ms, the bf16 weight's "
+        f"{2e3 * w.numel() / PEAK_BYTES:.4f} ms; qdot vs its dequantized product max_abs_err {err:.3e} (tol {tol:.3e}) | {card}")
+    del qparams, qw
+    out = {n: {"launches_serving": chat_launches[n] + launches[n]} for n in names}
+    for n in names[1:]:
+        out[n]["launches_serving_int8"] = int8[n]
+    return out, checks
 
 
 def cache_bytes(generator, batch):
@@ -1222,6 +1606,11 @@ def main(argv=()) -> int:
     launches = run_slice(card, env)
     log("[pipelined] Qwen2.5-VL-3B bf16, run_inference(mode='pipelined') over 3 waves of 8, then the int8 KV cache")
     pipelined = run_pipelined(card, env)
+    log(f"[serving] Qwen2.5-VL-3B bf16 behind the ServingEngine: the OpenAI endpoint over HTTP, run_episodes_served over "
+        f"{SERVE_EPISODES} episodes on {SERVE_SLOTS} slots, the int8 KV cache, the decode step over int8 weights")
+    serving, serving_checks = run_serving(card, env)
+    for name, held in serving_checks.items():
+        untimed[name] = untimed.get(name, []) + held
     del env
     torch.cuda.empty_cache()
     log("[decode-variants] K4 / P1 / P2 checked at the reference's shapes and at their edges, then the entry "
@@ -1237,7 +1626,7 @@ def main(argv=()) -> int:
         checks = untimed.get(name, [])
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], **pipelined.get(name, {}),
+            "launches": launches[name], **pipelined.get(name, {}), **serving.get(name, {}),
             "max_abs_err": max(c["max_abs_err"] for c in cases + checks),
             **{key: cases[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
                                               "library_device_ms", "share_of_bound")},

@@ -727,3 +727,144 @@ def test_host_copy_waits_for_its_event(dev):
     assert h._buf.is_pinned() and h._event is not None
     np.testing.assert_array_equal(h.numpy(), t.cpu().numpy())
     assert h.numpy().tolist() == list(range(2048))
+
+
+# ---------------------------------------------------------------------------
+# The serving engine on the card
+# ---------------------------------------------------------------------------
+
+def _engine_traffic(cfg):
+    """Prompts for the engine tests: two text rows, an image row, and a 'system + image'
+    prefix shared by three suffixes."""
+    tok = cfg.tokens
+    rng = np.random.default_rng(3)
+
+    def image(grid):
+        n = grid[1] * grid[2]
+        return (rng.standard_normal((n, cfg.vision.patch_dim)).astype(np.float32), grid), n // cfg.vision.merge_unit
+
+    def text(n):
+        return [tok.im_start] + [int(t) for t in rng.integers(1, 400, size=n)]
+
+    img, n_img = image((1, 4, 4))
+    burst = [(text(6), []), (text(9) + [tok.vision_start] + [tok.image_pad] * n_img + [tok.vision_end], [img]),
+             (text(12), []), (text(4), []), (text(15), [])]
+    pimg, n_pimg = image((1, 4, 8))
+    prefix = text(4) + [tok.vision_start] + [tok.image_pad] * n_pimg + [tok.vision_end]
+    shared = [(prefix + text(5)[1:], [pimg]) for _ in range(3)]
+    return burst, prefix, shared
+
+
+def _engine_run(params, cfg, cache_dtype, compact=True):
+    """A burst beyond capacity (rows queue, join and leave), a prefix miss then hits, a
+    held row continued with an image chunk: every request's tokens, and the engine."""
+    from zoomearth_tpu_torch.serve.engine import Continuation, Request, ServingEngine
+
+    burst, prefix, shared = _engine_traffic(cfg)
+    e = ServingEngine(params, cfg, max_slots=4, max_seq_len=128, decode_chunk=3, cache_dtype=cache_dtype,
+                      length_buckets=(64, 128), patch_buckets=(0, 16, 64))
+    if not compact:
+        e.decode_row_buckets = ()
+    out = {}
+    for i, (ids, imgs) in enumerate(burst):
+        e.submit(Request(request_id=f"b{i}", token_ids=ids, images=imgs, max_tokens=(3, 12, 5, 9, 7)[i]))
+    e.run_until_idle()
+    for i, (ids, imgs) in enumerate(shared):
+        e.submit(Request(request_id=f"p{i}", token_ids=ids, images=imgs, max_tokens=6, prefix_key="tile",
+                         prefix_len=len(prefix), n_prefix_images=1, hold_slot=i == 2))
+        e.run_until_idle()
+    tok = cfg.tokens
+    crop = (np.random.default_rng(4).standard_normal((8, cfg.vision.patch_dim)).astype(np.float32), (1, 2, 4))
+    e.submit_continuation(Continuation(parent_request_id="p2", request_id="p2c", images=[crop], kept_tokens=3,
+                                       chunk_ids=[tok.vision_start] + [tok.image_pad] * 2 + [tok.vision_end],
+                                       max_tokens=5))
+    e.run_until_idle()
+    for rid in [f"b{i}" for i in range(5)] + ["p0", "p1", "p2", "p2c"]:
+        out[rid] = e.get_completion(rid, timeout=5).token_ids
+    assert e.stats["prefix_saves"] == 1 and e.stats["prefix_hits"] == 2 and not e.active.any() and not e.held
+    return out, e
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "int8"])
+def test_tiny_engine_on_card_matches_cpu_engine(dev, cache_dtype):
+    """The tiny fp32 engine on the card, token for token the port's CPU engine: a fresh
+    burst with queueing, prefix hits, a continuation, compact and full-width decode,
+    with the fp32 and the int8 KV cache; K1, K2 and K3 launched (the int8 entries with
+    the int8 cache)."""
+    from zoomearth_tpu_torch.models.params import init_vlm_params, map_tree
+
+    cfg = VLMConfig.tiny()
+    params = init_vlm_params(cfg, torch.Generator().manual_seed(0))
+    cpu, _ = _engine_run(params, cfg, cache_dtype)
+    cuda_params = map_tree(lambda t: t.to(dev), params)
+    wrappers = (K1.segment_attention_cuda, K2.causal_attention_cuda, K3.decode_attention_cuda)
+    before = [w.launches for w in wrappers]
+    int8_before = [w.int8_launches for w in wrappers[1:]]
+    out, e = _engine_run(cuda_params, cfg, cache_dtype)
+    ran = [w.launches - n for w, n in zip(wrappers, before)]
+    int8_ran = [w.int8_launches - n for w, n in zip(wrappers[1:], int8_before)]
+    assert e.device.type == "cuda" and e.cache.k[0].device.type == "cuda"
+    assert out == cpu
+    assert all(n > 0 for n in ran) and int8_ran == (ran[1:] if cache_dtype == "int8" else [0, 0])
+    assert e.stats["decode_device_row_steps"] < 4 * e.stats["decode_steps"]  # compact chunks ran
+    full, e_full = _engine_run(cuda_params, cfg, cache_dtype, compact=False)
+    assert full == out and e_full.stats["decode_device_row_steps"] == 4 * e_full.stats["decode_steps"]
+
+
+def test_engine_pump_thread_on_card_runs_under_inference_mode(dev):
+    """The pump thread writes the pool (inference tensors made by another thread) and
+    launches the kernels on the engine's device: tokens equal the engine ticked from the
+    thread that built it, sampled rows included (one seed, one stream)."""
+    from zoomearth_tpu_torch.models.params import init_vlm_params
+    from zoomearth_tpu_torch.serve.engine import Request, ServingEngine
+
+    cfg = VLMConfig.tiny()
+    params = init_vlm_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    burst, _, _ = _engine_traffic(cfg)
+
+    def run(pump):
+        e = ServingEngine(params, cfg, max_slots=4, max_seq_len=128, decode_chunk=3, cache_dtype="float32",
+                          length_buckets=(64,), patch_buckets=(0, 16), seed=5)
+        e.admit_min_batch = 4  # the first four rows share one admission, pump or not
+        assert e.cache.k[0].is_inference()
+        seen = []
+        e.on_tokens = lambda rid, toks: seen.append(torch.is_inference_mode_enabled())
+        for i, (ids, imgs) in enumerate(burst[:4]):
+            e.submit(Request(request_id=f"r{i}", token_ids=ids, images=imgs, max_tokens=8,
+                             temperature=0.0 if i % 2 == 0 else 1.2))
+        if pump:
+            e.start()
+        else:
+            e.run_until_idle()
+        try:
+            return [e.get_completion(f"r{i}", timeout=60).token_ids for i in range(4)]
+        finally:
+            e.stop()
+
+    assert run(pump=True) == run(pump=False)
+
+
+@pytest.mark.parametrize("rows,attend", [(4, 512), (8, 1536), (2, None)])
+def test_k2_k3_at_the_engines_row_counts_and_attend_spans(dev, rows, attend):
+    """K2 and K3 on gathered copies of pool rows (advanced-index copies, as the pool
+    prefill and the compact decode make them) at row counts of 2, 4 and 8 and prefix
+    views of 512 and 1536 slots of a 2048-slot pool, bf16 and int8."""
+    H, Hkv, D, T, S = 16, 2, 128, 2048, 128
+    pool = [_randn((8, Hkv, T, D), dev, torch.bfloat16, 30 + i) for i in range(2)]
+    pool8 = [torch.randint(-127, 128, (8, Hkv, T, D), device=dev, dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand((8, Hkv, T), device=dev) * 0.02 + 0.005 for _ in range(2)]
+    cidx = torch.as_tensor(([7, 2, 5, 0, 3, 6, 1, 4] * 2)[:rows], device=dev)
+    span = attend or T
+    keep = torch.as_tensor([(37 * r + 5) % (span - S) for r in range(rows)], device=dev)
+    q = _randn((rows, S, H, D), dev, torch.bfloat16, 40)
+    pos = keep[:, None] + torch.arange(S, device=dev)[None]
+    for (k, v), (ks, vs) in ((pool, (None, None)), (pool8, scales)):
+        gk, gv = k[cidx], v[cidx]
+        gs = (ks[cidx], vs[cidx]) if ks is not None else (None, None)
+        out = K2.causal_attention_cuda(q, gk, gv, pos, keep + S, *gs)
+        assert _err(out, K2.flash_causal_attention_plain(q, gk, gv, pos, keep + S, *gs)) <= TOL[torch.bfloat16]
+        view = [t[:, :, :span] if t is not None else None for t in (gk, gv, *gs)]
+        out = K3.decode_attention_cuda(q[:, :1], view[0], view[1], keep + S, view[2], view[3])
+        ref = K3.flash_decode_attention_plain(q[:, :1], view[0], view[1], keep + S, view[2], view[3])
+        assert _err(out, ref) <= TOL[torch.bfloat16]
+    torch.cuda.synchronize()

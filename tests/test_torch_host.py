@@ -26,6 +26,7 @@ from zoomearth_tpu.agent import processor as JPR
 from zoomearth_tpu.agent import prompts as JP
 from zoomearth_tpu.cli import config as JCC
 from zoomearth_tpu.config import VLMConfig
+from zoomearth_tpu.eval import client as JCL
 from zoomearth_tpu.image import geometry as JGEO
 from zoomearth_tpu.image import loader as JL
 from zoomearth_tpu.image import preprocess as JPP
@@ -33,6 +34,7 @@ from zoomearth_tpu.models import rope as JR
 from zoomearth_tpu.models import vit as JV
 from zoomearth_tpu.models.params import export_hf_state_dict, init_vlm_params as jax_init_vlm_params
 from zoomearth_tpu.runtime import generate as JG
+from zoomearth_tpu.serve import server as JSV
 from zoomearth_tpu.train import data as JD
 from zoomearth_tpu_torch import config as TC
 from zoomearth_tpu_torch import native as TN
@@ -40,6 +42,7 @@ from zoomearth_tpu_torch import tokenizer as TT
 from zoomearth_tpu_torch.agent import processor as TPR
 from zoomearth_tpu_torch.agent import prompts as TP
 from zoomearth_tpu_torch.cli import config as TCC
+from zoomearth_tpu_torch.eval import client as TCL
 from zoomearth_tpu_torch.image import geometry as TGEO
 from zoomearth_tpu_torch.image import loader as TL
 from zoomearth_tpu_torch.image import preprocess as TPP
@@ -47,6 +50,7 @@ from zoomearth_tpu_torch.models import rope as TR
 from zoomearth_tpu_torch.models import vit as TV
 from zoomearth_tpu_torch.models.params import load_hf_checkpoint, params_from_numpy, tree_leaves
 from zoomearth_tpu_torch.runtime import generate as TG
+from zoomearth_tpu_torch.serve import server as TSV
 from zoomearth_tpu_torch.train import data as TD
 
 torch.set_num_threads(1)
@@ -484,6 +488,101 @@ def test_prefetch_loader_runs_ahead_of_the_consumer():
     assert list(it) == [1, 2, 3] and started == [0, 1, 2, 3]
 
 
+# ---------------------------------------------------------------------------
+# serve/server.py and eval/client.py: the endpoint's and the client's host functions
+# ---------------------------------------------------------------------------
+
+def _chat_image(seed, mode="RGB", h=48, w=72):
+    return Image.fromarray(np.random.default_rng(seed).integers(0, 255, (h, w, 3), dtype=np.uint8)).convert(mode)
+
+
+@pytest.mark.parametrize("mode", ["RGB", "RGBA", "P", "L"])
+def test_data_url_encode_and_decode_equal_reference(mode):
+    image = _chat_image(5, mode)
+    url = TCL.encode_data_url(image)
+    assert url == JCL.encode_data_url(image)
+    back, ref = TSV._decode_data_url(url), JSV._decode_data_url(url)
+    assert (back.mode, back.size) == (ref.mode, ref.size) == ("RGB", (72, 48))
+    assert back.tobytes() == ref.tobytes()
+    for mod in (TSV, JSV):
+        with pytest.raises(ValueError, match="only base64 data URLs"):
+            mod._decode_data_url("file:///tmp/x.png")
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_render_chat_equals_reference_on_random_conversations(seed):
+    """Random conversations: with or without a system message, string and list
+    contents, text and image items in any order, unknown item types, a trailing
+    assistant partial."""
+    rng = np.random.default_rng(seed)
+    url = TCL.encode_data_url(_chat_image(seed, h=20, w=24))
+    messages = [{"role": "system", "content": "be brief"}] if seed % 2 else []
+    for turn in range(int(rng.integers(1, 5))):
+        items = []
+        for _ in range(int(rng.integers(0, 4))):
+            kind = int(rng.integers(0, 3))
+            items.append({"type": "text", "text": f"t{int(rng.integers(100))}"} if kind == 0 else
+                         {"type": "image_url", "image_url": {"url": url}} if kind == 1 else {"type": "audio"})
+        role = "user" if turn % 2 == 0 else "assistant"
+        messages.append({"role": role, "content": items if rng.integers(2) else f"plain {turn}"})
+    if seed >= 2:
+        messages.append({"role": "assistant", "content": [{"type": "text", "text": "<think>so"},
+                                                          {"type": "image_url", "image_url": {"url": url}}]})
+    text, images, cont = TSV.render_chat(messages)
+    ref_text, ref_images, ref_cont = JSV.render_chat(messages)
+    assert (text, cont) == (ref_text, ref_cont) and cont == (messages[-1]["role"] == "assistant")
+    assert [i.tobytes() for i in images] == [i.tobytes() for i in ref_images]
+    assert text.count(TSV.VISION_TOKENS) == len(images)
+    assert (TSV.VISION_TOKENS, TSV.DEFAULT_SYSTEM) == (JSV.VISION_TOKENS, JSV.DEFAULT_SYSTEM)
+
+
+class _CannedClient:
+    """Stands in for ChatClient: records the calls, answers from a list (an exception
+    in the list is raised)."""
+
+    def __init__(self, answers):
+        self.answers, self.calls = list(answers), []
+
+    def create(self, messages, **kw):
+        self.calls.append((json.loads(json.dumps(messages)), kw))
+        out = self.answers.pop(0)
+        if isinstance(out, Exception):
+            raise out
+        return out
+
+
+@pytest.mark.parametrize("answers", [
+    ['<think>look</think>{"bbox_2d": [10,12,40,44]}<answer>car</answer>', "<answer>ship</answer>"],
+    ["<answer>no box here</answer>"],
+    [RuntimeError("stage one failed")],
+    ['{"bbox_2d": [10,12,40,44]}', RuntimeError("stage two failed")],
+], ids=["two-stage", "no-bbox", "stage-1-error", "stage-2-error"])
+@pytest.mark.parametrize("replicate", [False, True], ids=["fixed", "reference-bugs"])
+def test_process_item_record_and_messages_equal_reference(answers, replicate):
+    """process_item over a canned client: the record (keys in order, values) and the
+    messages sent (data URLs included) equal the reference's."""
+    sample = TD.LRSGROSample(question_id="7", image_name="tile.png", category="cat", question="what is there?",
+                             higher_level="perception", ground_truth="car", bbox=[1, 2, 3, 4], type="object",
+                             image_path="tile.png")
+    tile = _chat_image(9, h=900, w=1200)
+    recs, calls = [], []
+    for mod in (TCL, JCL):
+        client = _CannedClient(answers)
+        recs.append(mod.process_item(sample, client, image_loader=lambda s: tile, max_size=256, max_tokens=32,
+                                     temperature=0.5, replicate_reference_bugs=replicate))
+        calls.append(client.calls)
+    assert list(recs[0]) == list(recs[1]) and recs[0] == recs[1]
+    assert calls[0] == calls[1] and len(calls[0]) == (2 if len(answers) == 2 else 1)
+    assert recs[0]["error"] == (len(answers) == 1) and (recs[0]["bbox"] not in ("", [])) == (len(answers) == 2) and recs[0]["prompt"] == sample.question + TP.INSTRUCTION_EVAL
+    assert all(kw == {"max_tokens": 32, "temperature": 0.5} for _, kw in calls[0])
+
+
+def test_chat_client_parses_its_base_url_as_the_reference_does():
+    for url in ("http://127.0.0.1:8123", "http://localhost", "http://example.invalid:9/v1"):
+        t, j = TCL.ChatClient(url, model="m", timeout=3.0), JCL.ChatClient(url, model="m", timeout=3.0)
+        assert (t.host, t.port, t.model, t.timeout) == (j.host, j.port, j.model, j.timeout)
+
+
 def test_port_imports_no_jax():
     """No file of the port (nor chip_smoke.py) imports the JAX package, and importing
     every module of the port pulls in neither jax nor zoomearth_tpu."""
@@ -492,6 +591,8 @@ def test_port_imports_no_jax():
         "import zoomearth_tpu_torch as P\n"
         "mods = [m.name for m in pkgutil.walk_packages(P.__path__, 'zoomearth_tpu_torch.')]\n"
         "assert len(mods) >= 30, mods\n"
+        "new = {'serve.engine', 'serve.episodes', 'serve.server', 'eval.client', 'ops.quant', 'cli.serve'}\n"
+        "assert {'zoomearth_tpu_torch.' + m for m in new} <= set(mods), mods\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'zoomearth_tpu'))\n"
         "assert not bad, bad\n"

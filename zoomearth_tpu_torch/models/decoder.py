@@ -12,7 +12,9 @@ their int8 entries.
 
 Params: embed.weight; layers[i].{input_ln,post_ln}.scale, .attn.{wq,bq,wk,bk,wv,bv,wo}
 (or the fused .attn.{wqkv,bqkv,wo}), .mlp.{wg,wu,wd} (or fused .mlp.{wgu,wd});
-final_ln.scale; lm_head.weight when untied. Matrices are (in, out).
+final_ln.scale; lm_head.weight when untied. Matrices are (in, out); each may be a
+plain tensor or an int8 / LoRA dict (every matmul goes through ops.quant.qdot), and
+lm_head_q8, when present, is the int8 copy of the logits head.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 
 from ..ops.flash_causal import flash_causal_attention
 from ..ops.flash_decode import flash_decode_attention
+from ..ops.quant import qdot
 from ..config import TextConfig
 from .rope import apply_rotary, mrope_cos_sin
 from .vit import rms_norm
@@ -176,14 +179,14 @@ def _project_qkv(p, cfg: TextConfig, x, cos, sin):
     B, S, _ = x.shape
     H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     if "wqkv" in p:  # fused layout: one matmul, then split
-        qkv = x @ p["wqkv"] + p["bqkv"]
+        qkv = qdot(x, p["wqkv"]) + p["bqkv"]
         q = qkv[..., : H * D].reshape(B, S, H, D)
         k = qkv[..., H * D : (H + Hkv) * D].reshape(B, S, Hkv, D)
         v = qkv[..., (H + Hkv) * D :].reshape(B, S, Hkv, D)
     else:
-        q = (x @ p["wq"] + p["bq"]).reshape(B, S, H, D)
-        k = (x @ p["wk"] + p["bk"]).reshape(B, S, Hkv, D)
-        v = (x @ p["wv"] + p["bv"]).reshape(B, S, Hkv, D)
+        q = (qdot(x, p["wq"]) + p["bq"]).reshape(B, S, H, D)
+        k = (qdot(x, p["wk"]) + p["bk"]).reshape(B, S, Hkv, D)
+        v = (qdot(x, p["wv"]) + p["bv"]).reshape(B, S, Hkv, D)
     return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
 
 
@@ -245,15 +248,15 @@ def _attn_layer(
     else:
         _cache_write(cache_kv, k, v, cache_len, write_pos, index)
         out = flash_causal_attention(q, cache_kv[0], cache_kv[1], positions, cache_len + S, cache_kv[2], cache_kv[3])
-    return out.reshape(B, S, H * D) @ p["wo"]
+    return qdot(out.reshape(B, S, H * D), p["wo"])
 
 
 def _mlp(p, x):
     if "wgu" in p:  # fused layout: one gate|up matmul, then split
-        gu = x @ p["wgu"]
+        gu = qdot(x, p["wgu"])
         F_ = gu.shape[-1] // 2
-        return (F.silu(gu[..., :F_]) * gu[..., F_:]) @ p["wd"]
-    return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+        return qdot(F.silu(gu[..., :F_]) * gu[..., F_:], p["wd"])
+    return qdot(F.silu(qdot(x, p["wg"])) * qdot(x, p["wu"]), p["wd"])
 
 
 def decoder_forward(
@@ -333,7 +336,7 @@ def decoder_forward_pair(
             _decode_write_attend(q[:Ba], k[:Ba], v[:Ba], cache_a.layer(i), cache_a.length, attend_a),
             _decode_write_attend(q[Ba:], k[Ba:], v[Ba:], cache_b.layer(i), cache_b.length, attend_b),
         ])
-        x = x + out.reshape(B, S, -1) @ layer["attn"]["wo"]
+        x = x + qdot(out.reshape(B, S, -1), layer["attn"]["wo"])
         h = rms_norm(x, layer["post_ln"]["scale"], cfg.rms_norm_eps)
         x = x + _mlp(layer["mlp"], h)
     x = rms_norm(x, params["final_ln"]["scale"], cfg.rms_norm_eps)
@@ -349,18 +352,28 @@ def logits_from_hidden(params, cfg: TextConfig, hidden: torch.Tensor) -> torch.T
     On CUDA a bf16 head uses cuBLAS's fp32-output GEMM (`torch.mm(..., out_dtype=)`),
     so no fp32 copy of the 151936 x E embedding is materialised and argmax ties do
     not multiply as they would with bf16 logits. On the CPU a bf16 head is upcast
-    (tests only); fp32 params are exact fp32 everywhere."""
-    if cfg.tie_word_embeddings:
+    (tests only); fp32 params are exact fp32 everywhere.
+
+    An int8 copy of the head at params["lm_head_q8"]
+    (quantize_decoder_int8(lm_head=True)) takes the head's place: its values are
+    widened to the hidden state's dtype for the product, and the per-output-column
+    scale multiplies the fp32 logits (exact algebra)."""
+    scale = None
+    if "lm_head_q8" in params:
+        scale = params["lm_head_q8"]["s"].float()
+        w = params["lm_head_q8"]["q"].to(hidden.dtype)
+    elif cfg.tie_word_embeddings:
         w = params["embed"]["weight"].t()  # (E, V) view
     else:
         w = params["lm_head"]["weight"]
     h = hidden.to(w.dtype)
     if w.dtype == torch.float32:
-        return h @ w
-    lead = h.shape[:-1]
-    h2 = h.reshape(-1, h.shape[-1])
-    if h.device.type == "cuda":
-        out = torch.mm(h2, w, out_dtype=torch.float32)
+        out = h @ w
     else:
-        out = h2.float() @ w.float()
-    return out.reshape(*lead, out.shape[-1])
+        h2 = h.reshape(-1, h.shape[-1])
+        if h.device.type == "cuda":
+            out = torch.mm(h2, w, out_dtype=torch.float32)
+        else:
+            out = h2.float() @ w.float()
+        out = out.reshape(*h.shape[:-1], out.shape[-1])
+    return out if scale is None else out * scale

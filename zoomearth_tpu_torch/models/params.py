@@ -51,9 +51,14 @@ def tree_leaves(tree):
 
 def params_from_numpy(tree, device="cpu", dtype=None) -> Dict:
     """The JAX package's parameter tree (leaves as numpy arrays or anything
-    np.asarray accepts, (in, out) layout) -> the port's tree on `device`."""
+    np.asarray accepts, (in, out) layout) -> the port's tree on `device`. Float
+    leaves take `dtype` (float32 when omitted); integer leaves (the int8 values of a
+    quantized tree, ops/quant.py) keep their own dtype."""
     def conv(leaf):
-        t = torch.from_numpy(np.array(leaf, dtype=np.float32))
+        a = np.asarray(leaf)
+        if a.dtype.kind in "iu":
+            return torch.from_numpy(np.array(a)).to(device=device)
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
         return t.to(device=device, dtype=torch_dtype(dtype) if dtype is not None else torch.float32)
 
     return map_tree(conv, tree)
