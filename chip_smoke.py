@@ -27,11 +27,23 @@ Phases, each fatal on failure (nothing is caught):
    at segments of 16-64 rows, a boundary inside a tile, S no multiple of 128, the pad
    tail, the fused-qkv views; K3 at kv_len 0, rows ending either side of a split
    boundary, T not a whole number of splits, bf16, int8 and the strided view.
+   Training's kernels at the SFT path's shapes (one cut sample: S = 8192 patches in
+   segments of 5476 and 1296 and a pad tail, H = 16, D = 80; 2048 tokens, H = 16,
+   Hkv = 2, D = 128, on the transposed no-cache views), timed the same way: K1's and
+   K2's forwards with their lse output off and on, and their backward kernels
+   (flash_segment_bwd.cu, flash_causal_bwd.cu: no TPU counterpart, the reference's
+   Pallas kernels have no VJP) against their plain backward, each gradient within one
+   bf16 step of its largest value, beside torch.autograd.grad through one
+   scaled_dot_product_attention call (its forward included: the backward needs it);
+   then, untimed, the backward kernels at segments of 16-64 rows, a boundary inside a
+   block, S no multiple of 32 or 128, and a K2 row with kv_len 0 (zero gradients).
 4. parity  — the tiny config in fp32 on the card through every kernel (K1/K2's fp32
    variants) against the CPU plain path (which the CPU tests hold against the JAX
    package): logits and greedy tokens. Then in bf16 on the card: prefill through the
    kernels (K2's tensor-core variant) against the same weights through the plain
-   versions.
+   versions. Then one SFT micro-step in fp32: the loss and the gradient of every
+   parameter leaf through the kernels (the fp32 forward variants with lse, the
+   backward kernels) against the CPU plain path.
 5. slice   — Qwen2.5-VL-3B at full width with random bf16 weights from a seeded
    torch.Generator: run_inference over 8 synthetic 5000 px LRS-GRO-shaped samples
    (batch 8, greedy, 64 + 64 new tokens, forced bbox so stage 2 always runs; 16
@@ -76,7 +88,22 @@ Phases, each fatal on failure (nothing is caught):
    engine's decode step with 8 live rows timed over bf16 weights and over the int8
    layout of ops/quant.py (which widens the weights for every product), in turns, and
    one decoder matmul at that step's shape on the device, bf16 torch.mm beside qdot.
-8. decode-variants — the decode-attention entry points beside the serving path, at
+8. training — train_sft on Qwen2.5-VL-3B at full width (random bf16 weights from a
+   seeded torch.Generator, FakeTokenizer) over synthetic SFT samples on the 5000 px
+   tiles: batch 1 per micro-step, 2 micro-steps to an update, cut (a 500 px bbox, a
+   crop of at least 512 px) and uncut samples in turn, 4 micro-steps with a checkpoint
+   every 2, then a resume from the step-2 checkpoint for 2 more with the HF export at
+   its save. The one reduction: the processor's max_pixels caps each image at 448 x
+   448 (1024 patches, 256 tokens), since the byte-level FakeTokenizer makes the SFT
+   instruction alone 921 tokens and a sample must fit the 2048 token bucket; widths
+   and depth are the 3B model's. Every parameter leaf must get a finite gradient, the
+   ViT's wqkv and the decoder's wq/wk/wv nonzero ones (a detached kernel output would
+   leave them 0), K1 and K2 must launch forward and backward once per block and layer
+   per micro-step (K1/K2 forwards on the tensor-core variant), the resumed losses must
+   equal the uninterrupted run's and its parameters stay within a bf16 step, and the
+   export must load back equal. Seconds per micro-step (host clock, synchronized),
+   tokens and patches per second and peak memory are printed.
+9. decode-variants — the decode-attention entry points beside the serving path, at
    the reference's shapes. First the checks: K4 (paged decode) against its plain
    version and K3 at (B=32|64, T=4096, 30 % live, pages 64|256); P1 (stream probe)
    and P2 (big-product decode) against their plain versions at B=32, T=1536; then,
@@ -97,8 +124,9 @@ The second-to-last line is {"kernels": [...]} (every case of each kernel with it
 time, its plain version's, the library call's where there is one, its bound and the
 share of it reached; the untimed checks; launches from the path that runs it: calls
 of the wrapper, and each K3, K4 or P2 call runs two kernels, its split pass and the
-split merge; a P1 call is one memset and one kernel); the last is the device contract
-line.
+split merge; a P1 call is one memset and one kernel; a backward call runs its dq
+kernel, then its dk/dv kernel, and its launches are the training phase's); the last
+is the device contract line.
 """
 
 from __future__ import annotations
@@ -115,6 +143,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # bf16 roundings of attention outputs below 2: of the output, of the inputs' products and, in
 # K1/K2's tensor-core variants and P2, of the softmax weights p (the kernels accumulate in fp32)
 TOL_BF16 = 2e-2
+# an fp32 log-sum-exp (near 9 at the SFT shapes) from the same fp32 logits, summed in another order
+TOL_LSE = 1e-3
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM, dense bf16 tensor-core rate and HBM rate
 LIBRARY = " (library call)"  # a case's library yardstick among an entry point's timed cases
 SAMPLES, BATCH, NEW_TOKENS = 8, 8, 64
@@ -131,8 +161,56 @@ def log(msg):
     print(msg, flush=True)
 
 
+def errors(out, ref):
+    """Largest absolute difference of each output: one for a tensor, one for each
+    pair where out and ref are tuples (a forward's (out, lse), a backward's (dq, dk,
+    dv))."""
+    pairs = zip(out, ref) if isinstance(out, (tuple, list)) else [(out, ref)]
+    return [(a.float() - b.float()).abs().max().item() for a, b in pairs]
+
+
 def max_err(out, ref):
-    return (out.float() - ref.float()).abs().max().item()
+    """The largest of errors(out, ref)."""
+    return max(errors(out, ref))
+
+
+def within(errs, tol):
+    """Whether each output's error is within its tolerance: tol is one number for
+    all of them or a sequence of one per output."""
+    tols = tol if isinstance(tol, (tuple, list)) else [tol] * len(errs)
+    return len(tols) == len(errs) and all(e <= t for e, t in zip(errs, tols))
+
+
+def fmt(x):
+    """A number, one per output, or a tolerance stated in words, for the log."""
+    if isinstance(x, (tuple, list)):
+        return "[" + ", ".join(f"{v:.3e}" for v in x) + "]"
+    return f"{x:.3e}" if isinstance(x, (int, float)) else str(x)
+
+
+def all_finite(out):
+    import torch
+
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    return all(bool(torch.isfinite(t.float()).all()) for t in outs)
+
+
+def grad_tol(ref):
+    """A backward's tolerances, one for each of dq, dk and dv: the same fp32 arithmetic
+    on the same bf16 inputs summed in another order, then each gradient rounded to bf16,
+    so one bf16 step (2^-7) of that gradient's own largest value."""
+    return tuple(2.0 ** -7 * r.abs().max().item() for r in ref)
+
+
+def library_grad_tol(ref):
+    """The library backward's, one for each gradient: it may round p and ds to bf16
+    between its products, so four bf16 steps (2^-5) of that gradient's largest value."""
+    return tuple(2.0 ** -5 * r.abs().max().item() for r in ref)
+
+
+def lse_tol(ref):
+    """A forward with its lse: the output within TOL_BF16, the fp32 lse within TOL_LSE."""
+    return TOL_BF16, TOL_LSE
 
 
 def timing_row(label, check, times, plain_times, card, work, library_times=None, gb_per_s=None):
@@ -149,7 +227,8 @@ def timing_row(label, check, times, plain_times, card, work, library_times=None,
     if library_times:
         lib = (f"library {library_times[0]:.4f} ms per call, {library_times[1]:.4f} ms device, kernel/library "
                f"{dev / library_times[1]:.3f}")
-    log(f"  {label}: max_abs_err {check['max_abs_err']:.3e} (tol {check['tol']}) | per call: kernel {ms:.4f} ms, plain "
+    log(f"  {label}: max_abs_err {fmt(check.get('max_abs_err_each', check['max_abs_err']))} (tol "
+        f"{fmt(check['tol'])}) | per call: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, kernel/plain {ms / plain_ms:.3f} | device: kernel {dev:.4f} ms{rate}, plain "
         f"{plain_dev:.4f} ms, kernel/plain {dev / plain_dev:.3f} | {lib} | bound {bound_ms:.5f} ms by {bound_by} "
         f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), share of bound {bound_ms / dev:.3f} | L2 cold | {card}")
@@ -191,11 +270,12 @@ def sdpa_backends(fn):
     return ok
 
 
-def case(label, kernel, plain, card, work, library=None, nbytes=None):
+def case(label, kernel, plain, card, work, library=None, nbytes=None, tol=None, library_tol=None):
     """One kernel case: its output against its plain version's (max abs error within
-    TOL_BF16), the library call's too where there is one, then all of them timed in
-    turns, L2 cold: per call (CUDA events around each call) and on the device (CUDA
-    graph replays)."""
+    TOL_BF16, or within `tol(ref)`: one number, or one for each of a tuple's outputs),
+    the library call's too where there is one (within `library_tol(ref)` where given),
+    then all of them timed in turns, L2 cold: per call (CUDA events around each call)
+    and on the device (CUDA graph replays)."""
     import torch
 
     from zoomearth_tpu_torch.scripts.timing import time_in_turns
@@ -203,15 +283,20 @@ def case(label, kernel, plain, card, work, library=None, nbytes=None):
     out = kernel()
     ref = plain()
     torch.cuda.synchronize()
-    err = max_err(out, ref)
-    if not (err <= TOL_BF16 and bool(torch.isfinite(out.float()).all())):
-        raise AssertionError(f"{label}: kernel disagrees with its plain version ({err})")
-    check = {"max_abs_err": err, "tol": TOL_BF16}
+    errs = errors(out, ref)
+    tol = TOL_BF16 if tol is None else tol(ref)
+    if not (within(errs, tol) and all_finite(out)):
+        raise AssertionError(f"{label}: kernel disagrees with its plain version ({errs}, tol {tol})")
+    check = {"max_abs_err": max(errs), "tol": tol}
+    if len(errs) > 1:
+        check["max_abs_err_each"] = errs
     if library is not None:
-        check["library_max_abs_err"] = max_err(library(), ref)
-        log(f"  {label}: library call vs plain version max_abs_err {check['library_max_abs_err']:.3e} (tol {TOL_BF16}); "
+        lib_tol = tol if library_tol is None else library_tol(ref)
+        lib_errs = errors(library(), ref)
+        check["library_max_abs_err"] = max(lib_errs)
+        log(f"  {label}: library call vs plain version max_abs_err {fmt(lib_errs)} (tol {fmt(lib_tol)}); "
             f"SDPA backends that take it: {sdpa_backends(library)}")
-        if not check["library_max_abs_err"] <= TOL_BF16:
+        if not within(lib_errs, lib_tol):
             raise AssertionError(f"{label}: the library yardstick disagrees with the plain version")
     ms, dev = time_in_turns([plain, kernel] + ([library] if library is not None else []))
     return timing_row(label, check, (ms[1], dev[1]), (ms[0], dev[0]), card, work,
@@ -340,10 +425,15 @@ def check_kernels(card):
                    K3.work(kvl4, 1280, H, Hkv, D, 1), None, K3.read_bytes(kvl4, 1280, Hkv, D, 1)))
     rows["flash_decode_attention"] = ("zoomearth_tpu_torch/csrc/flash_decode.cu",
                                       "zoomearth_tpu/ops/flash_decode.py:94", e3)
+    log("[kernels] training: K1 and K2 forward with lse off and on, and their backward kernels, at the SFT path's shapes")
+    forwards, backwards = check_training_kernels(card, randn)
+    for name, cases in forwards.items():
+        rows[name][2].extend(cases)
+    rows.update(backwards)
     log("[kernels] untimed checks where the kernels have edges")
     return rows, {"flash_segment_attention": check_k1_edges(randn),
                   "flash_causal_attention": check_k2_edges(randn, int8, scales) + check_k2_int8_chunk(randn, cache8),
-                  "flash_decode_attention": check_k3_edges(randn, int8, scales)}
+                  "flash_decode_attention": check_k3_edges(randn, int8, scales), **check_bwd_edges(randn)}
 
 
 def assert_scale_views_as_is(ks, vs):
@@ -356,15 +446,16 @@ def assert_scale_views_as_is(ks, vs):
 
 
 def edge_check(label, out, ref, tol=TOL_BF16):
-    """One untimed check: log and return it; raise if the kernel disagrees."""
+    """One untimed check (tol: one number, or one for each of a tuple's outputs): log
+    and return it; raise if the kernel disagrees."""
     import torch
 
     torch.cuda.synchronize()
-    err = max_err(out, ref)
-    log(f"  {label}: max_abs_err {err:.3e} (tol {tol}), untimed")
-    if not (err <= tol and bool(torch.isfinite(out.float()).all())):
-        raise AssertionError(f"{label}: kernel disagrees with its plain version ({err})")
-    return {"case": label, "max_abs_err": err, "tol": tol}
+    errs = errors(out, ref)
+    log(f"  {label}: max_abs_err {fmt(errs if len(errs) > 1 else errs[0])} (tol {fmt(tol)}), untimed")
+    if not (within(errs, tol) and all_finite(out)):
+        raise AssertionError(f"{label}: kernel disagrees with its plain version ({errs}, tol {tol})")
+    return {"case": label, "max_abs_err": max(errs), "tol": tol}
 
 
 def held_on_path(label, out, ref):
@@ -502,6 +593,366 @@ def check_k3_edges(randn, int8, scales):
         ref = K3.flash_decode_attention_plain(q, k, v, kvl, a, b)
         checks.append(edge_check(f"K3 {label} B=8 T={T} (split {split}), kv_len {kvl.tolist()}", out, ref))
     return checks
+
+
+# K1 / K2 backward at the SFT path's shapes: one cut sample of 5000 px tiles as the reference trains on them
+# (the tile resized to 1036 px: 5476 patches; a crop of 512 px and more: 1296 patches; the 8192 patch bucket), and
+# ~2000 tokens of a real tokenizer's text in the 2048 length bucket
+SFT_RUNS, SFT_PATCHES = (5476, 1296), 8192
+SFT_TOKENS = 2048
+BWD_NOTE = ("no TPU counterpart: the reference's Pallas kernel has no VJP (jax.grad through its pallas_call raises "
+            "NotImplementedError), so the JAX package trains through XLA's autodiff of the plain attention")
+
+
+def check_training_kernels(card, randn):
+    """K1 and K2 as training runs them, timed in turns like every other case: the
+    forwards at the SFT path's shapes with lse off and on (the lse held on its own, at
+    TOL_LSE), and the backward kernels against their plain backward (dq, dk and dv each
+    at grad_tol), each with one library call as its yardstick (torch.autograd.grad
+    through scaled_dot_product_attention with the mask built beforehand, its forward
+    included: the backward needs it). The kernel's backward takes the kernel forward's
+    out and lse, the plain backward the plain forward's, so a wrong lse shows here; the
+    edge checks give both the kernel's. Returns ({kernel name: [forward cases]} for K1
+    and K2, {backward kernel name: (source, None, [case])})."""
+    import torch
+
+    from zoomearth_tpu_torch.ops import flash_attention as K1
+    from zoomearth_tpu_torch.ops import flash_causal as K2
+
+    dev = torch.device("cuda")
+    S, H, D = SFT_PATCHES, 16, 80
+    seg = torch.cat([torch.full((n,), i, dtype=torch.int32) for i, n in enumerate(SFT_RUNS)]
+                    + [torch.full((S - sum(SFT_RUNS),), K1.PAD_SEG, dtype=torch.int32)]).to(dev)
+    qkv = randn(S, 3, H, D)
+    q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    seg_mask = seg[:, None] == seg[None, :]
+
+    def heads_first(*ts):
+        return [t[None].transpose(1, 2) for t in ts]
+
+    label = f"K1 segment SFT sample S={S} H={H} D={D} (5476 + 1296 patches + pad)"
+    fwd1 = [case(label + ", lse off", lambda: K1.segment_attention_cuda(q, k, v, seg),
+                 lambda: K1.flash_segment_attention_plain(q, k, v, seg), card, K1.work(seg, H, D, 2),
+                 lambda: sdpa(*heads_first(q, k, v), seg_mask)[0].transpose(0, 1)),
+            case(label + ", lse on", lambda: K1.segment_attention_cuda(q, k, v, seg, return_lse=True),
+                 lambda: K1.flash_segment_attention_plain(q, k, v, seg, return_lse=True), card,
+                 (K1.work(seg, H, D, 2)[0], K1.work(seg, H, D, 2)[1] + 4 * S * H), tol=lse_tol)]
+    out, lse = K1.segment_attention_cuda(q, k, v, seg, return_lse=True)
+    plain_out, plain_lse = K1.flash_segment_attention_plain(q, k, v, seg, return_lse=True)
+    dout = randn(S, H, D)
+    lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    bwd1 = case(f"K1-bwd segment SFT sample S={S} H={H} D={D}, the plain backward from the plain forward",
+                lambda: K1.segment_attention_bwd_cuda(q, k, v, seg, out, dout, lse),
+                lambda: K1.flash_segment_attention_bwd_plain(q, k, v, seg, plain_out, dout, plain_lse), card,
+                K1.work_bwd(seg, H, D, 2),
+                lambda: torch.autograd.grad(sdpa(*heads_first(lq, lk, lv), seg_mask)[0].transpose(0, 1),
+                                            (lq, lk, lv), dout),
+                tol=grad_tol, library_tol=library_grad_tol)
+    del seg_mask, out, lse, plain_out, plain_lse, dout
+
+    B, S, H, Hkv, D = 1, SFT_TOKENS, 16, 2, 128
+    q2 = randn(B, S, H, D)
+    kp, vp = randn(B, S, Hkv, D), randn(B, S, Hkv, D)  # the decoder's projections, passed transposed
+    k2, v2 = kp.transpose(1, 2), vp.transpose(1, 2)
+    pos = torch.arange(S, device=dev)[None]
+    kvl = torch.tensor([S], device=dev)
+    mask = (torch.arange(S, device=dev)[None, :] <= pos[0][:, None])[None, None]
+    label = f"K2 no-cache SFT sample B={B} S=T={S} H={H} Hkv={Hkv} D={D}, transposed k/v views"
+    fwd2 = [case(label + ", lse off", lambda: K2.causal_attention_cuda(q2, k2, v2, pos, kvl),
+                 lambda: K2.flash_causal_attention_plain(q2, k2, v2, pos, kvl), card,
+                 K2.work(pos, kvl, H, Hkv, D, S, 2),
+                 lambda: sdpa(q2.transpose(1, 2), k2, v2, mask).transpose(1, 2)),
+            case(label + ", lse on", lambda: K2.causal_attention_cuda(q2, k2, v2, pos, kvl, return_lse=True),
+                 lambda: K2.flash_causal_attention_plain(q2, k2, v2, pos, kvl, return_lse=True), card,
+                 (K2.work(pos, kvl, H, Hkv, D, S, 2)[0], K2.work(pos, kvl, H, Hkv, D, S, 2)[1] + 4 * B * S * H),
+                 tol=lse_tol)]
+    out, lse = K2.causal_attention_cuda(q2, k2, v2, pos, kvl, return_lse=True)
+    plain_out, plain_lse = K2.flash_causal_attention_plain(q2, k2, v2, pos, kvl, return_lse=True)
+    dout = randn(B, S, H, D)
+    lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q2, kp, vp))
+    bwd2 = case(f"K2-bwd no-cache SFT sample B={B} S=T={S} H={H} Hkv={Hkv} D={D}, the plain backward from the plain "
+                "forward",
+                lambda: K2.causal_attention_bwd_cuda(q2, k2, v2, pos, kvl, out, dout, lse),
+                lambda: K2.flash_causal_attention_bwd_plain(q2, k2, v2, pos, kvl, plain_out, dout, plain_lse), card,
+                K2.work_bwd(pos, kvl, H, Hkv, D, S, 2),
+                lambda: (lambda g: (g[0], g[1].transpose(1, 2), g[2].transpose(1, 2)))(torch.autograd.grad(
+                    sdpa(lq.transpose(1, 2), lk.transpose(1, 2), lv.transpose(1, 2), mask).transpose(1, 2),
+                    (lq, lk, lv), dout)),
+                tol=grad_tol, library_tol=library_grad_tol)
+    return ({"flash_segment_attention": fwd1, "flash_causal_attention": fwd2},
+            {"flash_segment_attention_bwd": ("zoomearth_tpu_torch/csrc/flash_segment_bwd.cu", None, [bwd1]),
+             "flash_causal_attention_bwd": ("zoomearth_tpu_torch/csrc/flash_causal_bwd.cu", None, [bwd2])})
+
+
+def check_bwd_edges(randn):
+    """K1's and K2's backward kernels against their plain backward, untimed, where they
+    have edges: K1 at segments of 16-64 rows (the windowed blocks, as training runs
+    them), one long segment between windows, a boundary inside a block of 32 and S no
+    multiple of 32 or 128, on the fused-qkv views; K2 on the transposed no-cache views
+    with a row of kv_len 0 (zero gradients), kv_len either side of a block of keys and
+    pad queries past kv_len. Returns {backward kernel name: [checks]}."""
+    import torch
+
+    from zoomearth_tpu_torch.ops import flash_attention as K1
+    from zoomearth_tpu_torch.ops import flash_causal as K2
+
+    dev = torch.device("cuda")
+    H, D = 16, 80
+    layouts = {"windows of 16-64 rows + pad tail": [64, 16, 48, 64, 32, 64, 64, 20, 64, 64, 40, 64, 64, 64, 16, 64],
+               "one 1296-row image between windows + pad tail": [40, 1296, 64, 24],
+               "two segments split inside a block, no pad": [100, 91]}
+    k1 = []
+    for label, runs in layouts.items():
+        pad = 0 if "no pad" in label else 37
+        S = sum(runs) + pad
+        seg = torch.cat([torch.full((n,), i, dtype=torch.int32) for i, n in enumerate(runs)]
+                        + [torch.full((pad,), K1.PAD_SEG, dtype=torch.int32)]).to(dev)
+        qkv = randn(S, 3, H, D)
+        q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+        out, lse = K1.segment_attention_cuda(q, k, v, seg, return_lse=True)
+        dout = randn(S, H, D)
+        ref = K1.flash_segment_attention_bwd_plain(q, k, v, seg, out, dout, lse)
+        k1.append(edge_check(f"K1-bwd {label}, S={S}, fused-qkv views",
+                             K1.segment_attention_bwd_cuda(q, k, v, seg, out, dout, lse), ref, grad_tol(ref)))
+    B, S, H, Hkv, D = 5, 150, 16, 2, 128
+    q = randn(B, S, H, D)
+    k, v = randn(B, S, Hkv, D).transpose(1, 2), randn(B, S, Hkv, D).transpose(1, 2)
+    pos = torch.arange(S, device=dev)[None].expand(B, S).contiguous()
+    kvl = torch.tensor([S, 0, 64, 65, 97], device=dev)
+    out, lse = K2.causal_attention_cuda(q, k, v, pos, kvl, return_lse=True)
+    dout = randn(B, S, H, D)
+    got = K2.causal_attention_bwd_cuda(q, k, v, pos, kvl, out, dout, lse)
+    ref = K2.flash_causal_attention_bwd_plain(q, k, v, pos, kvl, out, dout, lse)
+    k2 = [edge_check(f"K2-bwd transposed no-cache views B={B} S=T={S}, kv_len {kvl.tolist()}", got, ref,
+                     grad_tol(ref))]
+    assert not any(bool(g[1].any()) for g in got), "K2-bwd: a row with kv_len 0 must get zero gradients"
+    assert got[1].stride() == k.stride(), "K2-bwd: dk must come back in k's layout"
+    return {"flash_segment_attention_bwd": k1, "flash_causal_attention_bwd": k2}
+
+
+def check_tiny_grad_parity():
+    """The tiny config in fp32: one SFT micro-step's loss and the gradient of every
+    parameter leaf on the card (K1's and K2's fp32 forward variants with lse, their
+    backward kernels) against the CPU plain path, which the CPU tests hold against the
+    JAX package."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from zoomearth_tpu_torch.agent.processor import Processor
+    from zoomearth_tpu_torch.config import VLMConfig
+    from zoomearth_tpu_torch.models.params import init_vlm_params, map_tree, tree_leaves
+    from zoomearth_tpu_torch.ops import flash_attention as K1
+    from zoomearth_tpu_torch.ops import flash_causal as K2
+    from zoomearth_tpu_torch.tokenizer import FakeTokenizer
+    from zoomearth_tpu_torch.train import sft as TS
+    from zoomearth_tpu_torch.train import sft_loop as TL
+    from zoomearth_tpu_torch.train.data import SFTSample
+
+    cfg = VLMConfig.tiny()
+    processor = Processor(FakeTokenizer(cfg.tokens), cfg, max_pixels=16 * 28 * 28)
+    rng = np.random.default_rng(0)
+    image = Image.fromarray(rng.integers(0, 255, (700, 650, 3), dtype=np.uint8))
+    samples = [SFTSample(question=f"what is at site {i}?", cut=i == 0, global_desc="An aerial scene.",
+                         stage_1_reasoning="I should look closer.", area="top-left",
+                         bbox=[50, 60, 200, 220] if i == 0 else [], stage_2_reasoning="It is a car.",
+                         ground_truth="car", image_name="a.png") for i in range(2)]
+    batch = TL.collate_sft(samples, processor, image_loader=lambda s: image)
+    params = init_vlm_params(cfg, torch.Generator().manual_seed(0))
+    results = []
+    for device in ("cpu", "cuda"):
+        p = map_tree(lambda t: t.to(device, copy=True), params)
+        TL.make_trainable(p)
+        before = (K1.segment_attention_bwd_cuda.launches, K2.causal_attention_bwd_cuda.launches)
+        loss, n = TS.sft_loss(p, cfg, TS.batch_to_device(batch, device))
+        grads = torch.autograd.grad(loss, tree_leaves(p), materialize_grads=True)
+        ran = (K1.segment_attention_bwd_cuda.launches - before[0], K2.causal_attention_bwd_cuda.launches - before[1])
+        results.append((float(loss.detach()), [g.cpu() for g in grads], ran))
+    (lc, gc, ran_cpu), (lg, gg, ran_gpu) = results
+    errs = [(a - b).abs().max().item() / max(1.0, b.abs().max().item()) for a, b in zip(gg, gc)]
+    worst = max(errs)
+    log(f"  tiny fp32 SFT micro-step ({batch['input_ids'].shape[1]} tokens, {batch['pixel_values'].shape[0]} patches): "
+        f"loss card {lg:.6f} vs CPU {lc:.6f}; {len(errs)} gradient leaves, worst max_abs_err relative to the leaf's "
+        f"largest gradient (or 1) {worst:.3e} (tol 1e-4); backward launches on the card K1 {ran_gpu[0]}, "
+        f"K2 {ran_gpu[1]}, on the CPU {ran_cpu}")
+    if not (abs(lg - lc) <= 1e-4 and worst <= 1e-4 and ran_cpu == (0, 0)
+            and ran_gpu == (cfg.vision.depth, cfg.text.num_hidden_layers)):
+        raise AssertionError("tiny-config gradient parity on the card failed")
+
+
+TRAIN_MICRO, TRAIN_ACCUM, TRAIN_RESUME_AT = 4, 2, 2  # micro-steps, micro-steps per update, the resume's checkpoint
+TRAIN_MAX_PIXELS = 448 * 448  # each image at most 1024 patches (256 tokens): a sample fits the 2048 token bucket
+
+
+def run_training(card):
+    """SFT at Qwen2.5-VL-3B width (see the module docstring, phase 8). Three runs of
+    train_sft from the same seeded weights: the uninterrupted one (TRAIN_MICRO
+    micro-steps, no checkpoint: the run whose launches, times and memory are read), one
+    that stops at its checkpoint (TRAIN_RESUME_AT micro-steps, saved, exported in the HF
+    layout), and one that resumes from that checkpoint to the end. A machine's disk
+    takes some 45 GiB of writes: one checkpoint (22.5 GB) and one export (7.5 GB) fit,
+    more do not. Returns ({kernel name: {"launches_training": n}} for K1 and K2,
+    {backward kernel name: launches})."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from zoomearth_tpu_torch.agent.processor import Processor
+    from zoomearth_tpu_torch.config import VLMConfig
+    from zoomearth_tpu_torch.models.params import init_vlm_params, load_hf_checkpoint, tree_leaves
+    from zoomearth_tpu_torch.ops import flash_attention as K1
+    from zoomearth_tpu_torch.ops import flash_causal as K2
+    from zoomearth_tpu_torch.tokenizer import FakeTokenizer
+    from zoomearth_tpu_torch.train import sft as TS
+    from zoomearth_tpu_torch.train import sft_loop as TL
+    from zoomearth_tpu_torch.train.callbacks import ExportHFCallback
+    from zoomearth_tpu_torch.train.data import SFTSample
+
+    cfg = VLMConfig.qwen2_5_vl_3b()
+    processor = Processor(FakeTokenizer(cfg.tokens), cfg, max_pixels=TRAIN_MAX_PIXELS)
+    tiles = {f"tile{i}.png": synthetic_tile(10 + i) for i in range(2)}
+    # cut and uncut samples alternate in the loop's order (its permutation of the dataset, seed 42)
+    seed, n = 42, TRAIN_MICRO
+    order = np.random.default_rng(seed).permutation(n)
+    cut = np.zeros(n, bool)
+    cut[order[0::2]] = True
+    samples = [SFTSample(question=f"what is near the marked area {i}?", cut=bool(cut[i]),
+                         global_desc="An aerial view of a harbour with piers and boats.",
+                         stage_1_reasoning="The small objects near the centre need a closer look.",
+                         area="center", bbox=[2250, 2250, 2750, 2750] if cut[i] else [],
+                         stage_2_reasoning="The crop shows a moored ship beside the pier.",
+                         ground_truth="ship", image_name=f"tile{i % 2}.png") for i in range(n)]
+
+    def loader(s):
+        return tiles[s.image_name]
+
+    def new_params():
+        return init_vlm_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                               dtype=torch.bfloat16)
+
+    sft_cfg = TS.SFTConfig(learning_rate=1e-4, warmup_steps=1, total_steps=8, weight_decay=0.01,
+                           gradient_accumulation_steps=TRAIN_ACCUM)
+    counters = (K1.segment_attention_cuda, K1.segment_attention_bwd_cuda, K2.causal_attention_cuda,
+                K2.causal_attention_bwd_cuda)
+    first = {}
+
+    def check_first_grads(params):
+        """train_sft's on_grads: the first micro-step's gradients, as the optimizer gets them."""
+        index = {id(t): i for i, t in enumerate(tree_leaves(params))}
+        watched = {"vision.blocks[*].attn.wqkv": [b["attn"]["wqkv"] for b in params["vision"]["blocks"]]}
+        for name in ("wq", "wk", "wv"):
+            watched[f"text.layers[*].attn.{name}"] = [layer["attn"][name] for layer in params["text"]["layers"]]
+
+        def on_grads(step, grads):
+            if step == 1:
+                first["finite"] = int(torch.stack([torch.isfinite(g).all() for g in grads]).sum()), len(grads)
+                first["nonzero"] = {name: min(float(grads[index[id(t)]].float().abs().sum()) for t in ts)
+                                    for name, ts in watched.items()}
+        return on_grads
+
+    def log_steps(hist):
+        for r in hist:
+            log(f"  micro-step {r['step']}: {r['step_s']:.3f} s, {r['input_tokens']} tokens, {r['patches']} patches, "
+                f"loss {r['loss']:.6f} | {card}")
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sft_")
+    loop = TL.SFTLoopConfig(output_dir=os.path.join(out_dir, "run"), num_train_epochs=1, batch_size=1,
+                            save_steps=TRAIN_MICRO + 1, log_steps=1, seed=seed)
+    try:
+        log(f"  the uninterrupted run: {TRAIN_MICRO} micro-steps, no checkpoint")
+        params = new_params()
+        on_grads = check_first_grads(params)
+        for c in counters:
+            c.launches = 0
+        for c in (K1.segment_attention_cuda, K2.causal_attention_cuda):
+            c.variants = dict.fromkeys(c.variants, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        params, hist = TL.train_sft(params, cfg, sft_cfg, loop, samples, processor, device="cuda",
+                                    image_loader=loader, max_steps=TRAIN_MICRO, on_grads=on_grads)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {c.__name__: c.launches for c in counters}
+        variants = {c.__name__: dict(c.variants) for c in (K1.segment_attention_cuda, K2.causal_attention_cuda)}
+        log_steps(hist)
+        final = tree_leaves(params)
+        del params
+        torch.cuda.empty_cache()
+
+        log(f"  a run that stops at its checkpoint: {TRAIN_RESUME_AT} micro-steps, saved and exported")
+        export = ExportHFCallback(export_dir=os.path.join(out_dir, "hf"), cfg=cfg, revision="smoke")
+        t1 = time.time()
+        saving = dataclasses.replace(loop, save_steps=TRAIN_RESUME_AT)
+        saved, hist_saved = TL.train_sft(new_params(), cfg, sft_cfg, saving, samples, processor, device="cuda",
+                                         image_loader=loader, max_steps=TRAIN_RESUME_AT, callbacks=[export])
+        save_s = time.time() - t1
+        log_steps(hist_saved)
+        ckpt = os.path.join(loop.output_dir, f"checkpoint-{TRAIN_RESUME_AT}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+        loaded = load_hf_checkpoint(os.path.join(out_dir, "hf", f"smoke-step{TRAIN_RESUME_AT:06d}"), cfg,
+                                    device="cuda", dtype=torch.bfloat16)
+        exported_equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(loaded), tree_leaves(saved)))
+        del loaded, saved
+        shutil.rmtree(os.path.join(out_dir, "hf"))
+        torch.cuda.empty_cache()
+
+        log(f"  the resumed run: from checkpoint-{TRAIN_RESUME_AT} to step {TRAIN_MICRO}")
+        t2 = time.time()
+        resumed, hist2 = TL.train_sft(new_params(), cfg, sft_cfg, dataclasses.replace(loop, resume_from_checkpoint=True),
+                                      samples, processor, device="cuda", image_loader=loader,
+                                      max_steps=TRAIN_MICRO - TRAIN_RESUME_AT)
+        torch.cuda.synchronize()
+        resume_s = time.time() - t2
+        log_steps(hist2)
+        same, worst = 0, 0.0
+        for a, b in zip(tree_leaves(resumed), final):
+            same += int(torch.equal(a, b))
+            worst = max(worst, ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30)).item())
+        n_leaves = len(final)
+        del resumed, final
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    micro = TRAIN_MICRO
+    expect = {"segment_attention_cuda": cfg.vision.depth * micro, "segment_attention_bwd_cuda": cfg.vision.depth * micro,
+              "causal_attention_cuda": cfg.text.num_hidden_layers * micro,
+              "causal_attention_bwd_cuda": cfg.text.num_hidden_layers * micro}
+    losses = [r["loss"] for r in hist]
+    resumed_losses = [r["loss"] for r in hist2]
+    log(f"  {n_leaves} parameter leaves; first micro-step: {first['finite'][0]} of {first['finite'][1]} gradients "
+        f"finite; smallest summed |gradient| of any block's or layer's {first['nonzero']}")
+    secs = sum(r["step_s"] for r in hist)
+    log(f"  uninterrupted run: {micro} micro-steps ({micro // TRAIN_ACCUM} updates) in {wall:.2f} s of train_sft "
+        f"wall; {secs / micro:.3f} s per micro-step, {sum(r['input_tokens'] for r in hist) / secs:.0f} tokens/s, "
+        f"{sum(r['patches'] for r in hist) / secs:.0f} patches/s; peak memory allocated {peak / 2**30:.2f} GiB | {card}")
+    log(f"  checkpoint-{TRAIN_RESUME_AT}: {ckpt_bytes / 1e9:.2f} GB; the saving run ({TRAIN_RESUME_AT} micro-steps, the "
+        f"save, the HF export) {save_s:.2f} s; the resumed run (the restore, {len(hist2)} micro-steps) {resume_s:.2f} s "
+        f"| {card}")
+    log(f"  losses {losses}; resumed at steps {[r['step'] for r in hist2]}: {resumed_losses} "
+        f"({'bit for bit' if resumed_losses == losses[TRAIN_RESUME_AT:] else 'NOT bit for bit'}); parameters after "
+        f"the last update: {same} of {n_leaves} leaves bit for bit, worst leaf max |diff| / max |value| {worst:.3e}; "
+        f"HF export of the checkpoint loads back {'equal' if exported_equal else 'DIFFERENT'}")
+    log(f"  launches {launches} (expected {expect}); forward variants {variants}")
+    assert first["finite"][0] == first["finite"][1], "a parameter leaf has a non-finite gradient"
+    assert all(v > 0 for v in first["nonzero"].values()), f"an attention leaf got no gradient: {first['nonzero']}"
+    assert launches == expect, (launches, expect)
+    assert all(v == {"mma": launches[name], "fma": 0} for name, v in variants.items()), variants
+    assert all(np.isfinite(losses)) and len(losses) == micro
+    # the loss of the same sample through the same parameters: the forward has no atomics, and the only update before
+    # the checkpoint ran at the schedule's lr of 0; after the last update (its gradients summed with atomics in the
+    # backward of index and index_select) each leaf within a bf16 step of its largest value
+    assert resumed_losses == losses[TRAIN_RESUME_AT:], (resumed_losses, losses)
+    assert worst <= 2.0 ** -7, worst
+    assert exported_equal, "the HF export did not load back to the trained parameters"
+    return ({"flash_segment_attention": {"launches_training": launches["segment_attention_cuda"]},
+             "flash_causal_attention": {"launches_training": launches["causal_attention_cuda"]}},
+            {"flash_segment_attention_bwd": launches["segment_attention_bwd_cuda"],
+             "flash_causal_attention_bwd": launches["causal_attention_bwd_cuda"]})
 
 
 def check_tiny_parity():
@@ -1599,8 +2050,10 @@ def main(argv=()) -> int:
 
     log("[kernels] bf16, main-path shapes, kernel vs plain version, timed in turns")
     rows, untimed = check_kernels(card)
-    log("[parity] tiny config: fp32 card kernels vs CPU plain path, bf16 card kernels vs plain versions on the card")
+    log("[parity] tiny config: fp32 card kernels vs CPU plain path, bf16 card kernels vs plain versions on the card, "
+        "then one SFT micro-step's gradients")
     check_tiny_parity()
+    check_tiny_grad_parity()
     log("[slice] Qwen2.5-VL-3B bf16, run_inference + run_episodes(reuse_cache=True)")
     env = slice_setup()
     launches = run_slice(card, env)
@@ -1613,6 +2066,10 @@ def main(argv=()) -> int:
         untimed[name] = untimed.get(name, []) + held
     del env
     torch.cuda.empty_cache()
+    log(f"[training] Qwen2.5-VL-3B bf16, train_sft: {TRAIN_MICRO} micro-steps of one sample ({TRAIN_ACCUM} to an "
+        f"update), checkpoints, a resume from step {TRAIN_RESUME_AT}, the HF export")
+    training, bwd_launches = run_training(card)
+    launches.update(bwd_launches)
     log("[decode-variants] K4 / P1 / P2 checked at the reference's shapes and at their edges, then the entry "
         "points' runs")
     checks = check_decode_variants()
@@ -1626,7 +2083,8 @@ def main(argv=()) -> int:
         checks = untimed.get(name, [])
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], **pipelined.get(name, {}), **serving.get(name, {}),
+            **({"note": BWD_NOTE} if replaces is None else {}),
+            "launches": launches[name], **pipelined.get(name, {}), **serving.get(name, {}), **training.get(name, {}),
             "max_abs_err": max(c["max_abs_err"] for c in cases + checks),
             **{key: cases[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
                                               "library_device_ms", "share_of_bound")},

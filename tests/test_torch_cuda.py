@@ -868,3 +868,171 @@ def test_k2_k3_at_the_engines_row_counts_and_attend_spans(dev, rows, attend):
         ref = K3.flash_decode_attention_plain(q[:, :1], view[0], view[1], keep + S, view[2], view[3])
         assert _err(out, ref) <= TOL[torch.bfloat16]
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# Training: K1's and K2's backward kernels, the forward's lse, the logits head
+# ---------------------------------------------------------------------------
+
+def _grad_tol(ref, dtype):
+    """fp32: 1e-4 of the largest gradient (or 1e-4, below 1): the kernels sum in
+    another order. bf16: the same fp32 arithmetic on the same bf16 inputs, then one
+    rounding of each output to bf16, so one bf16 step (2^-7) of the largest value."""
+    scale = max(1.0, ref.abs().max().item())
+    return (1e-4 if dtype == torch.float32 else 2.0 ** -7) * scale
+
+
+def _assert_grads(got, ref, dtype):
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.shape == b.shape, name
+        assert bool(torch.isfinite(a.float()).all()), name
+        assert _err(a, b) <= _grad_tol(b, dtype), (name, _err(a, b), _grad_tol(b, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,D,runs", [
+    (64, 4, 8, (64,)),  # the tiny ViT's head dim
+    (300, 2, 16, (100, 37, 120)),  # a pad tail
+    (661, 4, 80, (64, 16, 48, 64, 32, 64, 64, 20, 64, 64, 40, 64)),  # windows of 16-64 rows + pad tail
+    (2600, 16, 80, (1296, 1000)),  # a boundary inside a tile, S no multiple of 32 or 128
+    (200, 4, 128, (50, 150)),
+])
+def test_k1_backward_matches_plain(dev, dtype, S, H, D, runs):
+    """K1's forward lse and its backward kernel against the plain versions, on the
+    fused-qkv views the ViT passes."""
+    seg = _segments(runs, S - sum(runs), dev)
+    qkv = _randn((S, 3, H, D), dev, dtype, 70)
+    q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    out, lse = K1.segment_attention_cuda(q, k, v, seg, return_lse=True)
+    _, lse_ref = K1.flash_segment_attention_plain(q, k, v, seg, return_lse=True)
+    dout = _randn((S, H, D), dev, dtype, 71)
+    n0 = K1.segment_attention_bwd_cuda.launches
+    got = K1.segment_attention_bwd_cuda(q, k, v, seg, out, dout, lse)
+    torch.cuda.synchronize()
+    assert K1.segment_attention_bwd_cuda.launches == n0 + 1
+    # lse: the plain version's from the same inputs; the kernels sum the same fp32 logits' weights in fp32
+    # (the tensor-core variant rounds p to bf16 only for p @ v), in another order
+    assert _err(lse, lse_ref) <= (1e-4 if dtype == torch.float32 else 1e-3)
+    _assert_grads(got, K1.flash_segment_attention_bwd_plain(q, k, v, seg, out, dout, lse), dtype)
+
+
+def _k2_train_case(dev, dtype, B, S, H, Hkv, D, kv_len):
+    q = _randn((B, S, H, D), dev, dtype, 72)
+    k = _randn((B, S, Hkv, D), dev, dtype, 73).transpose(1, 2)  # the decoder's no-cache views
+    v = _randn((B, S, Hkv, D), dev, dtype, 74).transpose(1, 2)
+    pos = torch.arange(S, device=dev)[None].expand(B, S)
+    return q, k, v, pos, torch.tensor(kv_len, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,Hkv,D,kv_len", [
+    (2, 40, 4, 2, 16, (40, 27)),  # the tiny config's heads; pad queries past kv_len
+    (3, 150, 16, 2, 128, (150, 0, 97)),  # the 3B config's heads, a row with no live key
+    (1, 300, 8, 8, 64, (300,)),  # G = 1
+    (1, 64, 32, 1, 32, (64,)),  # G = 32, the most BWD_TILE allows
+])
+def test_k2_backward_matches_plain(dev, dtype, B, S, H, Hkv, D, kv_len):
+    """K2's forward lse and its backward kernel against the plain versions on the
+    transposed no-cache views; dk and dv come back in k's and v's layout, and a row
+    with no live key gets zero gradients."""
+    q, k, v, pos, kvl = _k2_train_case(dev, dtype, B, S, H, Hkv, D, kv_len)
+    out, lse = K2.causal_attention_cuda(q, k, v, pos, kvl, return_lse=True)
+    _, lse_ref = K2.flash_causal_attention_plain(q, k, v, pos, kvl, return_lse=True)
+    dout = _randn((B, S, H, D), dev, dtype, 75)
+    n0 = K2.causal_attention_bwd_cuda.launches
+    got = K2.causal_attention_bwd_cuda(q, k, v, pos, kvl, out, dout, lse)
+    torch.cuda.synchronize()
+    assert K2.causal_attention_bwd_cuda.launches == n0 + 1
+    assert _err(lse, lse_ref) <= (1e-4 if dtype == torch.float32 else 1e-3)
+    assert got[1].stride() == k.stride() and got[2].stride() == v.stride()
+    _assert_grads(got, K2.flash_causal_attention_bwd_plain(q, k, v, pos, kvl, out, dout, lse), dtype)
+    for b, n in enumerate(kv_len):
+        if n == 0:
+            assert not any(bool(g[b].any()) for g in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_output_is_unchanged_by_lse(dev, dtype):
+    """The lse output leaves the inference paths' outputs bit for bit as they were."""
+    seg = _segments((40, 300, 64, 24), 21, dev)
+    D = 80 if dtype == torch.bfloat16 else 8
+    qkv = _randn((seg.shape[0], 3, 4, D), dev, dtype, 76)
+    a = K1.segment_attention_cuda(qkv[:, 0], qkv[:, 1], qkv[:, 2], seg)
+    b, _ = K1.segment_attention_cuda(qkv[:, 0], qkv[:, 1], qkv[:, 2], seg, return_lse=True)
+    q, k, v, pos, kvl = _k2_train_case(dev, dtype, 2, 100, 16, 2, 128, (100, 61))
+    c = K2.causal_attention_cuda(q, k, v, pos, kvl)
+    d, _ = K2.causal_attention_cuda(q, k, v, pos, kvl, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d)
+
+
+def test_autograd_on_card_goes_through_the_backward_kernels(dev, monkeypatch):
+    """flash_segment_attention / flash_causal_attention under autograd on CUDA tensors:
+    the forward kernel with lse, then the backward kernel, never a plain version."""
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("flash_segment_attention_plain", "flash_segment_attention_bwd_plain"):
+        monkeypatch.setattr(K1, name, refuse)
+    for name in ("flash_causal_attention_plain", "flash_causal_attention_bwd_plain"):
+        monkeypatch.setattr(K2, name, refuse)
+    seg = _segments((40, 60), 28, dev)
+    x = _randn((128, 3, 4, 80), dev, torch.bfloat16, 77).requires_grad_()
+    q, k, v, pos, kvl = _k2_train_case(dev, torch.bfloat16, 2, 64, 16, 2, 128, (64, 50))
+    q.requires_grad_()
+    n = (K1.segment_attention_cuda.launches, K1.segment_attention_bwd_cuda.launches,
+         K2.causal_attention_cuda.launches, K2.causal_attention_bwd_cuda.launches)
+    y = K1.flash_segment_attention(x[:, 0], x[:, 1], x[:, 2], seg).float().sum()
+    y = y + K2.flash_causal_attention(q, k, v, pos, kvl).float().sum()
+    y.backward()
+    torch.cuda.synchronize()
+    assert (K1.segment_attention_cuda.launches, K1.segment_attention_bwd_cuda.launches,
+            K2.causal_attention_cuda.launches, K2.causal_attention_bwd_cuda.launches) == tuple(c + 1 for c in n)
+    assert bool(x.grad.abs().sum() > 0) and bool(q.grad.abs().sum() > 0)
+
+
+def test_backward_refuses_int8_kv_and_cache_paths(dev):
+    """Under autograd, int8 K/V and the decoder's cache paths raise before any launch."""
+    from zoomearth_tpu_torch.models import decoder as DEC
+
+    B, S, H, Hkv, D = 1, 16, 16, 2, 128
+    q = _randn((B, S, H, D), dev, torch.bfloat16, 78).requires_grad_()
+    k8 = torch.randint(-127, 128, (B, Hkv, S, D), device=dev, dtype=torch.int8)
+    sc = torch.full((B, Hkv, S), 0.01, device=dev)
+    pos, kvl = torch.arange(S, device=dev)[None], torch.tensor([S], device=dev)
+    n = K2.causal_attention_cuda.launches
+    with pytest.raises(NotImplementedError, match="int8"):
+        K2.flash_causal_attention(q, k8, k8, pos, kvl, sc, sc)
+    from zoomearth_tpu_torch.config import VLMConfig as PortConfig
+    from zoomearth_tpu_torch.models.params import init_vlm_params
+
+    cfg = PortConfig.tiny().text
+    params = init_vlm_params(PortConfig.tiny(), torch.Generator(device=dev).manual_seed(0), device=dev)["text"]
+    params["layers"][0]["attn"]["wq"].requires_grad_()
+    cache = DEC.KVCache.create(cfg, 1, 32, dtype=torch.float32, device=dev)
+    x = _randn((1, 4, cfg.hidden_size), dev, torch.float32, 79)
+    pid = torch.arange(4, device=dev)[None, None].expand(3, 1, 4)
+    with pytest.raises(RuntimeError, match="no backward"):
+        DEC.decoder_forward(params, cfg, x, pid, cache=cache)
+    assert K2.causal_attention_cuda.launches == n and not bool(cache.length.any())
+
+
+def test_logits_head_gradient_on_card(dev):
+    """The bf16 head's fp32-output product under autograd: dh and dw against an fp32
+    reference (the gradient is rounded to bf16 for the two products, fp32 accumulation)."""
+    from zoomearth_tpu_torch.config import VLMConfig as PortConfig
+    from zoomearth_tpu_torch.models.decoder import logits_from_hidden
+
+    cfg = PortConfig.tiny(vocab_size=4096).text
+    w = _randn((cfg.vocab_size, cfg.hidden_size), dev, torch.bfloat16, 80).requires_grad_()
+    h = _randn((2, 33, cfg.hidden_size), dev, torch.bfloat16, 81).requires_grad_()
+    g = _randn((2, 33, cfg.vocab_size), dev, torch.float32, 82)
+    logits = logits_from_hidden({"embed": {"weight": w}}, cfg, h)
+    assert logits.dtype == torch.float32
+    dh, dw = torch.autograd.grad(logits, (h, w), g)
+    wf, hf = w.detach().float().requires_grad_(), h.detach().float().requires_grad_()
+    rh, rw = torch.autograd.grad(hf @ wf.t(), (hf, wf), g)
+    assert dh.dtype == torch.bfloat16 and dw.dtype == torch.bfloat16
+    for got, ref in ((dh, rh), (dw, rw)):
+        # g rounded to bf16 (2^-9 relative) and the result rounded to bf16 (2^-9): two bf16 half-steps
+        assert _err(got, ref) <= 2.0 ** -7 * ref.abs().max().item()

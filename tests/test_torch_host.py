@@ -591,7 +591,9 @@ def test_port_imports_no_jax():
         "import zoomearth_tpu_torch as P\n"
         "mods = [m.name for m in pkgutil.walk_packages(P.__path__, 'zoomearth_tpu_torch.')]\n"
         "assert len(mods) >= 30, mods\n"
-        "new = {'serve.engine', 'serve.episodes', 'serve.server', 'eval.client', 'ops.quant', 'cli.serve'}\n"
+        "new = {'serve.engine', 'serve.episodes', 'serve.server', 'eval.client', 'ops.quant', 'cli.serve',\n"
+        "       'train.sft', 'train.sft_loop', 'train.checkpoints', 'train.callbacks', 'utils.metrics_sinks',\n"
+        "       'cli.train_sft'}\n"
         "assert {'zoomearth_tpu_torch.' + m for m in new} <= set(mods), mods\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'zoomearth_tpu'))\n"

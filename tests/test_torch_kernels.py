@@ -651,3 +651,173 @@ def test_sampling_greedy_and_seeded():
     assert torch.equal(a, b)
     keep = ~torch.isinf(top_p_filter(logits / 0.7, 0.8))
     assert bool(keep[torch.arange(3), a].all())  # draws stay inside the nucleus
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 backward: the plain versions against jax.vjp of the JAX package's plain
+# attention (its Pallas kernels have no VJP), against torch autograd of the plain
+# forward, and the autograd.Functions' CPU wiring
+# ---------------------------------------------------------------------------
+
+def _seg_bwd_case(name):
+    """(S, H, D, seg) for the segment backward."""
+    if name == "windows":  # the tiny ViT's windowed blocks: segments of 4-16 rows + a pad tail
+        meta = jax_vision_metadata([(1, 8, 8), (1, 4, 8)], CFG.vision, pad_to=112)
+        return 112, 4, 8, meta.seg_window.astype(np.int32)
+    if name == "full_multi_image":
+        meta = jax_vision_metadata([(1, 8, 8), (1, 4, 8)], CFG.vision, pad_to=112)
+        return 112, 4, 8, meta.seg_full.astype(np.int32)
+    if name == "boundaries_inside_blocks":  # segments across 32- and 64-row blocks, D = 80
+        seg = np.concatenate([np.repeat(np.arange(4), [30, 45, 3, 70]), np.full(12, 2**30)])
+        return 160, 2, 80, seg.astype(np.int32)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("case", ["windows", "full_multi_image", "boundaries_inside_blocks"])
+def test_k1_plain_backward_matches_jax_vjp_and_autograd(case):
+    S, H, D, seg = _seg_bwd_case(case)
+    q, k, v, dout = (_rand((S, H, D), s) for s in (80, 81, 82, 83))
+    jseg = jnp.asarray(seg)
+    ref_out, vjp = jax.vjp(lambda a, b, c: JA.segment_attention(a, b, c, jseg), q, k, v)
+    ref = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+    tq, tk, tv, tseg = _t(q), _t(k), _t(v), _t(seg)
+    out, lse = K1.flash_segment_attention_plain(tq, tk, tv, tseg, return_lse=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=ATOL)
+    got = K1.flash_segment_attention_bwd_plain(tq, tk, tv, tseg, out, _t(dout), lse)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), r, atol=ATOL)
+    # torch autograd of the plain forward gives the same
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    auto = torch.autograd.grad(K1.flash_segment_attention_plain(*leaves, tseg), leaves, _t(dout))
+    for g, r in zip(got, auto):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=ATOL)
+    # lse is each row's log-sum-exp of its scaled logits over its own segment
+    logits = torch.einsum("shd,thd->hst", tq, tk) * D**-0.5
+    same = tseg[:, None] == tseg[None, :]
+    ref_lse = torch.logsumexp(logits.masked_fill(~same[None], float("-inf")), -1).t()
+    np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), atol=ATOL)
+
+
+def _causal_bwd_inputs(B, S, H, Hkv, D, seed):
+    """q (B, S, H, D) and the (B, S, Hkv, D) projections the decoder transposes."""
+    return _rand((B, S, H, D), seed), _rand((B, S, Hkv, D), seed + 1), _rand((B, S, Hkv, D), seed + 2)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,kv_len", [
+    (2, 40, 4, 2, 16, (40, 27)),  # the tiny decoder's heads; pad queries past kv_len see the live prefix
+    (3, 33, 8, 1, 16, (33, 0, 5)),  # G = 8 as at 3B; a row with no live key
+    (1, 24, 4, 4, 32, (24,)),  # G = 1
+])
+def test_k2_plain_backward_matches_jax_vjp_and_autograd(B, S, H, Hkv, D, kv_len):
+    """The no-cache training path: k and v as transposed views, slot t is token t.
+    Rows with no live key: JAX's plain softmax spreads them uniformly, so their dO
+    is zeroed for the comparison, and the port's rule (zero gradients) is pinned
+    apart."""
+    q, kb, vb = _causal_bwd_inputs(B, S, H, Hkv, D, 84)
+    dout = _rand((B, S, H, D), 87)
+    kv_len = np.asarray(kv_len, np.int32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32)[None], (B, S))
+    dead = np.minimum(pos + 1, kv_len[:, None]) <= 0
+    dout_live = np.where(dead[:, :, None, None], 0, dout).astype(np.float32)
+    valid = np.arange(S)[None] < kv_len[:, None]
+
+    def jax_fwd(a, kk, vv):
+        return JA.causal_attention(a, kk.transpose(0, 2, 1, 3), vv.transpose(0, 2, 1, 3),
+                                   positions=jnp.asarray(pos), valid=jnp.asarray(valid))
+
+    _, vjp = jax.vjp(jax_fwd, q, kb, vb)
+    ref = [np.asarray(g) for g in vjp(jnp.asarray(dout_live))]
+    tq, tk, tv = _t(q), _t(kb).transpose(1, 2), _t(vb).transpose(1, 2)
+    tpos, tkvl = _t(np.ascontiguousarray(pos)), _t(kv_len)
+    out, lse = K2.flash_causal_attention_plain(tq, tk, tv, tpos, tkvl, return_lse=True)
+    got = K2.flash_causal_attention_bwd_plain(tq, tk, tv, tpos, tkvl, out, _t(dout_live), lse)
+    np.testing.assert_allclose(got[0].numpy(), ref[0], atol=ATOL)
+    for g, r in zip(got[1:], ref[1:]):  # (B, Hkv, T, D) against the projections' (B, S, Hkv, D)
+        np.testing.assert_allclose(g.transpose(1, 2).numpy(), r, atol=ATOL)
+    # the same against torch autograd of the plain forward, through the transposed views
+    leaves = [x.clone().requires_grad_() for x in (_t(q), _t(kb), _t(vb))]
+    auto = torch.autograd.grad(K2.flash_causal_attention_plain(leaves[0], leaves[1].transpose(1, 2),
+                                                               leaves[2].transpose(1, 2), tpos, tkvl),
+                               leaves, _t(dout_live))
+    np.testing.assert_allclose(got[0].numpy(), auto[0].numpy(), atol=ATOL)
+    for g, r in zip(got[1:], auto[1:]):
+        np.testing.assert_allclose(g.transpose(1, 2).numpy(), r.numpy(), atol=ATOL)
+    # a row with no live key: NEG_INF lse, zero dq, and its dO reaches no dk or dv
+    assert bool((lse[torch.from_numpy(dead)] == TA.NEG_INF).all())
+    full = K2.flash_causal_attention_bwd_plain(tq, tk, tv, tpos, tkvl, out, _t(dout), lse)
+    assert not bool(full[0][torch.from_numpy(dead)].any())
+    for a, b in zip(full, got):
+        assert torch.equal(a[torch.from_numpy(~dead)] if a.shape == tq.shape else a, b[torch.from_numpy(~dead)]
+                           if b.shape == tq.shape else b)
+
+
+def test_autograd_functions_on_the_cpu():
+    """Under autograd flash_segment_attention / flash_causal_attention go through
+    their autograd.Functions: the forward saves (inputs, out, lse), the backward
+    returns gradients shaped as the inputs (the transposed views included) equal to
+    autograd of the plain forward; without a gradient nothing changes; on the CPU no
+    kernel is counted."""
+    counts = (K1.segment_attention_cuda.launches, K1.segment_attention_bwd_cuda.launches,
+              K2.causal_attention_cuda.launches, K2.causal_attention_bwd_cuda.launches)
+    S, H, D, seg = _seg_bwd_case("full_multi_image")
+    qkv = _t(_rand((S, 3, H, D), 90)).requires_grad_()
+    q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]  # strided views, as the ViT passes them
+    out = K1.flash_segment_attention(q, k, v, _t(seg))
+    assert type(out.grad_fn).__name__ == "SegmentAttentionBackward"
+    assert len(out.grad_fn.saved_tensors) == 6
+    dout = _t(_rand((S, H, D), 91))
+    g = torch.autograd.grad(out, qkv, dout)[0]
+    ref = torch.autograd.grad(K1.flash_segment_attention_plain(q, k, v, _t(seg)), qkv, dout)[0]
+    assert g.shape == qkv.shape
+    np.testing.assert_allclose(g.numpy(), ref.numpy(), atol=ATOL)
+    with torch.no_grad():
+        plain = K1.flash_segment_attention(q, k, v, _t(seg))
+    assert plain.grad_fn is None and torch.equal(plain, out.detach())
+
+    qd, kb, vb = (_t(x).requires_grad_() for x in _causal_bwd_inputs(2, 20, 4, 2, 16, 92))
+    pos, kvl = torch.arange(20)[None].expand(2, 20), torch.tensor([20, 13])
+    out = K2.flash_causal_attention(qd, kb.transpose(1, 2), vb.transpose(1, 2), pos, kvl)
+    assert type(out.grad_fn).__name__ == "CausalAttentionBackward"
+    dout = _t(_rand((2, 20, 4, 16), 93))
+    got = torch.autograd.grad(out, (qd, kb, vb), dout)
+    ref = torch.autograd.grad(K2.flash_causal_attention_plain(qd, kb.transpose(1, 2), vb.transpose(1, 2), pos, kvl),
+                              (qd, kb, vb), dout)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL)
+    # int8 K/V has no backward: refused before anything runs
+    k8 = torch.zeros((2, 2, 20, 16), dtype=torch.int8)
+    with pytest.raises(NotImplementedError, match="int8"):
+        K2.flash_causal_attention(qd, k8, k8, pos, kvl, torch.ones(2, 2, 20), torch.ones(2, 2, 20))
+    assert counts == (K1.segment_attention_cuda.launches, K1.segment_attention_bwd_cuda.launches,
+                      K2.causal_attention_cuda.launches, K2.causal_attention_bwd_cuda.launches)
+
+
+def test_backward_work_counts_five_products_per_live_pair():
+    seg = torch.tensor([0] * 5 + [1] * 3 + [4] * 7 + [K1.PAD_SEG] * 2, dtype=torch.int32)
+    H, D = 3, 16
+    pairs = 25 + 9 + 49 + 4
+    assert K1.work_bwd(seg, H, D, 2) == (10 * D * H * pairs, 8 * 17 * H * D * 2 + 4 * 17 * H)
+    B, S, Hkv = 2, 6, 1
+    pos = torch.arange(S)[None].expand(B, S)
+    kv_len = torch.tensor([6, 3])
+    live = 21 + (1 + 2 + 3 * 4)  # row 0: 1..6 keys; row 1: 1, 2, then 3 for the four past kv_len
+    rows = 6 + 3
+    assert K2.work_bwd(pos, kv_len, H, Hkv, D, S, 2) == (10 * D * H * live,
+                                                         4 * B * S * H * D * 2 + 4 * B * S * H + 4 * rows * Hkv * D * 2)
+
+
+@pytest.mark.parametrize("T,Hkv,B", [(2048, 2, 1), (150, 2, 5), (64, 8, 1), (4096, 2, 8)])
+def test_k2_backward_splits_cover_every_query_tile_once(T, Hkv, B):
+    """The dk/dv kernel's split plan: at most one split per query tile, enough splits
+    to reach the target block count where there are tiles for it, and the splits'
+    tile ranges cover [0, n_qtiles) exactly once."""
+    G, rows = 8, 32
+    key_blocks, n_qtiles = -(-T // rows), -(-T // (K2.BWD_TILE // G))
+    target = K2.BWD_BLOCKS_PER_SM * 132  # the H100 SXM's streaming multiprocessors
+    n = K2.dkdv_splits(key_blocks, Hkv, B, n_qtiles, target)
+    assert 1 <= n <= n_qtiles
+    assert key_blocks * Hkv * B * n >= min(target, key_blocks * Hkv * B * n_qtiles)
+    per = -(-n_qtiles // n)
+    covered = [t for s in range(n) for t in range(s * per, min(n_qtiles, (s + 1) * per))]
+    assert covered == list(range(n_qtiles))

@@ -56,8 +56,8 @@ __global__ void __launch_bounds__(CAU_ROWS* CAU_TPR)
     flash_causal_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
                         const KT* __restrict__ v, const float* __restrict__ ksc,
                         const float* __restrict__ vsc, const int* __restrict__ positions,
-                        const int* __restrict__ kv_len, QT* __restrict__ out, int S, int T,
-                        int G, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                        const int* __restrict__ kv_len, QT* __restrict__ out, float* __restrict__ lse,
+                        int S, int T, int G, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
                         long long k_sh, long long k_st, long long v_sb, long long v_sh,
                         long long v_st, long long sc_sb, long long sc_sh, float scale) {
   constexpr int DPT = D / CAU_TPR;
@@ -145,13 +145,15 @@ __global__ void __launch_bounds__(CAU_ROWS* CAU_TPR)
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < DPT; ++i) op[i * CAU_TPR + j] = from_f<QT>(acc[i] * inv);
+    // q was scaled, so m and the p's are of the scaled logits already; no live key: NEG_INF
+    if (lse != nullptr && j == 0) lse[((long long)b * S + s) * H + h] = l > 0.f ? m + logf(l) : NEG_INF;
   }
 }
 
 template <int D, typename QT, typename KT>
 static int launch_causal(const void* q, const void* k, const void* v, const float* ksc,
                          const float* vsc, const int* positions, const int* kv_len, void* out,
-                         int B, int S, int Hkv, int T, int G, long long q_sb, long long q_ss,
+                         float* lse, int B, int S, int Hkv, int T, int G, long long q_sb, long long q_ss,
                          long long q_sh, long long k_sb, long long k_sh, long long k_st,
                          long long v_sb, long long v_sh, long long v_st, long long sc_sb,
                          long long sc_sh, float scale, cudaStream_t stream) {
@@ -159,7 +161,7 @@ static int launch_causal(const void* q, const void* k, const void* v, const floa
   const dim3 grid((S + bq - 1) / bq, Hkv, B);
   flash_causal_kernel<D, QT, KT><<<grid, CAU_ROWS * CAU_TPR, 0, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v), ksc, vsc,
-      positions, kv_len, static_cast<QT*>(out), S, T, G, q_sb, q_ss, q_sh, k_sb, k_sh, k_st, v_sb,
+      positions, kv_len, static_cast<QT*>(out), lse, S, T, G, q_sb, q_ss, q_sh, k_sb, k_sh, k_st, v_sb,
       v_sh, v_st, sc_sb, sc_sh, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -183,6 +185,7 @@ struct CausalPolicy {
   const float* ksb;  // ks + b * sc_sb + kh * sc_sh (int8 K/V)
   const float* vsb;
   __nv_bfloat16* ob;  // out + (b * S * H + kh * G) * D
+  float* lseb;        // lse + b * S * H + kh * G, or nullptr
   int pos_row[2];
 
   __device__ __forceinline__ const __nv_bfloat16* q_row_any() const { return qb; }
@@ -193,6 +196,10 @@ struct CausalPolicy {
   __device__ __forceinline__ __nv_bfloat16* out_row(int r) const {
     const int s = s0 + r % bq;
     return s < S ? ob + ((long long)s * H + r / bq) * D : nullptr;
+  }
+  __device__ __forceinline__ float* lse_row(int r) const {
+    const int s = s0 + r % bq;
+    return lseb != nullptr && s < S ? lseb + (long long)s * H + r / bq : nullptr;
   }
   __device__ __forceinline__ const KT* k_row(int t) const { return kb + (long long)t * k_st; }
   __device__ __forceinline__ const KT* v_row(int t) const { return vb + (long long)t * v_st; }
@@ -220,8 +227,8 @@ __global__ void __launch_bounds__(FM_THREADS, D <= 64 ? 2 : 1)
     flash_causal_mma_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k,
                             const KT* __restrict__ v, const float* __restrict__ ksc,
                             const float* __restrict__ vsc, const int* __restrict__ positions,
-                            const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ out, int S,
-                            int T, int G, long long q_sb, long long q_ss, long long q_sh,
+                            const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ lse, int S, int T, int G, long long q_sb, long long q_ss, long long q_sh,
                             long long k_sb, long long k_sh, long long k_st, long long v_sb,
                             long long v_sh, long long v_st, long long sc_sb, long long sc_sh,
                             float scale) {
@@ -262,13 +269,14 @@ __global__ void __launch_bounds__(FM_THREADS, D <= 64 ? 2 : 1)
   pol.ksb = ksc != nullptr ? ksc + (long long)b * sc_sb + (long long)kh * sc_sh : nullptr;
   pol.vsb = vsc != nullptr ? vsc + (long long)b * sc_sb + (long long)kh * sc_sh : nullptr;
   pol.ob = out + ((long long)b * S * pol.H + (long long)kh * G) * D;
+  pol.lseb = lse != nullptr ? lse + (long long)b * S * pol.H + (long long)kh * G : nullptr;
   flash_mma_block<D, KT>(pol, fm_smem, scale * LOG2E);
 }
 
 template <int D, typename KT>
 static int launch_causal_mma(const void* q, const void* k, const void* v, const float* ksc,
                              const float* vsc, const int* positions, const int* kv_len, void* out,
-                             int B, int S, int Hkv, int T, int G, long long q_sb, long long q_ss,
+                             float* lse, int B, int S, int Hkv, int T, int G, long long q_sb, long long q_ss,
                              long long q_sh, long long k_sb, long long k_sh, long long k_st,
                              long long v_sb, long long v_sh, long long v_st, long long sc_sb,
                              long long sc_sh, float scale, cudaStream_t stream) {
@@ -279,7 +287,7 @@ static int launch_causal_mma(const void* q, const void* k, const void* v, const 
   const dim3 grid((S + bq - 1) / bq, Hkv, B);
   flash_causal_mma_kernel<D, KT><<<grid, FM_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v),
-      ksc, vsc, positions, kv_len, static_cast<__nv_bfloat16*>(out), S, T, G, q_sb, q_ss, q_sh, k_sb,
+      ksc, vsc, positions, kv_len, static_cast<__nv_bfloat16*>(out), lse, S, T, G, q_sb, q_ss, q_sh, k_sb,
       k_sh, k_st, v_sb, v_sh, v_st, sc_sb, sc_sh, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -300,13 +308,16 @@ extern "C" int zt_flash_causal_variant(int q_dtype, int kv_dtype, int D) {
 // q (B, S, H, D) and k/v (B, Hkv, T, D) with unit stride on D; positions (B, S) and
 // kv_len (B,) contiguous int32; ksc/vsc (B, Hkv, T) fp32 with unit stride on T (int8
 // K/V only, else null); out a contiguous (B, S, H, D) tensor. G = H / Hkv divides 64.
+// lse, when not null, is a (B, S, H) fp32 tensor that gets each row's log-sum-exp of
+// the scaled logits (the backward's input; NEG_INF for a row with no live key), last
+// for the reason zt_flash_segment gives.
 extern "C" int zt_flash_causal(const void* q, const void* k, const void* v, const float* ksc,
                                const float* vsc, const int* positions, const int* kv_len,
                                void* out, int B, int S, int H, int Hkv, int T, int D,
                                long long q_sb, long long q_ss, long long q_sh, long long k_sb,
                                long long k_sh, long long k_st, long long v_sb, long long v_sh,
                                long long v_st, long long sc_sb, long long sc_sh, float scale,
-                               int q_dtype, int kv_dtype, void* stream) {
+                               int q_dtype, int kv_dtype, void* stream, float* lse) {
   using namespace zt;
   cudaGetLastError();
   if (Hkv <= 0 || H % Hkv != 0) return ZT_UNSUPPORTED;
@@ -315,7 +326,7 @@ extern "C" int zt_flash_causal(const void* q, const void* k, const void* v, cons
   if (rows < 0 || G > rows || rows % G != 0) return ZT_UNSUPPORTED;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define ZT_CAU_MMA(DD, KK)                                                                        \
-  return launch_causal_mma<DD, KK>(q, k, v, ksc, vsc, positions, kv_len, out, B, S, Hkv, T, G,   \
+  return launch_causal_mma<DD, KK>(q, k, v, ksc, vsc, positions, kv_len, out, lse, B, S, Hkv, T, G, \
                                    q_sb, q_ss, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, sc_sb,  \
                                    sc_sh, scale, st)
 #define ZT_CAU_MMA_D(KK)              \
@@ -331,7 +342,7 @@ extern "C" int zt_flash_causal(const void* q, const void* k, const void* v, cons
 #undef ZT_CAU_MMA_D
 #undef ZT_CAU_MMA
 #define ZT_CAU(DD, QQ, KK)                                                                     \
-  return launch_causal<DD, QQ, KK>(q, k, v, ksc, vsc, positions, kv_len, out, B, S, Hkv, T, G, \
+  return launch_causal<DD, QQ, KK>(q, k, v, ksc, vsc, positions, kv_len, out, lse, B, S, Hkv, T, G, \
                                    q_sb, q_ss, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, sc_sb, \
                                    sc_sh, scale, st)
 #define ZT_CAU_D(QQ, KK)             \

@@ -42,7 +42,9 @@
 // load_aux(aux, t0, tid) (cp.async of per-key 4-byte values for keys t0.. into
 // aux[2 * FM_BKV]; for int8 K/V aux holds ks then vs); set_rows(r_lo, r_hi) (the two
 // rows this thread masks); needs_mask(aux, t0); live(half, aux, col, t);
-// kCopiesThroughL1 (whether the tile copies are cached in L1: .ca against .cg).
+// lse_row(r) (where row r's log-sum-exp goes, fp32, or nullptr: the inference paths
+// ask for none); kCopiesThroughL1 (whether the tile copies are cached in L1: .ca
+// against .cg).
 #pragma once
 
 #include "common.cuh"
@@ -65,6 +67,7 @@ constexpr int FM_ROWS = FM_WARPS * 16;  // query rows per block
 constexpr int FM_BKV = ZT_FM_BKV;       // keys per tile, a multiple of 16
 constexpr int FM_STAGES = ZT_FM_STAGES;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // 2^x in one instruction (relative error 2^-22, far below the bf16 rounding of p);
 // very negative x gives 0, which is what a masked logit needs
@@ -486,6 +489,10 @@ __device__ __forceinline__ void flash_mma_block(Policy& pol, unsigned char* smem
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const float inv = 1.f / fmaxf(sum, 1e-30f);
+    // the row's log-sum-exp of the scaled logits, natural log (the backward's input):
+    // log2 of sum 2^(c scale) is m scale + log2(sum); no live key: NEG_INF
+    float* lp = pol.lse_row(h == 0 ? r_lo : r_hi);
+    if (lp != nullptr && t4 == 0) *lp = sum > 0.f ? (m[h] * scale + log2f(sum)) * LN2 : NEG_INF;
     __nv_bfloat16* op = pol.out_row(h == 0 ? r_lo : r_hi);
     if (op != nullptr) {
 #pragma unroll

@@ -54,8 +54,8 @@ template <int D, typename T>
 __global__ void __launch_bounds__(SEG_ROWS* SEG_TPR)
     flash_segment_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                          const int* __restrict__ seg, const int* __restrict__ kv_first,
-                         const int* __restrict__ kv_last, T* __restrict__ out, int S,
-                         long long q_ss, long long q_sh, long long k_ss, long long k_sh,
+                         const int* __restrict__ kv_last, T* __restrict__ out, float* __restrict__ lse,
+                         int S, long long q_ss, long long q_sh, long long k_ss, long long k_sh,
                          long long v_ss, long long v_sh, float scale) {
   constexpr int DPT = D / SEG_TPR;
   __shared__ float k_t[SEG_BKV * D];
@@ -122,18 +122,20 @@ __global__ void __launch_bounds__(SEG_ROWS* SEG_TPR)
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < DPT; ++i) op[i * SEG_TPR + j] = from_f<T>(acc[i] * inv);
+    // q was scaled, so m and the p's are of the scaled logits already; no live key: NEG_INF
+    if (lse != nullptr && j == 0) lse[(long long)s * gridDim.y + h] = l > 0.f ? m + logf(l) : NEG_INF;
   }
 }
 
 template <int D, typename T>
 static int launch_segment(const void* q, const void* k, const void* v, const int* seg,
-                          const int* kv_first, const int* kv_last, void* out, int S, int H,
+                          const int* kv_first, const int* kv_last, void* out, float* lse, int S, int H,
                           long long q_ss, long long q_sh, long long k_ss, long long k_sh,
                           long long v_ss, long long v_sh, float scale, cudaStream_t stream) {
   const dim3 grid((S + SEG_ROWS - 1) / SEG_ROWS, H);
   flash_segment_kernel<D, T><<<grid, SEG_ROWS * SEG_TPR, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), seg, kv_first,
-      kv_last, static_cast<T*>(out), S, q_ss, q_sh, k_ss, k_sh, v_ss, v_sh, scale);
+      kv_last, static_cast<T*>(out), lse, S, q_ss, q_sh, k_ss, k_sh, v_ss, v_sh, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -151,6 +153,7 @@ struct SegmentPolicy {
   const __nv_bfloat16* vb;
   long long q_ss, k_ss, v_ss;
   __nv_bfloat16* ob;  // out + h * D
+  float* lseb;        // lse + h, or nullptr
   int seg_row[2];
 
   __device__ __forceinline__ const __nv_bfloat16* q_row_any() const { return qb; }
@@ -159,6 +162,9 @@ struct SegmentPolicy {
   }
   __device__ __forceinline__ __nv_bfloat16* out_row(int r) const {
     return s0 + r < S ? ob + (long long)(s0 + r) * H * D : nullptr;
+  }
+  __device__ __forceinline__ float* lse_row(int r) const {
+    return lseb != nullptr && s0 + r < S ? lseb + (long long)(s0 + r) * H : nullptr;
   }
   __device__ __forceinline__ const __nv_bfloat16* k_row(int t) const { return kb + (long long)t * k_ss; }
   __device__ __forceinline__ const __nv_bfloat16* v_row(int t) const { return vb + (long long)t * v_ss; }
@@ -190,8 +196,8 @@ __global__ void __launch_bounds__(FM_THREADS, D <= 80 ? 2 : 1)
     flash_segment_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
                              const int* __restrict__ kv_first, const int* __restrict__ kv_last,
-                             __nv_bfloat16* __restrict__ out, int S, long long q_ss, long long q_sh,
-                             long long k_ss, long long k_sh, long long v_ss, long long v_sh,
+                             __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S, long long q_ss,
+                             long long q_sh, long long k_ss, long long k_sh, long long v_ss, long long v_sh,
                              float scale) {
   extern __shared__ __align__(16) unsigned char fm_smem[];
   const int qb = blockIdx.x;
@@ -213,12 +219,13 @@ __global__ void __launch_bounds__(FM_THREADS, D <= 80 ? 2 : 1)
   pol.k_ss = k_ss;
   pol.v_ss = v_ss;
   pol.ob = out + (long long)h * D;
+  pol.lseb = lse != nullptr ? lse + h : nullptr;
   flash_mma_block<D, __nv_bfloat16>(pol, fm_smem, scale * LOG2E);
 }
 
 template <int D>
 static int launch_segment_mma(const void* q, const void* k, const void* v, const int* seg,
-                              const int* kv_first, const int* kv_last, void* out, int S, int H,
+                              const int* kv_first, const int* kv_last, void* out, float* lse, int S, int H,
                               long long q_ss, long long q_sh, long long k_ss, long long k_sh,
                               long long v_ss, long long v_sh, float scale, cudaStream_t stream) {
   constexpr int smem = fm_smem_bytes<D, false>();
@@ -227,7 +234,7 @@ static int launch_segment_mma(const void* q, const void* k, const void* v, const
   const dim3 grid((S + FM_ROWS - 1) / FM_ROWS, H);
   flash_segment_mma_kernel<D><<<grid, FM_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), seg, kv_first, kv_last, static_cast<__nv_bfloat16*>(out), S,
+      static_cast<const __nv_bfloat16*>(v), seg, kv_first, kv_last, static_cast<__nv_bfloat16*>(out), lse, S,
       q_ss, q_sh, k_ss, k_sh, v_ss, v_sh, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -248,18 +255,22 @@ extern "C" int zt_flash_segment_variant(int dtype, int D) {
 // out must be a contiguous (S, H, D) tensor; q/k/v are (S, H, D) with unit stride on D;
 // kv_first / kv_last hold one key range per block of zt_flash_segment_variant rows.
 // The tensor-core variant copies 16-byte vectors: q/k/v bases and strides must be
-// whole 16-byte multiples (the wrapper checks).
+// whole 16-byte multiples (the wrapper checks). lse, when not null, is an (S, H) fp32
+// tensor that gets each row's log-sum-exp of the scaled logits (the backward's input;
+// NEG_INF for a row with no live key). It comes last, so that a caller of a build from
+// before it (scripts/flash_variants.py on an older tree) passes an argument the older
+// entry point never reads.
 extern "C" int zt_flash_segment(const void* q, const void* k, const void* v, const int* seg,
                                 const int* kv_first, const int* kv_last, void* out, int S, int H,
                                 int D, long long q_ss, long long q_sh, long long k_ss,
                                 long long k_sh, long long v_ss, long long v_sh, float scale,
-                                int dtype, void* stream) {
+                                int dtype, void* stream, float* lse) {
   using namespace zt;
   cudaGetLastError();  // clear any stale error so the return value is this launch's
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (zt_flash_segment_variant(dtype, D) == FM_ROWS) {
 #define ZT_SEG_MMA(DD)                                                                           \
-  return launch_segment_mma<DD>(q, k, v, seg, kv_first, kv_last, out, S, H, q_ss, q_sh, k_ss, k_sh, \
+  return launch_segment_mma<DD>(q, k, v, seg, kv_first, kv_last, out, lse, S, H, q_ss, q_sh, k_ss, k_sh, \
                                 v_ss, v_sh, scale, st)
     switch (D) {
       case 16: ZT_SEG_MMA(16);
@@ -272,7 +283,7 @@ extern "C" int zt_flash_segment(const void* q, const void* k, const void* v, con
 #undef ZT_SEG_MMA
   }
 #define ZT_SEG(DD, TT)                                                                         \
-  return launch_segment<DD, TT>(q, k, v, seg, kv_first, kv_last, out, S, H, q_ss, q_sh, k_ss, \
+  return launch_segment<DD, TT>(q, k, v, seg, kv_first, kv_last, out, lse, S, H, q_ss, q_sh, k_ss, \
                                 k_sh, v_ss, v_sh, scale, st)
 #define ZT_SEG_D(TT)      \
   switch (D) {            \

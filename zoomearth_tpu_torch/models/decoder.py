@@ -6,7 +6,9 @@ into an existing cache and single-token decode. Attention always goes through th
 kernel dispatchers: K2 (`flash_causal_attention`) for S > 1, K3
 (`flash_decode_attention`) for S == 1. On CPU tensors they run their plain torch
 versions; on CUDA tensors the hand-written kernels. There is no size threshold and
-no environment switch. `decoder_forward_pair` is the co-batched decode step over two
+no environment switch. Training runs the no-cache path, where K2 has a backward;
+a cache path asked for a gradient raises before any launch (the caches are
+written in place and K3 has no backward). `decoder_forward_pair` is the co-batched decode step over two
 caches; an int8 cache (`KVCache.create(dtype=torch.int8)`) sends both kernels through
 their int8 entries.
 
@@ -207,6 +209,14 @@ def _cache_write(cache_kv, k, v, cache_len, write_pos=None, index=None) -> None:
             _slice_write(cache, cache_len, values)
 
 
+def _require_no_grad(q) -> None:
+    """The cache paths are inference-only: refuse a gradient on the host, before any
+    kernel is launched or any cache written."""
+    if torch.is_grad_enabled() and q.requires_grad:
+        raise RuntimeError("decoder: a forward with a KV cache has no backward; train through the no-cache path "
+                           "(cache=None), or run under torch.no_grad() / torch.inference_mode()")
+
+
 def _decode_write_attend(q, k, v, cache_kv, cache_len, attend_len: Optional[int], write_pos=None):
     """Single-token (S == 1) cache write + attention for ONE row group: quantize when
     the cache is int8, drop-write the new token at cache_len (or at write_pos), attend
@@ -214,6 +224,7 @@ def _decode_write_attend(q, k, v, cache_kv, cache_len, attend_len: Optional[int]
     decoder_forward's decode step and by decoder_forward_pair, where the dense
     matmuls run on a concatenated batch but each group keeps its own cache and
     attend span."""
+    _require_no_grad(q)
     _cache_write(cache_kv, k, v, cache_len, cache_len[:, None] if write_pos is None else write_pos)
     if attend_len is not None and attend_len < cache_kv[0].shape[2]:
         cache_kv = tuple(c[:, :, :attend_len] if c is not None else None for c in cache_kv)
@@ -246,6 +257,7 @@ def _attn_layer(
     elif S == 1:
         out = _decode_write_attend(q, k, v, cache_kv, cache_len, attend_len, write_pos)
     else:
+        _require_no_grad(q)
         _cache_write(cache_kv, k, v, cache_len, write_pos, index)
         out = flash_causal_attention(q, cache_kv[0], cache_kv[1], positions, cache_len + S, cache_kv[2], cache_kv[3])
     return qdot(out.reshape(B, S, H * D), p["wo"])
@@ -345,6 +357,33 @@ def decoder_forward_pair(
     return x, cache_a, cache_b
 
 
+def _head_mm(h2, w):
+    """(N, E) @ (E, V) -> fp32 (N, V), accumulated in fp32 from the weights' dtype."""
+    if h2.device.type == "cuda":
+        return torch.mm(h2, w, out_dtype=torch.float32)
+    return h2.float() @ w.float()
+
+
+class LogitsHead(torch.autograd.Function):
+    """The fp32-output head with a gradient. cuBLAS's fp32-output GEMM has no
+    derivative of its own, so the backward is written out: the fp32 logits' gradient
+    g is rounded to the weights' dtype and goes through two products of that dtype
+    (fp32 accumulation), dh = g w^T and dw = h^T g, in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, h2, w):
+        ctx.save_for_backward(h2, w)
+        return _head_mm(h2, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, w = ctx.saved_tensors
+        g = g.to(w.dtype)
+        dh = torch.mm(g, w.t()) if ctx.needs_input_grad[0] else None
+        dw = torch.mm(h2.t(), g) if ctx.needs_input_grad[1] else None
+        return dh, dw
+
+
 def logits_from_hidden(params, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tensor:
     """(..., E) -> (..., V) logits in fp32, accumulated in fp32 from the weights'
     own dtype.
@@ -352,14 +391,18 @@ def logits_from_hidden(params, cfg: TextConfig, hidden: torch.Tensor) -> torch.T
     On CUDA a bf16 head uses cuBLAS's fp32-output GEMM (`torch.mm(..., out_dtype=)`),
     so no fp32 copy of the 151936 x E embedding is materialised and argmax ties do
     not multiply as they would with bf16 logits. On the CPU a bf16 head is upcast
-    (tests only); fp32 params are exact fp32 everywhere.
+    (tests only); fp32 params are exact fp32 everywhere. Under autograd the bf16 head
+    goes through LogitsHead, whose backward is two products.
 
     An int8 copy of the head at params["lm_head_q8"]
     (quantize_decoder_int8(lm_head=True)) takes the head's place: its values are
     widened to the hidden state's dtype for the product, and the per-output-column
-    scale multiplies the fp32 logits (exact algebra)."""
+    scale multiplies the fp32 logits (exact algebra). It is not trained: asked for a
+    gradient it raises."""
     scale = None
     if "lm_head_q8" in params:
+        if torch.is_grad_enabled() and hidden.requires_grad:
+            raise RuntimeError("logits_from_hidden: the int8 head (lm_head_q8) has no backward; train the bf16 head")
         scale = params["lm_head_q8"]["s"].float()
         w = params["lm_head_q8"]["q"].to(hidden.dtype)
     elif cfg.tie_word_embeddings:
@@ -370,10 +413,6 @@ def logits_from_hidden(params, cfg: TextConfig, hidden: torch.Tensor) -> torch.T
     if w.dtype == torch.float32:
         out = h @ w
     else:
-        h2 = h.reshape(-1, h.shape[-1])
-        if h.device.type == "cuda":
-            out = torch.mm(h2, w, out_dtype=torch.float32)
-        else:
-            out = h2.float() @ w.float()
+        out = LogitsHead.apply(h.reshape(-1, h.shape[-1]), w)
         out = out.reshape(*h.shape[:-1], out.shape[-1])
     return out if scale is None else out * scale

@@ -9,6 +9,9 @@ projection. Three ways to build one:
 - `params_from_numpy(tree, device, dtype)` converts the JAX package's tree (numpy
   leaves) so both packages compute the same function in tests;
 - `load_hf_checkpoint(path, cfg, device, dtype)` reads HF safetensors shards.
+
+`export_hf_state_dict` / `save_hf_checkpoint` write a tree back out in the HF layout
+(what training's checkpoints are exported as).
 """
 
 from __future__ import annotations
@@ -276,3 +279,111 @@ def load_hf_checkpoint(path: str, cfg: Optional[VLMConfig] = None, device="cpu",
             for k in f.keys():
                 state[k] = f.get_tensor(k)
     return convert_hf_state_dict(state, cfg, device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# port -> HF export (mirrors zoomearth_tpu/models/params.py:285-379; checkpoint
+# interchange, the local analog of the reference's hub push, utils/callbacks.py:43-77)
+# ---------------------------------------------------------------------------
+
+def export_hf_state_dict(params, cfg: VLMConfig) -> Dict[str, torch.Tensor]:
+    """The port's tree -> an HF Qwen2.5-VL state_dict (transformers>=4.52 keys), CPU
+    tensors in each leaf's own dtype (the reference writes fp32; bf16 weights stay
+    bf16 here, half the bytes). load_hf_checkpoint reads it back."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(name, t, transpose=False):
+        t = t.detach().to("cpu")
+        out[name] = t.t().contiguous() if transpose else t.contiguous()
+
+    v, t = params["vision"], params["text"]
+    vcfg = cfg.vision
+    pe = v["patch_embed"]["kernel"].detach().to("cpu").t()  # (E, patch_dim)
+    out["model.visual.patch_embed.proj.weight"] = pe.reshape(
+        vcfg.hidden_size, vcfg.in_channels, vcfg.temporal_patch_size, vcfg.patch_size, vcfg.patch_size
+    ).contiguous()
+    for i, b in enumerate(v["blocks"]):
+        p = f"model.visual.blocks.{i}."
+        put(p + "norm1.weight", b["norm1"]["scale"])
+        put(p + "norm2.weight", b["norm2"]["scale"])
+        put(p + "attn.qkv.weight", b["attn"]["wqkv"], transpose=True)
+        put(p + "attn.qkv.bias", b["attn"]["bqkv"])
+        put(p + "attn.proj.weight", b["attn"]["wo"], transpose=True)
+        put(p + "attn.proj.bias", b["attn"]["bo"])
+        put(p + "mlp.gate_proj.weight", b["mlp"]["wg"], transpose=True)
+        put(p + "mlp.gate_proj.bias", b["mlp"]["bg"])
+        put(p + "mlp.up_proj.weight", b["mlp"]["wu"], transpose=True)
+        put(p + "mlp.up_proj.bias", b["mlp"]["bu"])
+        put(p + "mlp.down_proj.weight", b["mlp"]["wd"], transpose=True)
+        put(p + "mlp.down_proj.bias", b["mlp"]["bd"])
+    put("model.visual.merger.ln_q.weight", v["merger"]["ln_q"]["scale"])
+    put("model.visual.merger.mlp.0.weight", v["merger"]["w0"], transpose=True)
+    put("model.visual.merger.mlp.0.bias", v["merger"]["b0"])
+    put("model.visual.merger.mlp.2.weight", v["merger"]["w1"], transpose=True)
+    put("model.visual.merger.mlp.2.bias", v["merger"]["b1"])
+
+    put("model.language_model.embed_tokens.weight", t["embed"]["weight"])
+    for i, layer in enumerate(t["layers"]):
+        p = f"model.language_model.layers.{i}."
+        put(p + "input_layernorm.weight", layer["input_ln"]["scale"])
+        put(p + "post_attention_layernorm.weight", layer["post_ln"]["scale"])
+        put(p + "self_attn.q_proj.weight", layer["attn"]["wq"], transpose=True)
+        put(p + "self_attn.q_proj.bias", layer["attn"]["bq"])
+        put(p + "self_attn.k_proj.weight", layer["attn"]["wk"], transpose=True)
+        put(p + "self_attn.k_proj.bias", layer["attn"]["bk"])
+        put(p + "self_attn.v_proj.weight", layer["attn"]["wv"], transpose=True)
+        put(p + "self_attn.v_proj.bias", layer["attn"]["bv"])
+        put(p + "self_attn.o_proj.weight", layer["attn"]["wo"], transpose=True)
+        put(p + "mlp.gate_proj.weight", layer["mlp"]["wg"], transpose=True)
+        put(p + "mlp.up_proj.weight", layer["mlp"]["wu"], transpose=True)
+        put(p + "mlp.down_proj.weight", layer["mlp"]["wd"], transpose=True)
+    put("model.language_model.norm.weight", t["final_ln"]["scale"])
+    if not cfg.text.tie_word_embeddings and "lm_head" in t:
+        put("lm_head.weight", t["lm_head"]["weight"], transpose=True)
+    return out
+
+
+def hf_config_dict(cfg: VLMConfig) -> Dict:
+    """The config.json save_hf_checkpoint writes (VLMConfig.from_hf_dir reads it back)."""
+    v, t, tok = cfg.vision, cfg.text, cfg.tokens
+    return {
+        "architectures": ["Qwen2_5_VLForConditionalGeneration"],
+        "model_type": "qwen2_5_vl",
+        "vocab_size": t.vocab_size, "hidden_size": t.hidden_size,
+        "intermediate_size": t.intermediate_size,
+        "num_hidden_layers": t.num_hidden_layers,
+        "num_attention_heads": t.num_attention_heads,
+        "num_key_value_heads": t.num_key_value_heads,
+        "head_dim": t.head_dim, "rope_theta": t.rope_theta,
+        "rms_norm_eps": t.rms_norm_eps,
+        "tie_word_embeddings": t.tie_word_embeddings,
+        "max_position_embeddings": t.max_position_embeddings,
+        "rope_scaling": {"type": "mrope", "mrope_section": list(t.mrope_section)},
+        "image_token_id": tok.image_pad, "video_token_id": tok.video_pad,
+        "vision_start_token_id": tok.vision_start,
+        "vision_end_token_id": tok.vision_end,
+        "eos_token_id": tok.eos, "pad_token_id": tok.pad,
+        "vision_config": {
+            "depth": v.depth, "hidden_size": v.hidden_size,
+            "intermediate_size": v.intermediate_size, "num_heads": v.num_heads,
+            "in_channels": v.in_channels, "patch_size": v.patch_size,
+            "temporal_patch_size": v.temporal_patch_size,
+            "spatial_merge_size": v.spatial_merge_size,
+            "window_size": v.window_size,
+            "fullatt_block_indexes": list(v.fullatt_block_indexes),
+            "out_hidden_size": v.out_hidden_size, "hidden_act": v.hidden_act,
+        },
+    }
+
+
+def save_hf_checkpoint(params, cfg: VLMConfig, path: str) -> str:
+    """Write an HF-format checkpoint dir (model.safetensors; config.json if absent)."""
+    from safetensors.torch import save_file
+
+    os.makedirs(path, exist_ok=True)
+    save_file(export_hf_state_dict(params, cfg), os.path.join(path, "model.safetensors"))
+    cfg_path = os.path.join(path, "config.json")
+    if not os.path.exists(cfg_path):
+        with open(cfg_path, "w") as f:
+            json.dump(hf_config_dict(cfg), f, indent=2)
+    return path

@@ -91,3 +91,18 @@ def vlm_forward(
     if logit_index is not None:
         hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device), logit_index.long()]
     return logits_from_hidden(params["text"], cfg.text, hidden), cache
+
+
+def masked_ce_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100):
+    """Next-token cross entropy with -100 masking (port of the reference's
+    masked_ce_loss): logits[:, :-1] predict labels[:, 1:]; the loss is the mean over
+    the valid tokens (at least one in the divisor). logits (B, S, V) fp32, labels
+    (B, S). Returns (mean loss, number of valid tokens)."""
+    shift_logits = logits[:, :-1]
+    shift_labels = labels[:, 1:].long()
+    valid = shift_labels != ignore_index
+    safe_labels = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
+    logp = torch.log_softmax(shift_logits, dim=-1)
+    tok_logp = logp.gather(-1, safe_labels[..., None])[..., 0]
+    n = valid.sum()
+    return -(tok_logp * valid).sum() / n.clamp(min=1), n

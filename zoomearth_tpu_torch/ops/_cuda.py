@@ -23,8 +23,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("common.cuh", "flash_mma.cuh", "decode_split.cuh", "flash_segment.cu", "flash_causal.cu", "flash_decode.cu",
-           "paged_decode.cu", "probe_stream.cu", "probe_bigmm.cu", "split_merge.cu")
+SOURCES = ("common.cuh", "flash_mma.cuh", "decode_split.cuh", "flash_bwd.cuh", "flash_segment.cu", "flash_causal.cu",
+           "flash_segment_bwd.cu", "flash_causal_bwd.cu", "flash_decode.cu", "paged_decode.cu", "probe_stream.cu",
+           "probe_bigmm.cu", "split_merge.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -88,10 +89,13 @@ def build() -> Path:
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "zt_flash_segment": [_P] * 7 + [_I] * 3 + [_L] * 6 + [_F, _I, _P],
+    "zt_flash_segment": [_P] * 7 + [_I] * 3 + [_L] * 6 + [_F, _I, _P, _P],
     "zt_flash_segment_variant": [_I, _I],
     "zt_flash_causal_variant": [_I, _I, _I],
-    "zt_flash_causal": [_P] * 8 + [_I] * 6 + [_L] * 11 + [_F, _I, _I, _P],
+    "zt_flash_causal": [_P] * 8 + [_I] * 6 + [_L] * 11 + [_F, _I, _I, _P, _P],
+    "zt_flash_bwd_rows": [_I],
+    "zt_flash_segment_bwd": [_P] * 13 + [_I] * 3 + [_L] * 6 + [_F, _I, _P],
+    "zt_flash_causal_bwd": [_P] * 14 + [_I] * 8 + [_L] * 15 + [_F, _I, _P],
     "zt_flash_decode": [_P] * 8 + [_I] * 7 + [_L] * 10 + [_F, _I, _I, _P],
     "zt_decode_split_tile": [],
     "zt_paged_decode": [_P] * 7 + [_I] * 8 + [_L] * 4 + [_F, _I, _P],

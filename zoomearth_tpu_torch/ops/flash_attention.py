@@ -10,13 +10,23 @@ of 16 (the model's path); and "fma", fp32 arithmetic with 64 rows a block, for f
 inputs and D = 8, which bf16 products would cost their precision. Here:
 
 - `flash_segment_attention` dispatches by device: a CPU tensor goes to the plain
-  version, a CUDA tensor to the kernel (or raises). There is no fallback.
-- `flash_segment_attention_plain` is the plain torch version of the same function.
+  version, a CUDA tensor to the kernel (or raises). There is no fallback. Where a
+  gradient is asked for (autograd on, an input that requires grad) it goes through
+  `SegmentAttention`, an autograd.Function whose forward and backward dispatch the
+  same way: the forward also returns each row's log-sum-exp `lse`, the backward
+  kernel (csrc/flash_segment_bwd.cu: dq, then dk and dv; the reference's Pallas
+  kernel has no VJP to port) reads it. A backward on CUDA tensors launches that
+  kernel or raises; it never recomputes through the plain version.
+- `flash_segment_attention_plain` / `flash_segment_attention_bwd_plain` are the
+  plain torch versions of both directions, in fp32.
 - `segment_kv_ranges` is the launch prep: the contiguous kv row range of each
-  query block, from two searchsorteds over the ascending segment ids;
-  `tile_needs_mask` is the kernel's rule for skipping the segment compare.
-- `work` is the least work a call needs (flops, bytes), from its inputs.
-- `segment_attention_cuda.launches` counts kernel launches, `.variants` by variant.
+  query block, from two searchsorteds over the ascending segment ids; by the mask's
+  symmetry it is also the query range of a block of keys, which the backward's dk/dv
+  kernel walks. `tile_needs_mask` is the kernel's rule for skipping the compare.
+- `work` / `work_bwd` are the least work a call needs (flops, bytes), from its inputs.
+- `segment_attention_cuda.launches` counts kernel launches, `.variants` by variant;
+  `segment_attention_bwd_cuda.launches` counts backward calls (each launches the dq
+  kernel, then the dk/dv kernel).
 """
 
 from __future__ import annotations
@@ -24,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .attention import segment_attention
+from .attention import NEG_INF, segment_attention
 
 # Segment id used for padding rows. Must sort AFTER all real ids (ascending layout).
 PAD_SEG = 2**30
@@ -65,16 +75,61 @@ def work(seg: torch.Tensor, H: int, D: int, itemsize: int) -> tuple[int, int]:
     return 4 * D * H * int((counts.long() ** 2).sum()), 4 * seg.shape[0] * H * D * itemsize
 
 
-def flash_segment_attention_plain(q, k, v, seg):
-    """Plain torch version: dense segment-masked attention in fp32, cast to q.dtype."""
-    return segment_attention(q.float(), k.float(), v.float(), seg).to(q.dtype)
+def work_bwd(seg: torch.Tensor, H: int, D: int, itemsize: int) -> tuple[int, int]:
+    """(flops, bytes) one backward call needs at the least: five products over each
+    row's own segment (s = q k^T, dp = dO v^T, dv = p^T dO, dq = ds k, dk = ds^T q:
+    10 * D * H per live pair), q, k, v, o and dO read and dq, dk, dv written once, the
+    fp32 lse read once."""
+    _, counts = torch.unique_consecutive(seg, return_counts=True)
+    S = seg.shape[0]
+    return 10 * D * H * int((counts.long() ** 2).sum()), 8 * S * H * D * itemsize + 4 * S * H
 
 
-def segment_attention_cuda(q, k, v, seg):
+def _segment_logits(q, k, seg):
+    """(H, S, T) fp32 scaled logits with the keys of other segments at -inf."""
+    logits = torch.einsum("shd,thd->hst", q.float(), k.float()) * q.shape[-1] ** -0.5
+    return logits.masked_fill((seg[:, None] != seg[None, :])[None], float("-inf"))
+
+
+def _lse_rows(logits):
+    """Each row's log-sum-exp over its live keys; NEG_INF where it has none. The
+    backward masks dead pairs itself, so this value only marks the row."""
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse.masked_fill(torch.isneginf(lse), NEG_INF)
+
+
+def flash_segment_attention_plain(q, k, v, seg, return_lse: bool = False):
+    """Plain torch version: dense segment-masked attention in fp32, cast to q.dtype.
+    With return_lse also each row's log-sum-exp of the scaled logits, (S, H) fp32."""
+    out = segment_attention(q.float(), k.float(), v.float(), seg).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, _lse_rows(_segment_logits(q, k, seg)).t().contiguous()
+
+
+def flash_segment_attention_bwd_plain(q, k, v, seg, out, dout, lse):
+    """Plain torch version of the backward, in fp32 from the forward's out and lse:
+    p = exp(z - lse) on each row's own segment (0 elsewhere), delta = rowsum(dO * out),
+    ds = p (dO v^T - delta); dq = scale ds k, dk = scale ds^T q, dv = p^T dO. Returns
+    (dq, dk, dv) in q's dtype, contiguous (S, H, D)."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    p = torch.exp(_segment_logits(q, k, seg) - lse.t()[:, :, None])  # (H, S, T); exp(-inf) = 0 off-segment
+    delta = (dof * out.float()).sum(-1).t()  # (H, S)
+    ds = p * (torch.einsum("shd,thd->hst", dof, vf) - delta[:, :, None])
+    dq = torch.einsum("hst,thd->shd", ds, kf) * scale
+    dk = torch.einsum("hst,shd->thd", ds, qf) * scale
+    dv = torch.einsum("hst,shd->thd", p, dof)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def segment_attention_cuda(q, k, v, seg, return_lse: bool = False):
     """Launch K1. q/k/v (S, H, D) fp32 or bf16 with unit stride on D (any other
     strides; the tensor-core variant needs bases and strides that are whole 16-byte
     multiples and raises ValueError otherwise); seg (S,) ascending ids. Returns a
-    contiguous (S, H, D) tensor. Nothing here waits for the device."""
+    contiguous (S, H, D) tensor, and with return_lse also the (S, H) fp32 log-sum-exp
+    of each row's scaled logits (NEG_INF for a row with no live key). Nothing here
+    waits for the device."""
     name = "flash_segment_attention"
     _cuda.require_cuda(name, q, k, v, seg)
     S, H, D = q.shape
@@ -88,26 +143,89 @@ def segment_attention_cuda(q, k, v, seg):
     if variant == "mma":
         _cuda.require_aligned16(name, q, k, v)
     out = torch.empty((S, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((S, H), dtype=torch.float32, device=q.device) if return_lse else None
     seg = seg.to(torch.int32).contiguous()
     first, last = segment_kv_ranges(seg, block_q)
     rc = _cuda.lib().zt_flash_segment(
         _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(seg), _cuda.ptr(first),
         _cuda.ptr(last), _cuda.ptr(out), S, H, D,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        D**-0.5, code, _cuda.stream(q.device),
+        D**-0.5, code, _cuda.stream(q.device), _cuda.ptr(lse),
     )
     _cuda.check(rc, name)
     _cuda.count_launch(segment_attention_cuda, variant)
-    return out
+    return (out, lse) if return_lse else out
 
 
 segment_attention_cuda.launches = 0
 segment_attention_cuda.variants = {"mma": 0, "fma": 0}
 
 
+def segment_attention_bwd_cuda(q, k, v, seg, out, dout, lse):
+    """Launch K1's backward (the dq kernel, then the dk/dv kernel, on the current
+    stream). q/k/v as the forward took them (any strides with unit stride on D),
+    out and dout (S, H, D) of q's dtype, lse (S, H) fp32 from the forward. Returns
+    (dq, dk, dv), contiguous (S, H, D) of q's dtype. Nothing here waits for the device."""
+    name = "flash_segment_attention_bwd"
+    _cuda.require_cuda(name, q, k, v, seg, out, dout, lse)
+    S, H, D = q.shape
+    if any(t.shape != q.shape or t.dtype != q.dtype for t in (k, v, out, dout)):
+        raise ValueError(f"{name}: q/k/v/out/dout must share shape and dtype")
+    if lse.shape != (S, H) or lse.dtype != torch.float32:
+        raise ValueError(f"{name}: lse must be (S, H) fp32")
+    code = _cuda.dtype_code(q, name, (torch.float32, torch.bfloat16))
+    rows = _cuda.lib().zt_flash_bwd_rows(D)
+    if rows < 0:
+        raise ValueError(f"{name}: no kernel for head dim {D}")
+    out, dout, lse = out.contiguous(), dout.contiguous(), lse.contiguous()
+    seg = seg.to(torch.int32).contiguous()
+    first, last = segment_kv_ranges(seg, rows)
+    dq, dk, dv = (torch.empty((S, H, D), dtype=q.dtype, device=q.device) for _ in range(3))
+    delta = torch.empty((S, H), dtype=torch.float32, device=q.device)
+    rc = _cuda.lib().zt_flash_segment_bwd(
+        _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(out), _cuda.ptr(dout), _cuda.ptr(lse),
+        _cuda.ptr(seg), _cuda.ptr(first), _cuda.ptr(last), _cuda.ptr(dq), _cuda.ptr(dk), _cuda.ptr(dv),
+        _cuda.ptr(delta), S, H, D,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        D**-0.5, code, _cuda.stream(q.device),
+    )
+    _cuda.check(rc, name)
+    _cuda.count_launch(segment_attention_bwd_cuda)
+    return dq, dk, dv
+
+
+segment_attention_bwd_cuda.launches = 0
+
+
+class SegmentAttention(torch.autograd.Function):
+    """K1 with a gradient: the forward keeps (q, k, v, seg, out, lse) for the backward;
+    both directions take the plain version on the CPU and the kernel on CUDA."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg):
+        if q.device.type == "cpu":
+            out, lse = flash_segment_attention_plain(q, k, v, seg, return_lse=True)
+        else:
+            out, lse = segment_attention_cuda(q, k, v, seg, return_lse=True)
+        ctx.save_for_backward(q, k, v, seg, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, seg, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_segment_attention_bwd_plain(q, k, v, seg, out, dout, lse)
+        else:
+            dq, dk, dv = segment_attention_bwd_cuda(q, k, v, seg, out, dout, lse)
+        return dq, dk, dv, None
+
+
 def flash_segment_attention(q, k, v, seg):
     """Packed varlen self-attention, exact: tokens attend within their segment.
-    q/k/v (S, H, D); seg (S,) ascending segment ids (pads use PAD_SEG)."""
+    q/k/v (S, H, D); seg (S,) ascending segment ids (pads use PAD_SEG). Under autograd
+    with an input that requires grad it is differentiable (SegmentAttention)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return SegmentAttention.apply(q, k, v, seg)
     if q.device.type == "cpu":
         return flash_segment_attention_plain(q, k, v, seg)
     return segment_attention_cuda(q, k, v, seg)

@@ -10,14 +10,26 @@ int8 K/V (the model's path); and "fma", fp32 arithmetic with 64 rows a block, fo
 fp32 queries, which bf16 products would cost their precision. Here:
 
 - `flash_causal_attention` dispatches by device: CPU -> plain version, CUDA ->
-  kernel (or raises). There is no fallback and no size threshold.
-- `flash_causal_attention_plain` is the plain torch version of the same function,
-  including the int8 K/V algebra.
+  kernel (or raises). There is no fallback and no size threshold. Where a gradient
+  is asked for (autograd on, an input that requires grad: the decoder's no-cache
+  training path, where k and v arrive as transposed views of the (B, S, Hkv, D)
+  projections) it goes through `CausalAttention`, an autograd.Function whose forward
+  (which also returns each row's log-sum-exp) and backward dispatch the same way;
+  the backward kernel is csrc/flash_causal_bwd.cu (the reference's Pallas kernel has
+  no VJP to port). The backward takes bf16 or fp32 K/V only: int8 K/V under autograd
+  raises before any launch. dk and dv sum over the G query heads of a kv head and
+  come back in k's and v's own layout. A row with no live key gets zero gradients.
+- `flash_causal_attention_plain` / `flash_causal_attention_bwd_plain` are the plain
+  torch versions of both directions, the forward including the int8 K/V algebra.
 - `block_key_bounds` is what each block of the kernel works out for itself: where
-  its key loop ends and below which key no compare is needed.
-- `work` is the least work a call needs (flops, bytes), from its inputs.
+  its key loop ends and below which key no compare is needed; the backward's dk/dv
+  kernel skips a tile of query rows by the same bound.
+- `work` / `work_bwd` are the least work a call needs (flops, bytes), from its inputs.
 - `causal_attention_cuda.launches` counts kernel launches, `.variants` by variant,
-  `.int8_launches` those on int8 K/V.
+  `.int8_launches` those on int8 K/V; `causal_attention_bwd_cuda.launches` counts
+  backward calls (each launches the dq kernel, then the dk/dv kernel, then, where the
+  dk/dv kernel's key blocks are split among several blocks to fill the card
+  (`dkdv_splits`), the kernel that adds their partials).
 """
 
 from __future__ import annotations
@@ -30,6 +42,8 @@ from .attention import NEG_INF, causal_attention
 ROWS = 128  # (head, query) rows per block of the tensor-core variant (FM_ROWS in csrc/flash_mma.cuh)
 ROWS_FMA = 64  # of the fp32 variant (CAU_ROWS in csrc/flash_causal.cu); G = H / Hkv must divide both
 TILE = 64  # keys per tile of the tensor-core variant (FM_BKV)
+BWD_TILE = 32  # (position, head) rows per tile of the backward's dk/dv kernel (BWD_TILE in csrc/flash_bwd.cuh)
+BWD_BLOCKS_PER_SM = 4  # the backward's dk/dv blocks to aim for, per SM of the card
 
 
 def block_key_bounds(positions: torch.Tensor, kv_len: torch.Tensor, T: int, bq: int):
@@ -68,10 +82,48 @@ def work(positions: torch.Tensor, kv_len: torch.Tensor, H: int, Hkv: int, D: int
     return 4 * D * H * int(live.sum()), nbytes
 
 
-def flash_causal_attention_plain(q, k, v, positions, kv_len, ks=None, vs=None):
+def work_bwd(positions: torch.Tensor, kv_len: torch.Tensor, H: int, Hkv: int, D: int, T: int,
+             itemsize: int) -> tuple[int, int]:
+    """(flops, bytes) one backward call needs at the least: five products over each
+    query's live keys (10 * D * H per live pair), q, o, dO read and dq written once
+    with the fp32 lse, and the k/v rows any query of the row sees read once and their
+    dk/dv written once."""
+    klen = kv_len.long().clamp(0, T)[:, None]
+    live = torch.minimum(positions.long().clamp(-1, T - 1) + 1, klen)
+    rows = int(live.amax(1).sum())
+    n = positions.numel() * H
+    return 10 * D * H * int(live.sum()), 4 * n * D * itemsize + 4 * n + 4 * rows * Hkv * D * itemsize
+
+
+def dkdv_splits(key_blocks: int, Hkv: int, B: int, n_qtiles: int, target: int) -> int:
+    """How many blocks share each block of keys in the backward's dk/dv kernel: enough
+    to reach `target` blocks (BWD_BLOCKS_PER_SM a streaming multiprocessor), at most one
+    per tile of query rows. Split s of n takes the tiles [s * per, (s + 1) * per), per =
+    ceil(n_qtiles / n)."""
+    return max(1, min(n_qtiles, -(-target // (key_blocks * Hkv * B))))
+
+
+def _causal_mask(positions, kv_len, T):
+    """(B, S, T): slot t is live for the query at positions[b, s]."""
+    slot = torch.arange(T, device=positions.device)
+    return (slot[None, None, :] <= positions[:, :, None]) & (slot[None, None, :] < kv_len.to(slot.dtype)[:, None, None])
+
+
+def _causal_logits(q, k, positions, kv_len):
+    """(B, Hkv, G, S, T) fp32 scaled logits with the dead slots at -inf."""
+    B, S, H, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    logits = torch.einsum("bskgd,bktd->bkgst", q.float().reshape(B, S, Hkv, H // Hkv, D), k.float()) * D**-0.5
+    return logits.masked_fill(~_causal_mask(positions, kv_len, T)[:, None, None], float("-inf"))
+
+
+def flash_causal_attention_plain(q, k, v, positions, kv_len, ks=None, vs=None, return_lse: bool = False):
     """Plain torch version in fp32, cast to q.dtype. The query at positions[b, s]
     sees kv slots t <= positions[b, s] and t < kv_len[b]. With ks/vs (B, Hkv, T), k/v
-    hold int8 values: ks scales the logit columns and vs scales p before p@v."""
+    hold int8 values: ks scales the logit columns and vs scales p before p@v. With
+    return_lse (bf16 or fp32 K/V) also each row's log-sum-exp of the scaled logits,
+    (B, S, H) fp32, NEG_INF for a row with no live key (whose output here is the
+    mean of v, where the kernel gives 0)."""
     B, S, H, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     slot = torch.arange(T, device=q.device)
@@ -80,8 +132,14 @@ def flash_causal_attention_plain(q, k, v, positions, kv_len, ks=None, vs=None):
         out = causal_attention(
             q.float(), k.float(), v.float(), positions=positions,
             kv_positions=slot[None].expand(B, T), valid=valid,
-        )
-        return out.to(q.dtype)
+        ).to(q.dtype)
+        if not return_lse:
+            return out
+        lse = torch.logsumexp(_causal_logits(q, k, positions, kv_len), dim=-1)  # (B, Hkv, G, S)
+        lse = lse.masked_fill(torch.isneginf(lse), NEG_INF).permute(0, 3, 1, 2).reshape(B, S, H)
+        return out, lse.contiguous()
+    if return_lse:
+        raise NotImplementedError("flash_causal_attention: no backward for int8 K/V")
     G = H // Hkv
     qg = q.float().reshape(B, S, Hkv, G, D)
     logits = torch.einsum("bskgd,bktd->bkgst", qg, k.float())
@@ -93,12 +151,35 @@ def flash_causal_attention_plain(q, k, v, positions, kv_len, ks=None, vs=None):
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
-def causal_attention_cuda(q, k, v, positions, kv_len, ks=None, vs=None):
+def flash_causal_attention_bwd_plain(q, k, v, positions, kv_len, out, dout, lse):
+    """Plain torch version of the backward, in fp32 from the forward's out and lse:
+    p = exp(z - lse) on live slots (0 elsewhere; a row with no live key has none, so
+    it gets zero gradients whatever its out), delta = rowsum(dO * out),
+    ds = p (dO v^T - delta); dq = scale ds k, dk = scale ds^T q and dv = p^T dO, both
+    summed over the G query heads of each kv head. Returns (dq, dk, dv) in q's dtype,
+    dq (B, S, H, D), dk and dv (B, Hkv, T, D), contiguous."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    qg = q.float().reshape(B, S, Hkv, G, D)
+    dog = dout.float().reshape(B, S, Hkv, G, D)
+    lse_g = lse.reshape(B, S, Hkv, G).permute(0, 2, 3, 1)  # (B, Hkv, G, S)
+    p = torch.exp(_causal_logits(q, k, positions, kv_len) - lse_g[..., None])  # exp(-inf) = 0 on dead slots
+    delta = (dog * out.float().reshape(B, S, Hkv, G, D)).sum(-1).permute(0, 2, 3, 1)
+    ds = p * (torch.einsum("bskgd,bktd->bkgst", dog, v.float()) - delta[..., None])
+    dq = torch.einsum("bkgst,bktd->bskgd", ds, k.float()).reshape(B, S, H, D) * D**-0.5
+    dk = torch.einsum("bkgst,bskgd->bktd", ds, qg) * D**-0.5
+    dv = torch.einsum("bkgst,bskgd->bktd", p, dog)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def causal_attention_cuda(q, k, v, positions, kv_len, ks=None, vs=None, return_lse: bool = False):
     """Launch K2. q (B, S, H, D) fp32/bf16; k/v (B, Hkv, T, D) of q's dtype or int8
     (then ks/vs are required); all with unit stride on D, other strides free, except
     that the tensor-core variant (bf16 q) needs bases and strides that are whole
-    16-byte multiples and raises ValueError otherwise. Nothing here waits for the
-    device."""
+    16-byte multiples and raises ValueError otherwise. With return_lse also returns
+    the (B, S, H) fp32 log-sum-exp of each row's scaled logits (NEG_INF for a row with
+    no live key). Nothing here waits for the device."""
     name = "flash_causal_attention"
     _cuda.require_cuda(name, q, k, v, positions, kv_len, ks, vs)
     B, S, H, D = q.shape
@@ -121,6 +202,7 @@ def causal_attention_cuda(q, k, v, positions, kv_len, ks=None, vs=None):
     else:
         ks = vs = None
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, S, H), dtype=torch.float32, device=q.device) if return_lse else None
     positions = positions.to(torch.int32).contiguous()
     kv_len = kv_len.to(torch.int32).contiguous()
     rc = _cuda.lib().zt_flash_causal(
@@ -129,11 +211,11 @@ def causal_attention_cuda(q, k, v, positions, kv_len, ks=None, vs=None):
         q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         ks.stride(0) if quant else 0, ks.stride(1) if quant else 0,
-        D**-0.5, qc, kc, _cuda.stream(q.device),
+        D**-0.5, qc, kc, _cuda.stream(q.device), _cuda.ptr(lse),
     )
     _cuda.check(rc, name)
     _cuda.count_launch(causal_attention_cuda, variant, int8=quant)
-    return out
+    return (out, lse) if return_lse else out
 
 
 causal_attention_cuda.launches = 0
@@ -141,9 +223,95 @@ causal_attention_cuda.variants = {"mma": 0, "fma": 0}
 causal_attention_cuda.int8_launches = 0  # of them, on int8 K/V
 
 
+def _require_trainable(name, q, k, v, ks=None, vs=None):
+    """The backward's refusals, on the host before any launch."""
+    if ks is not None or vs is not None or k.dtype == torch.int8:
+        raise NotImplementedError(f"{name}: no backward for int8 K/V (the int8 cache is inference-only)")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: the backward takes bf16 or fp32 q/k/v of one dtype (got {q.dtype}, {k.dtype})")
+
+
+def causal_attention_bwd_cuda(q, k, v, positions, kv_len, out, dout, lse):
+    """Launch K2's backward (the dq kernel, then the dk/dv kernel, split over the query
+    tiles by dkdv_splits, then the kernel that adds the splits' partials, on the
+    current stream). q/k/v as the forward took them, bf16 or fp32 (k/v any strides with unit
+    stride on D); out and dout (B, S, H, D); lse (B, S, H) fp32 from the forward.
+    Returns (dq, dk, dv): dq contiguous (B, S, H, D), dk and dv (B, Hkv, T, D) in k's
+    and v's own layout where that is dense (the decoder's transposed views),
+    contiguous otherwise. Nothing here waits for the device."""
+    name = "flash_causal_attention_bwd"
+    _cuda.require_cuda(name, q, k, v, positions, kv_len, out, dout, lse)
+    _require_trainable(name, q, k, v)
+    B, S, H, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    if v.shape != k.shape or k.shape[0] != B or k.shape[3] != D or out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"{name}: q/out/dout must be (B, S, H, D) and k/v (B, Hkv, T, D)")
+    if H % Hkv or BWD_TILE % (H // Hkv):
+        raise ValueError(f"{name}: H / Hkv must divide {BWD_TILE} (H={H}, Hkv={Hkv})")
+    if lse.shape != (B, S, H) or lse.dtype != torch.float32:
+        raise ValueError(f"{name}: lse must be (B, S, H) fp32")
+    code = _cuda.dtype_code(q, name, (torch.float32, torch.bfloat16))
+    rows = _cuda.lib().zt_flash_bwd_rows(D)
+    if rows < 0 or D not in (16, 32, 64, 128):
+        raise ValueError(f"{name}: no kernel for head dim {D}")
+    out, dout, lse = out.contiguous(), dout.to(q.dtype).contiguous(), lse.contiguous()
+    positions = positions.to(torch.int32).contiguous()
+    kv_len = kv_len.to(torch.int32).contiguous()
+    qhi = block_key_bounds(positions, kv_len, T, BWD_TILE // (H // Hkv))[0].contiguous()
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    nsplit = dkdv_splits(-(-T // rows), Hkv, B, qhi.shape[1], BWD_BLOCKS_PER_SM * sms)
+    part = torch.empty((2, nsplit, B, Hkv, T, D), dtype=torch.float32, device=q.device) if nsplit > 1 else None
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+    rc = _cuda.lib().zt_flash_causal_bwd(
+        _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(out), _cuda.ptr(dout), _cuda.ptr(lse),
+        _cuda.ptr(positions), _cuda.ptr(kv_len), _cuda.ptr(qhi), _cuda.ptr(dq), _cuda.ptr(dk), _cuda.ptr(dv),
+        _cuda.ptr(delta), _cuda.ptr(part), B, S, H, Hkv, T, D, qhi.shape[1], nsplit,
+        q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), dk.stride(0), dk.stride(1), dk.stride(2),
+        dv.stride(0), dv.stride(1), dv.stride(2), D**-0.5, code, _cuda.stream(q.device),
+    )
+    _cuda.check(rc, name)
+    _cuda.count_launch(causal_attention_bwd_cuda)
+    return dq, dk, dv
+
+
+causal_attention_bwd_cuda.launches = 0
+
+
+class CausalAttention(torch.autograd.Function):
+    """K2 with a gradient (bf16 or fp32 K/V): the forward keeps (q, k, v, positions,
+    kv_len, out, lse) for the backward; both directions take the plain version on the
+    CPU and the kernel on CUDA."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, positions, kv_len):
+        if q.device.type == "cpu":
+            out, lse = flash_causal_attention_plain(q, k, v, positions, kv_len, return_lse=True)
+        else:
+            out, lse = causal_attention_cuda(q, k, v, positions, kv_len, return_lse=True)
+        ctx.save_for_backward(q, k, v, positions, kv_len, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, positions, kv_len, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_causal_attention_bwd_plain(q, k, v, positions, kv_len, out, dout, lse)
+        else:
+            dq, dk, dv = causal_attention_bwd_cuda(q, k, v, positions, kv_len, out, dout, lse)
+        return dq, dk, dv, None, None
+
+
 def flash_causal_attention(q, k, v, positions, kv_len, ks=None, vs=None):
     """Causal GQA attention over a kv-head-major (B, Hkv, T, D) cache; exact.
-    positions (B, S) query slots, kv_len (B,) live slots. Returns (B, S, H, D)."""
+    positions (B, S) query slots, kv_len (B,) live slots. Returns (B, S, H, D).
+    Under autograd with an input that requires grad it is differentiable
+    (CausalAttention; bf16 or fp32 K/V only, int8 raises)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        _require_trainable("flash_causal_attention", q, k, v, ks, vs)
+        return CausalAttention.apply(q, k, v, positions, kv_len)
     if q.device.type == "cpu":
         return flash_causal_attention_plain(q, k, v, positions, kv_len, ks, vs)
     return causal_attention_cuda(q, k, v, positions, kv_len, ks, vs)

@@ -74,7 +74,7 @@ def k1_call(lib, rows, q, k, v, seg):
     first, last = K1.segment_kv_ranges(seg, rows)
     rc = lib.zt_flash_segment(_cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(seg), _cuda.ptr(first),
                               _cuda.ptr(last), _cuda.ptr(out), S, H, D, q.stride(0), q.stride(1), k.stride(0),
-                              k.stride(1), v.stride(0), v.stride(1), D**-0.5, 1, _cuda.stream(q.device))
+                              k.stride(1), v.stride(0), v.stride(1), D**-0.5, 1, _cuda.stream(q.device), _cuda.ptr(None))
     if rc:
         raise RuntimeError(f"zt_flash_segment: {rc}")
     return out
@@ -88,7 +88,7 @@ def k2_call(lib, q, k, v, pos, kvl, ks=None, vs=None):
                              _cuda.ptr(kvl), _cuda.ptr(out), B, S, H, Hkv, T, D, q.stride(0), q.stride(1), q.stride(2),
                              k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
                              ks.stride(0) if ks is not None else 0, ks.stride(1) if ks is not None else 0,
-                             D**-0.5, 1, 2 if k.dtype == torch.int8 else 1, _cuda.stream(q.device))
+                             D**-0.5, 1, 2 if k.dtype == torch.int8 else 1, _cuda.stream(q.device), _cuda.ptr(None))
     if rc:
         raise RuntimeError(f"zt_flash_causal: {rc}")
     return out
