@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py             # the smoke: every phase below, then the two JSON lines
     python3 chip_smoke.py --profile   # device and build, then where the 3B slice's time goes
+    python3 chip_smoke.py --profile-sft [--parent=DIR]   # where a warm 3B SFT micro-step's time goes (and
+                                                         # with DIR's backward kernels: an older tree's csrc)
 
 Phases, each fatal on failure (nothing is caught):
 
@@ -32,7 +34,8 @@ Phases, each fatal on failure (nothing is caught):
    Hkv = 2, D = 128, on the transposed no-cache views), timed the same way: K1's and
    K2's forwards with their lse output off and on, and their backward kernels
    (flash_segment_bwd.cu, flash_causal_bwd.cu: no TPU counterpart, the reference's
-   Pallas kernels have no VJP) against their plain backward, each gradient within one
+   Pallas kernels have no VJP; the variant that ran logged, the tensor-core one for these
+   bf16 cases) against their plain backward, each gradient within one
    bf16 step of its largest value, beside torch.autograd.grad through one
    scaled_dot_product_attention call (its forward included: the backward needs it);
    then, untimed, the backward kernels at segments of 16-64 rows, a boundary inside a
@@ -99,7 +102,7 @@ Phases, each fatal on failure (nothing is caught):
    and depth are the 3B model's. Every parameter leaf must get a finite gradient, the
    ViT's wqkv and the decoder's wq/wk/wv nonzero ones (a detached kernel output would
    leave them 0), K1 and K2 must launch forward and backward once per block and layer
-   per micro-step (K1/K2 forwards on the tensor-core variant), the resumed losses must
+   per micro-step (all on the tensor-core variants, forward and backward), the resumed losses must
    equal the uninterrupted run's and its parameters stay within a bf16 step, and the
    export must load back equal. Seconds per micro-step (host clock, synchronized),
    tokens and patches per second and peak memory are printed.
@@ -641,6 +644,7 @@ def check_training_kernels(card, randn):
     plain_out, plain_lse = K1.flash_segment_attention_plain(q, k, v, seg, return_lse=True)
     dout = randn(S, H, D)
     lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    before = dict(K1.segment_attention_bwd_cuda.variants)
     bwd1 = case(f"K1-bwd segment SFT sample S={S} H={H} D={D}, the plain backward from the plain forward",
                 lambda: K1.segment_attention_bwd_cuda(q, k, v, seg, out, dout, lse),
                 lambda: K1.flash_segment_attention_bwd_plain(q, k, v, seg, plain_out, dout, plain_lse), card,
@@ -648,6 +652,7 @@ def check_training_kernels(card, randn):
                 lambda: torch.autograd.grad(sdpa(*heads_first(lq, lk, lv), seg_mask)[0].transpose(0, 1),
                                             (lq, lk, lv), dout),
                 tol=grad_tol, library_tol=library_grad_tol)
+    bwd1["variant"] = ran_variant(K1.segment_attention_bwd_cuda, before)
     del seg_mask, out, lse, plain_out, plain_lse, dout
 
     B, S, H, Hkv, D = 1, SFT_TOKENS, 16, 2, 128
@@ -670,6 +675,7 @@ def check_training_kernels(card, randn):
     plain_out, plain_lse = K2.flash_causal_attention_plain(q2, k2, v2, pos, kvl, return_lse=True)
     dout = randn(B, S, H, D)
     lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q2, kp, vp))
+    before = dict(K2.causal_attention_bwd_cuda.variants)
     bwd2 = case(f"K2-bwd no-cache SFT sample B={B} S=T={S} H={H} Hkv={Hkv} D={D}, the plain backward from the plain "
                 "forward",
                 lambda: K2.causal_attention_bwd_cuda(q2, k2, v2, pos, kvl, out, dout, lse),
@@ -679,9 +685,20 @@ def check_training_kernels(card, randn):
                     sdpa(lq.transpose(1, 2), lk.transpose(1, 2), lv.transpose(1, 2), mask).transpose(1, 2),
                     (lq, lk, lv), dout)),
                 tol=grad_tol, library_tol=library_grad_tol)
+    bwd2["variant"] = ran_variant(K2.causal_attention_bwd_cuda, before)
     return ({"flash_segment_attention": fwd1, "flash_causal_attention": fwd2},
             {"flash_segment_attention_bwd": ("zoomearth_tpu_torch/csrc/flash_segment_bwd.cu", None, [bwd1]),
              "flash_causal_attention_bwd": ("zoomearth_tpu_torch/csrc/flash_causal_bwd.cu", None, [bwd2])})
+
+
+def ran_variant(wrapper, before):
+    """The one variant a backward wrapper launched since `before` (its counts then), logged;
+    at the SFT path's bf16 shapes it must be the tensor-core one."""
+    ran = {name: n - before[name] for name, n in wrapper.variants.items()}
+    log(f"  {wrapper.__name__}: launches by variant {ran} (bf16: the tensor-core kernels)")
+    if ran["fma"] or not ran["mma"]:
+        raise AssertionError(f"{wrapper.__name__}: bf16 at the SFT shapes must run the tensor-core variant only: {ran}")
+    return "mma"
 
 
 def check_bwd_edges(randn):
@@ -784,38 +801,25 @@ TRAIN_MICRO, TRAIN_ACCUM, TRAIN_RESUME_AT = 4, 2, 2  # micro-steps, micro-steps 
 TRAIN_MAX_PIXELS = 448 * 448  # each image at most 1024 patches (256 tokens): a sample fits the 2048 token bucket
 
 
-def run_training(card):
-    """SFT at Qwen2.5-VL-3B width (see the module docstring, phase 8). Three runs of
-    train_sft from the same seeded weights: the uninterrupted one (TRAIN_MICRO
-    micro-steps, no checkpoint: the run whose launches, times and memory are read), one
-    that stops at its checkpoint (TRAIN_RESUME_AT micro-steps, saved, exported in the HF
-    layout), and one that resumes from that checkpoint to the end. A machine's disk
-    takes some 45 GiB of writes: one checkpoint (22.5 GB) and one export (7.5 GB) fit,
-    more do not. Returns ({kernel name: {"launches_training": n}} for K1 and K2,
-    {backward kernel name: launches})."""
-    import dataclasses
-    import shutil
-
+def training_setup():
+    """What the training phase and its profile share: Qwen2.5-VL-3B's config, the
+    processor capping each image at TRAIN_MAX_PIXELS, TRAIN_MICRO synthetic SFT samples
+    over two 5000 px tiles, cut and uncut in turn in the loop's order (its permutation
+    of the dataset, seed 42), their image loader, and a maker of the seeded bf16 weights."""
     import numpy as np
     import torch
 
     from zoomearth_tpu_torch.agent.processor import Processor
     from zoomearth_tpu_torch.config import VLMConfig
-    from zoomearth_tpu_torch.models.params import init_vlm_params, load_hf_checkpoint, tree_leaves
-    from zoomearth_tpu_torch.ops import flash_attention as K1
-    from zoomearth_tpu_torch.ops import flash_causal as K2
+    from zoomearth_tpu_torch.models.params import init_vlm_params
     from zoomearth_tpu_torch.tokenizer import FakeTokenizer
-    from zoomearth_tpu_torch.train import sft as TS
-    from zoomearth_tpu_torch.train import sft_loop as TL
-    from zoomearth_tpu_torch.train.callbacks import ExportHFCallback
     from zoomearth_tpu_torch.train.data import SFTSample
 
     cfg = VLMConfig.qwen2_5_vl_3b()
     processor = Processor(FakeTokenizer(cfg.tokens), cfg, max_pixels=TRAIN_MAX_PIXELS)
     tiles = {f"tile{i}.png": synthetic_tile(10 + i) for i in range(2)}
-    # cut and uncut samples alternate in the loop's order (its permutation of the dataset, seed 42)
-    seed, n = 42, TRAIN_MICRO
-    order = np.random.default_rng(seed).permutation(n)
+    n = TRAIN_MICRO
+    order = np.random.default_rng(42).permutation(n)
     cut = np.zeros(n, bool)
     cut[order[0::2]] = True
     samples = [SFTSample(question=f"what is near the marked area {i}?", cut=bool(cut[i]),
@@ -832,6 +836,33 @@ def run_training(card):
         return init_vlm_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
                                dtype=torch.bfloat16)
 
+    return cfg, processor, samples, loader, new_params
+
+
+def run_training(card):
+    """SFT at Qwen2.5-VL-3B width (see the module docstring, phase 8). Three runs of
+    train_sft from the same seeded weights: the uninterrupted one (TRAIN_MICRO
+    micro-steps, no checkpoint: the run whose launches, times and memory are read), one
+    that stops at its checkpoint (TRAIN_RESUME_AT micro-steps, saved, exported in the HF
+    layout), and one that resumes from that checkpoint to the end. A machine's disk
+    takes some 45 GiB of writes: one checkpoint (22.5 GB) and one export (7.5 GB) fit,
+    more do not. Returns ({kernel name: {"launches_training": n}} for K1 and K2,
+    {backward kernel name: launches})."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from zoomearth_tpu_torch.models.params import load_hf_checkpoint, tree_leaves
+    from zoomearth_tpu_torch.ops import flash_attention as K1
+    from zoomearth_tpu_torch.ops import flash_causal as K2
+    from zoomearth_tpu_torch.train import sft as TS
+    from zoomearth_tpu_torch.train import sft_loop as TL
+    from zoomearth_tpu_torch.train.callbacks import ExportHFCallback
+
+    cfg, processor, samples, loader, new_params = training_setup()
+    seed = 42  # the loop's order of the samples (training_setup alternates cut and uncut in it)
     sft_cfg = TS.SFTConfig(learning_rate=1e-4, warmup_steps=1, total_steps=8, weight_decay=0.01,
                            gradient_accumulation_steps=TRAIN_ACCUM)
     counters = (K1.segment_attention_cuda, K1.segment_attention_bwd_cuda, K2.causal_attention_cuda,
@@ -866,7 +897,7 @@ def run_training(card):
         on_grads = check_first_grads(params)
         for c in counters:
             c.launches = 0
-        for c in (K1.segment_attention_cuda, K2.causal_attention_cuda):
+        for c in counters:
             c.variants = dict.fromkeys(c.variants, 0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -877,7 +908,7 @@ def run_training(card):
         wall = time.time() - t0
         peak = torch.cuda.max_memory_allocated()
         launches = {c.__name__: c.launches for c in counters}
-        variants = {c.__name__: dict(c.variants) for c in (K1.segment_attention_cuda, K2.causal_attention_cuda)}
+        variants = {c.__name__: dict(c.variants) for c in counters}
         log_steps(hist)
         final = tree_leaves(params)
         del params
@@ -937,10 +968,11 @@ def run_training(card):
         f"({'bit for bit' if resumed_losses == losses[TRAIN_RESUME_AT:] else 'NOT bit for bit'}); parameters after "
         f"the last update: {same} of {n_leaves} leaves bit for bit, worst leaf max |diff| / max |value| {worst:.3e}; "
         f"HF export of the checkpoint loads back {'equal' if exported_equal else 'DIFFERENT'}")
-    log(f"  launches {launches} (expected {expect}); forward variants {variants}")
+    log(f"  launches {launches} (expected {expect}); by variant, forward and backward {variants}")
     assert first["finite"][0] == first["finite"][1], "a parameter leaf has a non-finite gradient"
     assert all(v > 0 for v in first["nonzero"].values()), f"an attention leaf got no gradient: {first['nonzero']}"
     assert launches == expect, (launches, expect)
+    # forward and backward: every launch on the tensor cores, never the FMA kernels
     assert all(v == {"mma": launches[name], "fma": 0} for name, v in variants.items()), variants
     assert all(np.isfinite(losses)) and len(losses) == micro
     # the loss of the same sample through the same parameters: the forward has no atomics, and the only update before
@@ -953,6 +985,98 @@ def run_training(card):
              "flash_causal_attention": {"launches_training": launches["causal_attention_cuda"]}},
             {"flash_segment_attention_bwd": launches["segment_attention_bwd_cuda"],
              "flash_causal_attention_bwd": launches["causal_attention_bwd_cuda"]})
+
+
+def profile_training(card, parent=None):
+    """`--profile-sft`: where one warm SFT micro-step's time goes, by kernel. The
+    training phase's model, samples and processor; gradient accumulation over 8
+    micro-steps, so that no optimizer update falls in the window; two micro-steps to
+    warm up, then one cut sample's micro-step on the host clock (synchronized) and once
+    more under torch.profiler, with the device time of the kernels by group and of every
+    kernel that takes at least 1 % of the total. With `parent` (a directory of kernel
+    sources, such as an older tree's csrc), the same micro-step again with that tree's
+    backward kernels of K1 and K2 bound in place of this checkout's, called through
+    scripts/flash_variants.py (warmed up once first): the before to this tree's after."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from zoomearth_tpu_torch.ops import flash_attention as K1
+    from zoomearth_tpu_torch.ops import flash_causal as K2
+    from zoomearth_tpu_torch.scripts import flash_variants as FV
+    from zoomearth_tpu_torch.train import sft as TS
+    from zoomearth_tpu_torch.train import sft_loop as TL
+
+    cfg, processor, samples, loader, new_params = training_setup()
+    params = new_params()
+    TL.make_trainable(params)
+    opt = TS.make_optimizer(params, TS.SFTConfig(learning_rate=1e-4, warmup_steps=1, total_steps=8,
+                                                 gradient_accumulation_steps=8))
+    cut = next(smp for smp in samples if smp.cut)
+    batch = TS.batch_to_device(TL.collate_sft([cut], processor, image_loader=loader), "cuda")
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        TS.train_step(params, opt, batch, cfg=cfg)
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    def measured(label):
+        secs = step()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = step()
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        total = sum(ms for _, ms, _ in rows)
+        log(f"  {label}: one micro-step ({batch['input_ids'].shape[1]} tokens, {batch['pixel_values'].shape[0]} "
+            f"patches) {secs:.3f} s on the host clock, synchronized; under the profiler wall {wall:.3f} s, device "
+            f"kernel time {total:.1f} ms | {card}")
+        if total <= 0:
+            raise AssertionError("the profiler recorded no device time")
+        groups = {"GEMM kernels (nvjet, cutlass, gemm, gemv)": ("nvjet", "cutlass", "gemm", "gemv"),
+                  "K1-bwd zt::flash_segment_bwd": ("zt::flash_segment_bwd",),
+                  "K2-bwd zt::flash_causal_bwd": ("zt::flash_causal_bwd",),
+                  "K1 zt::flash_segment (forward)": ("zt::flash_segment",),
+                  "K2 zt::flash_causal (forward)": ("zt::flash_causal",)}
+        taken = set()
+        for name, keys in groups.items():
+            hit = [r for r in rows if r[0] not in taken and any(k in r[0] for k in keys)]
+            taken.update(r[0] for r in hit)
+            ms, n = sum(r[1] for r in hit), sum(r[2] for r in hit)
+            log(f"    {ms:9.2f} ms {100 * ms / total:5.1f} % {n:6d} calls  {name}")
+        rest = [r for r in rows if r[0] not in taken]
+        log(f"    {sum(r[1] for r in rest):9.2f} ms {100 * sum(r[1] for r in rest) / total:5.1f} % "
+            f"{sum(r[2] for r in rest):6d} calls  every other kernel (elementwise, copies, reductions, indexing)")
+        log("    kernels with at least 1 % of the device time, and every kernel of this repository:")
+        for key, ms, count in sorted(rows, key=lambda r: -r[1]):
+            if ms >= 0.01 * total or "zt::" in key:
+                log(f"      {ms:9.2f} ms {100 * ms / total:5.1f} % {count:6d} calls  {key[:100]}")
+
+    step()
+    step()
+    measured("this tree's kernels")
+    if parent is not None:
+        _, lib, _ = FV.compile_variant(f"profile_parent={parent}", ("flash_segment_bwd.cu", "flash_causal_bwd.cu"),
+                                       ("zt_flash_segment_bwd", "zt_flash_causal_bwd"))
+        old = {D: lib.zt_flash_bwd_variant(1, D) if hasattr(lib, "zt_flash_bwd_variant") else lib.zt_flash_bwd_rows(D)
+               for D in (80, 128)}
+        ours = (K1.segment_attention_bwd_cuda, K2.causal_attention_bwd_cuda)
+
+        def k1_bwd(q, k, v, seg, out, dout, lse):
+            return FV.k1_bwd_call(lib, old[q.shape[-1]], q, k, v, seg.to(torch.int32).contiguous(), out.contiguous(),
+                                  dout.contiguous(), lse.contiguous())
+
+        def k2_bwd(q, k, v, pos, kvl, out, dout, lse):
+            return FV.k2_bwd_call(lib, old[q.shape[-1]], q, k, v, pos.to(torch.int32).contiguous(),
+                                  kvl.to(torch.int32).contiguous(), out.contiguous(), dout.to(q.dtype).contiguous(),
+                                  lse.contiguous())
+
+        K1.segment_attention_bwd_cuda, K2.causal_attention_bwd_cuda = k1_bwd, k2_bwd
+        try:
+            measured(f"the backward kernels of {parent}")
+        finally:
+            K1.segment_attention_bwd_cuda, K2.causal_attention_bwd_cuda = ours
 
 
 def check_tiny_parity():
@@ -2046,6 +2170,12 @@ def main(argv=()) -> int:
     if "--profile" in argv:
         log("[profile] Qwen2.5-VL-3B bf16, one batch of 8 after a warm-up batch")
         profile_slice(card)
+        return 0
+    if "--profile-sft" in argv:
+        parent = next((a.split("=", 1)[1] for a in argv if a.startswith("--parent=")), None)
+        log("[profile-sft] Qwen2.5-VL-3B bf16, one warm SFT micro-step by kernel"
+            + (f", then with the backward kernels of {parent}" if parent else ""))
+        profile_training(card, parent)
         return 0
 
     log("[kernels] bf16, main-path shapes, kernel vs plain version, timed in turns")

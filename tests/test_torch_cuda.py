@@ -906,10 +906,14 @@ def test_k1_backward_matches_plain(dev, dtype, S, H, D, runs):
     out, lse = K1.segment_attention_cuda(q, k, v, seg, return_lse=True)
     _, lse_ref = K1.flash_segment_attention_plain(q, k, v, seg, return_lse=True)
     dout = _randn((S, H, D), dev, dtype, 71)
-    n0 = K1.segment_attention_bwd_cuda.launches
+    n0, v0 = K1.segment_attention_bwd_cuda.launches, dict(K1.segment_attention_bwd_cuda.variants)
     got = K1.segment_attention_bwd_cuda(q, k, v, seg, out, dout, lse)
     torch.cuda.synchronize()
     assert K1.segment_attention_bwd_cuda.launches == n0 + 1
+    # bf16 at a head dim that is a multiple of 16 takes the tensor cores; fp32 and D = 8 the FMA kernels
+    ran = "mma" if dtype == torch.bfloat16 and D % 16 == 0 else "fma"
+    assert K1.segment_attention_bwd_cuda.variants[ran] == v0[ran] + 1
+    assert K1.bwd_variant_rows(dtype, D) == _cuda.lib().zt_flash_bwd_variant(_cuda.DTYPE_CODES[dtype], D)
     # lse: the plain version's from the same inputs; the kernels sum the same fp32 logits' weights in fp32
     # (the tensor-core variant rounds p to bf16 only for p @ v), in another order
     assert _err(lse, lse_ref) <= (1e-4 if dtype == torch.float32 else 1e-3)
@@ -939,16 +943,40 @@ def test_k2_backward_matches_plain(dev, dtype, B, S, H, Hkv, D, kv_len):
     out, lse = K2.causal_attention_cuda(q, k, v, pos, kvl, return_lse=True)
     _, lse_ref = K2.flash_causal_attention_plain(q, k, v, pos, kvl, return_lse=True)
     dout = _randn((B, S, H, D), dev, dtype, 75)
-    n0 = K2.causal_attention_bwd_cuda.launches
+    n0, v0 = K2.causal_attention_bwd_cuda.launches, dict(K2.causal_attention_bwd_cuda.variants)
     got = K2.causal_attention_bwd_cuda(q, k, v, pos, kvl, out, dout, lse)
     torch.cuda.synchronize()
     assert K2.causal_attention_bwd_cuda.launches == n0 + 1
+    ran = "mma" if dtype == torch.bfloat16 else "fma"
+    assert K2.causal_attention_bwd_cuda.variants[ran] == v0[ran] + 1
     assert _err(lse, lse_ref) <= (1e-4 if dtype == torch.float32 else 1e-3)
     assert got[1].stride() == k.stride() and got[2].stride() == v.stride()
     _assert_grads(got, K2.flash_causal_attention_bwd_plain(q, k, v, pos, kvl, out, dout, lse), dtype)
     for b, n in enumerate(kv_len):
         if n == 0:
             assert not any(bool(g[b].any()) for g in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_give_the_same_bits_every_call(dev, dtype):
+    """No atomics: two calls of each backward kernel on the same inputs give equal bits,
+    K2's at a shape whose dk/dv blocks split their query tiles (fp32 partials added in
+    split order), K1's at a full-attention image and at windows."""
+    seg = _segments((1296, 40, 64, 16, 48), 100, dev)
+    D = 80 if dtype == torch.bfloat16 else 8
+    qkv = _randn((seg.shape[0], 3, 4, D), dev, dtype, 83)
+    q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    out, lse = K1.segment_attention_cuda(q, k, v, seg, return_lse=True)
+    dout = _randn(tuple(out.shape), dev, dtype, 84)
+    a = K1.segment_attention_bwd_cuda(q, k, v, seg, out, dout, lse)
+    b = K1.segment_attention_bwd_cuda(q, k, v, seg, out, dout, lse)
+    q, k, v, pos, kvl = _k2_train_case(dev, dtype, 1, 1000, 16, 2, 128, (1000,))
+    out, lse = K2.causal_attention_cuda(q, k, v, pos, kvl, return_lse=True)
+    dout = _randn(tuple(out.shape), dev, dtype, 85)
+    c = K2.causal_attention_bwd_cuda(q, k, v, pos, kvl, out, dout, lse)
+    d = K2.causal_attention_bwd_cuda(q, k, v, pos, kvl, out, dout, lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a + c, b + d))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

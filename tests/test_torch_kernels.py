@@ -821,3 +821,323 @@ def test_k2_backward_splits_cover_every_query_tile_once(T, Hkv, B):
     per = -(-n_qtiles // n)
     covered = [t for s in range(n) for t in range(s * per, min(n_qtiles, (s + 1) * per))]
     assert covered == list(range(n_qtiles))
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core backward of K1 and K2 (csrc/flash_bwd.cuh), emulated on the CPU: the
+# same blocks of 128 rows (dq) and 128 keys (dk/dv), key tiles of 64 and query tiles of
+# 32, a warp's 16 rows or keys skipping the tiles none of its pairs is live in, the
+# compare only where the kernels make it, p = 2^(s scale log2e - lse log2e), P and dS
+# rounded to bf16 as operands of the next product, fp32 sums, and K2's dk/dv split over
+# the query tiles with its partials added in split order. Held at the card's tolerance
+# (one bf16 step, 2^-7, of each gradient's largest value) against the fp32 plain
+# backward and against jax.vjp of the JAX package's plain attention.
+# ---------------------------------------------------------------------------
+
+BWD_SMS = 132  # the H100 SXM's streaming multiprocessors, for the split plan
+
+
+def _grad_tols(ref):
+    return [2.0 ** -7 * float(r.abs().max()) for r in ref]
+
+
+def _assert_within(got, ref, label):
+    for name, a, b, tol in zip(("dq", "dk", "dv"), got, ref, _grad_tols(ref)):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol, (label, name, err, tol)
+
+
+def _emulate_bwd_dq(qs, dos, lse, delta, k, v, live, valid, lo, hi, needs_mask, warp_skips, scale):
+    """One dq block: qs/dos (128, D) bf16 (zeros where the block has no row: valid
+    False), lse/delta (128,) fp32 (0 there), k/v (T, D) bf16, live (128, T); keys [lo, hi)
+    in tiles of 64, rows past hi read as zeros. Returns dq (128, D) in bf16 and the count
+    of (warp, tile) pairs skipped."""
+    R, D = qs.shape
+    dq = torch.zeros(R, D)
+    s2, skipped = scale * LOG2E, 0
+    for t0 in range(lo, hi, K1.TILE):
+        n = min(K1.TILE, hi - t0)
+        kt, vt = torch.zeros(K1.TILE, D), torch.zeros(K1.TILE, D)
+        kt[:n], vt[:n] = k[t0:t0 + n].float(), v[t0:t0 + n].float()
+        s, dp = qs.float() @ kt.T, dos.float() @ vt.T
+        p = torch.exp2(s * s2 - lse[:, None] * LOG2E)
+        if needs_mask(t0):
+            ok = torch.zeros(R, K1.TILE, dtype=torch.bool)
+            ok[:, :n] = live[:, t0:t0 + n]
+            p = torch.where(ok, p, torch.zeros(()))
+        else:
+            assert n == K1.TILE and bool(live[valid, t0:t0 + n].all()), "an unmasked tile must be live throughout"
+        ds = p * (dp - delta[:, None])
+        for w in range(R // 16):
+            if warp_skips(w, t0, n):
+                assert not bool(live[16 * w:16 * w + 16, t0:t0 + n].any()), "a skipped tile must hold no live pair"
+                ds[16 * w:16 * w + 16] = 0.0
+                skipped += 1
+        dq += ds.bfloat16().float() @ kt
+    return (dq * scale).bfloat16(), skipped
+
+
+def _emulate_bwd_dkdv(kb, vb, tiles, scale):
+    """One dk/dv block: kb/vb (128, D) bf16 (zeros past the keys); tiles a sequence of
+    (q (32, D), dout (32, D) bf16, lse, delta (32,) fp32, live (128, 32), modes (8,) of
+    0: the warp skips, 1: it compares, 2: all its pairs are live). Returns the fp32 sums
+    (dk unscaled, dv)."""
+    D = kb.shape[1]
+    dk, dv = torch.zeros(kb.shape[0], D), torch.zeros(kb.shape[0], D)
+    for qt, dot, lse, delta, live, modes in tiles:
+        s, dp = kb.float() @ qt.float().T, vb.float() @ dot.float().T
+        p = torch.exp2(s * (scale * LOG2E) - lse[None, :] * LOG2E)
+        keep = torch.ones_like(live)
+        for w, mode in enumerate(modes):
+            rows = slice(16 * w, 16 * w + 16)
+            if mode == 0:
+                assert not bool(live[rows].any()), "a skipped tile must hold no live pair"
+                keep[rows] = False
+            elif mode == 1:
+                keep[rows] = live[rows]
+            else:
+                assert bool(live[rows].all()), "an unmasked warp must be live throughout"
+        p = torch.where(keep, p, torch.zeros(()))
+        ds = p * (dp - delta[None, :])
+        dv += p.bfloat16().float() @ dot.float()
+        dk += ds.bfloat16().float() @ qt.float()
+    return dk, dv
+
+
+def _emulate_k1_bwd(q, k, v, seg, out, dout, lse):
+    S, H, D = q.shape
+    R, Q = K1.BWD_ROWS, K1.BWD_TILE
+    scale = D**-0.5
+    delta = (dout.float() * out.float()).sum(-1)  # (S, H)
+    first, last = K1.segment_kv_ranges(seg, R)
+    dq, dk, dv = (torch.zeros(S, H, D, dtype=torch.bfloat16) for _ in range(3))
+    skipped = modes_seen = 0
+    segl = seg.tolist()
+    for blk in range(first.shape[0]):
+        s0, s1 = blk * R, min((blk + 1) * R, S)
+        lo, hi = int(first[blk]), int(last[blk])
+        valid = torch.arange(R) < s1 - s0
+        live = torch.zeros(R, S, dtype=torch.bool)
+        live[:s1 - s0] = seg[s0:s1, None] == seg[None, :]
+
+        def warp_skips(w, t0, n, s0=s0, s1=s1):
+            if s0 + 16 * w >= s1:
+                return True
+            lo_id, hi_id = segl[s0 + 16 * w], segl[min(s0 + 16 * w + 15, s1 - 1)]
+            return segl[t0 + n - 1] < lo_id or segl[t0] > hi_id
+
+        for h in range(H):
+            qs, dos = torch.zeros(R, D, dtype=torch.bfloat16), torch.zeros(R, D, dtype=torch.bfloat16)
+            qs[:s1 - s0], dos[:s1 - s0] = q[s0:s1, h], dout[s0:s1, h]
+            lse_b, delta_b = torch.zeros(R), torch.zeros(R)
+            lse_b[:s1 - s0], delta_b[:s1 - s0] = lse[s0:s1, h], delta[s0:s1, h]
+            got, n_skip = _emulate_bwd_dq(qs, dos, lse_b, delta_b, k[:, h], v[:, h], live, valid, lo, hi,
+                                          lambda t0, s0=s0, hi=hi: K1.tile_needs_mask(seg, s0, t0, hi), warp_skips,
+                                          scale)
+            dq[s0:s1, h] = got[:s1 - s0]
+            skipped += n_skip
+        # the same range arrays serve the keys: rows [lo, hi) see keys [s0, s1)
+        t_lo, t_hi = s0, s1
+        for h in range(H):
+            kb, vb = torch.zeros(R, D, dtype=torch.bfloat16), torch.zeros(R, D, dtype=torch.bfloat16)
+            kb[:t_hi - t_lo], vb[:t_hi - t_lo] = k[t_lo:t_hi, h], v[t_lo:t_hi, h]
+            tiles = []
+            for r0 in range(lo, hi, Q):
+                n = min(Q, hi - r0)
+                rows = slice(r0, r0 + n)
+                qt, dot = torch.zeros(Q, D, dtype=torch.bfloat16), torch.zeros(Q, D, dtype=torch.bfloat16)
+                qt[:n], dot[:n] = q[rows, h], dout[rows, h]
+                lt, dt = torch.zeros(Q), torch.zeros(Q)
+                lt[:n], dt[:n] = lse[rows, h], delta[rows, h]
+                lv = torch.zeros(R, Q, dtype=torch.bool)
+                lv[:t_hi - t_lo, :n] = seg[t_lo:t_hi, None] == seg[None, rows]
+                modes = []
+                for w in range(R // 16):
+                    j0 = t_lo + 16 * w
+                    if j0 >= S or segl[r0 + n - 1] < segl[j0] or segl[r0] > segl[min(j0 + 15, S - 1)]:
+                        modes.append(0)
+                    elif (n == Q and j0 + 15 < S and segl[j0] == segl[j0 + 15] == segl[r0] == segl[r0 + n - 1]):
+                        modes.append(2)
+                    else:
+                        modes.append(1)
+                modes_seen += modes.count(0)
+                tiles.append((qt, dot, lt, dt, lv, modes))
+            gk, gv = _emulate_bwd_dkdv(kb, vb, tiles, scale)
+            dk[t_lo:t_hi, h] = (gk * scale).bfloat16()[:t_hi - t_lo]
+            dv[t_lo:t_hi, h] = gv.bfloat16()[:t_hi - t_lo]
+    return (dq, dk, dv), skipped, modes_seen
+
+
+@pytest.mark.parametrize("runs,pad,D", [
+    ([64, 16, 48, 64, 32, 64, 64, 20, 64, 64, 40, 64], 37, 80),  # windows of 16-64 rows + pad tail: warps skip
+    ([40, 500, 64, 24], 13, 16),  # one long segment: boundaries inside tiles, unmasked tiles inside it
+    ([100, 91], 0, 80),  # a boundary inside a block, S no multiple of 32
+])
+def test_k1_tensor_core_backward_matches_plain_and_jax(runs, pad, D):
+    S, H = sum(runs) + pad, 2
+    assert S % K1.BWD_TILE
+    seg = torch.cat([torch.full((n,), i, dtype=torch.int32) for i, n in enumerate(runs)]
+                    + [torch.full((pad,), K1.PAD_SEG, dtype=torch.int32)])
+    q, k, v, dout = (_t(_rand((S, H, D), s)).bfloat16() for s in (120, 121, 122, 123))
+    out, lse = K1.flash_segment_attention_plain(q, k, v, seg, return_lse=True)
+    got, skipped, warp_skips = _emulate_k1_bwd(q, k, v, seg, out, dout, lse)
+    ref = K1.flash_segment_attention_bwd_plain(q.float(), k.float(), v.float(), seg, out.float(), dout.float(), lse)
+    _assert_within(got, ref, "plain")
+    jseg = jnp.asarray(seg.numpy())
+    _, vjp = jax.vjp(lambda a, b, c: JA.segment_attention(a, b, c, jseg), *(x.float().numpy() for x in (q, k, v)))
+    _assert_within(got, [torch.from_numpy(np.array(g)) for g in vjp(jnp.asarray(dout.float().numpy()))], "jax")
+    if len(runs) > 2:
+        assert skipped > 0 and warp_skips > 0  # warps skip tiles of other segments on both sides
+
+
+def _emulate_k2_bwd(q, k, v, positions, kv_len, out, dout, lse):
+    B, S, H, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G, R, Q = H // Hkv, K1.BWD_ROWS, K2.BWD_TILE
+    scale = D**-0.5
+    delta = (dout.float() * out.float()).sum(-1)  # (B, S, H)
+    slot = torch.arange(T)
+    klen = kv_len.clamp(0, T)
+    dq = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
+    dk, dv = torch.zeros(B, Hkv, T, D, dtype=torch.bfloat16), torch.zeros(B, Hkv, T, D, dtype=torch.bfloat16)
+    bq = R // G
+    hi, full = K2.block_key_bounds(positions, kv_len, T, bq)
+    for b in range(B):
+        kl = int(klen[b])
+        for blk in range(hi.shape[1]):
+            r = torch.arange(R)
+            s = blk * bq + r % bq
+            valid = s < S
+            sc = s.clamp(max=S - 1)
+            pos = torch.where(valid, positions[b, sc], torch.full_like(sc, -1))
+            live = (slot[None] <= pos[:, None]) & (slot[None] < kl) & valid[:, None]
+            bound = torch.minimum(pos + 1, torch.tensor(kl)).clamp(min=0)
+
+            def warp_skips(w, t0, n, bound=bound):
+                return t0 >= int(bound[16 * w:16 * w + 16].max())
+
+            for kh in range(Hkv):
+                h = kh * G + r // bq
+                z = torch.zeros((), dtype=torch.bfloat16)
+                qs = torch.where(valid[:, None], q[b, sc, h], z)
+                dos = torch.where(valid[:, None], dout[b, sc, h], z)
+                lse_b = torch.where(valid, lse[b, sc, h], torch.zeros(()))
+                delta_b = torch.where(valid, delta[b, sc, h], torch.zeros(()))
+                got, _ = _emulate_bwd_dq(qs, dos, lse_b, delta_b, k[b, kh], v[b, kh], live, valid, 0, int(hi[b, blk]),
+                                         lambda t0, f=int(full[b, blk]): K2.tile_needs_mask(t0, f), warp_skips, scale)
+                dq[b, sc[valid], h[valid]] = got[valid]
+    # dk/dv: blocks of 128 keys; the (position, head) rows position-major in tiles of 32, split over the blocks
+    n_rows, n_qtiles = S * G, -(-S * G // Q)
+    qhi = K2.block_key_bounds(positions, kv_len, T, Q // G)[0]
+    key_blocks = -(-T // R)
+    nsplit = K2.dkdv_splits(key_blocks, Hkv, B, n_qtiles, K2.BWD_BLOCKS_PER_SM_MMA * BWD_SMS)
+    per = -(-n_qtiles // nsplit)
+    for b in range(B):
+        kl = int(klen[b])
+        for kh in range(Hkv):
+            for kb in range(key_blocks):
+                t_lo = kb * R
+                nk = min(R, T - t_lo)
+                kbk, vbk = torch.zeros(R, D, dtype=torch.bfloat16), torch.zeros(R, D, dtype=torch.bfloat16)
+                kbk[:nk], vbk[:nk] = k[b, kh, t_lo:t_lo + nk], v[b, kh, t_lo:t_lo + nk]
+                keys = t_lo + torch.arange(R)
+                sums = []
+                for sp in range(nsplit):
+                    tiles = []
+                    for tile in range(sp * per, min(n_qtiles, (sp + 1) * per)):
+                        if int(qhi[b, tile]) <= t_lo:
+                            continue
+                        rr = tile * Q + torch.arange(Q)
+                        ok = rr < n_rows
+                        n = int(ok.sum())
+                        s_, g_ = (rr // G).clamp(max=S - 1), rr % G
+                        z = torch.zeros((), dtype=torch.bfloat16)
+                        qt = torch.where(ok[:, None], q[b, s_, kh * G + g_], z)
+                        dot = torch.where(ok[:, None], dout[b, s_, kh * G + g_], z)
+                        lt = torch.where(ok, lse[b, s_, kh * G + g_], torch.zeros(()))
+                        dt = torch.where(ok, delta[b, s_, kh * G + g_], torch.zeros(()))
+                        pos = torch.where(ok, positions[b, s_], torch.full_like(s_, -1))
+                        lv = (keys[:, None] <= pos[None, :]) & (keys[:, None] < kl) & ok[None, :]
+                        pc = pos[:n].clamp(max=T - 1)
+                        modes = []
+                        for w in range(R // 16):
+                            wlo = t_lo + 16 * w
+                            if min(int(pc.max()) + 1, kl) <= wlo:
+                                modes.append(0)
+                            elif n == Q and wlo + 16 <= min(int(pc.min()) + 1, kl):
+                                modes.append(2)
+                            else:
+                                modes.append(1)
+                        tiles.append((qt, dot, lt, dt, lv, modes))
+                    sums.append(_emulate_bwd_dkdv(kbk, vbk, tiles, scale))
+                gk, gv = sums[0]
+                for pk, pv in sums[1:]:  # the partials added in split order
+                    gk, gv = gk + pk, gv + pv
+                dk[b, kh, t_lo:t_lo + nk] = (gk * scale).bfloat16()[:nk]
+                dv[b, kh, t_lo:t_lo + nk] = gv.bfloat16()[:nk]
+    return (dq, dk, dv), nsplit
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,kv_len", [
+    (3, 150, 16, 2, 32, (150, 0, 97)),  # G = 8 as at 3B; a row with no live key; S no multiple of any tile
+    (2, 70, 4, 4, 16, (70, 33)),  # G = 1; pad queries past kv_len
+    (1, 40, 32, 1, 16, (40,)),  # G = 32, the most a tile of 32 rows allows
+    (2, 90, 4, 2, 128, (90, 64)),  # G = 2 at the decoder's head dim
+])
+def test_k2_tensor_core_backward_matches_plain_and_jax(B, S, H, Hkv, D, kv_len):
+    """The no-cache training path (slot t is token t). A row with no live key gets zero
+    gradients and adds nothing to dk or dv, though its lse is NEG_INF (the exponent alone
+    would give 1 there)."""
+    q = _t(_rand((B, S, H, D), 124)).bfloat16()
+    kp, vp = _t(_rand((B, S, Hkv, D), 125)).bfloat16(), _t(_rand((B, S, Hkv, D), 126)).bfloat16()
+    k, v = kp.transpose(1, 2), vp.transpose(1, 2)
+    dout = _t(_rand((B, S, H, D), 127)).bfloat16()
+    kvl = torch.tensor(kv_len, dtype=torch.int32)
+    pos = torch.arange(S, dtype=torch.int32)[None].expand(B, S).contiguous()
+    out, lse = K2.flash_causal_attention_plain(q, k, v, pos, kvl, return_lse=True)
+    got, nsplit = _emulate_k2_bwd(q, k, v, pos, kvl, out, dout, lse)
+    assert nsplit > 1  # the split plan of these shapes sums partials
+    ref = K2.flash_causal_attention_bwd_plain(q.float(), k.float(), v.float(), pos, kvl, out.float(), dout.float(), lse)
+    _assert_within(got, ref, "plain")
+    dead = torch.minimum(pos + 1, kvl[:, None]) <= 0
+    assert not bool(got[0][dead].any())
+    # jax.vjp with the dead rows' dO zeroed (JAX's plain softmax spreads such a row evenly): the same dk and dv,
+    # and dq of the live rows
+    dout_live = torch.where(dead[:, :, None, None], torch.zeros(()), dout.float())
+    valid = np.arange(S)[None] < np.asarray(kv_len)[:, None]
+    _, vjp = jax.vjp(lambda a, kk, vv: JA.causal_attention(a, kk.transpose(0, 2, 1, 3), vv.transpose(0, 2, 1, 3),
+                                                          positions=jnp.asarray(pos.numpy()), valid=jnp.asarray(valid)),
+                     q.float().numpy(), kp.float().numpy(), vp.float().numpy())
+    jq, jk, jv = (torch.from_numpy(np.array(g)) for g in vjp(jnp.asarray(dout_live.numpy())))
+    _assert_within(got, (jq, jk.transpose(1, 2), jv.transpose(1, 2)), "jax")
+
+
+@pytest.mark.parametrize("T,Hkv,B", [(2048, 2, 1), (150, 2, 5), (64, 8, 1), (4096, 2, 8), (40, 1, 1)])
+def test_k2_tensor_core_backward_splits_cover_every_query_tile_once(T, Hkv, B):
+    """The tensor-core dk/dv kernel's split plan (blocks of BWD_ROWS keys, BWD_BLOCKS_PER_SM_MMA
+    an SM): at most one split per query tile, enough splits to reach the target, and each
+    tile in exactly one split, in order."""
+    G = 8
+    key_blocks, n_qtiles = -(-T // K1.BWD_ROWS), -(-T * G // K2.BWD_TILE)
+    target = K2.BWD_BLOCKS_PER_SM_MMA * BWD_SMS
+    n = K2.dkdv_splits(key_blocks, Hkv, B, n_qtiles, target)
+    assert 1 <= n <= n_qtiles
+    assert key_blocks * Hkv * B * n >= min(target, key_blocks * Hkv * B * n_qtiles)
+    per = -(-n_qtiles // n)
+    covered = [t for s in range(n) for t in range(s * per, min(n_qtiles, (s + 1) * per))]
+    assert covered == list(range(n_qtiles))
+    if (T, Hkv, B) == (2048, 2, 1):  # the SFT path: 16 x 2 blocks of keys, 13 splits
+        assert (key_blocks, n) == (16, 13)
+
+
+@pytest.mark.parametrize("dtype,D,rows", [
+    (torch.bfloat16, 16, 128), (torch.bfloat16, 32, 128), (torch.bfloat16, 64, 128), (torch.bfloat16, 80, 128),
+    (torch.bfloat16, 128, 128), (torch.bfloat16, 8, 64), (torch.float32, 8, 64), (torch.float32, 16, 64),
+    (torch.float32, 64, 32), (torch.float32, 80, 32), (torch.float32, 128, 32), (torch.bfloat16, 96, -1),
+    (torch.float16, 64, -1), (torch.float32, 48, -1),
+])
+def test_backward_variant_rule(dtype, D, rows):
+    """The Python mirror of zt_flash_bwd_variant (the card tests hold the C query to it):
+    bf16 at a head dim that is a multiple of 16 takes the tensor cores, 128 rows a block;
+    fp32 never does (the fp32 parity runs keep their precision), nor D = 8."""
+    assert K1.bwd_variant_rows(dtype, D) == rows

@@ -33,13 +33,7 @@
 // fp32 FMA over an fp32 tile of 32 keys, 64 rows a block. bf16 tensor-core products
 // would cost them the precision they are run for. zt_flash_causal_variant says which
 // of the two a dtype and head dim get.
-#include "flash_mma.cuh"
-
-// Tile copies are cached in L1 too (cp.async.ca): one block an SM leaves L1 large,
-// and on the card .ca ran 7-14 % faster here than .cg.
-#ifndef ZT_FM_K2_L1
-#define ZT_FM_K2_L1 1
-#endif
+#include "flash_policy.cuh"
 
 namespace zt {
 
@@ -167,59 +161,8 @@ static int launch_causal(const void* q, const void* k, const void* v, const floa
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core variant: the policy of flash_mma.cuh's core for K2.
+// The tensor-core variant: flash_mma.cuh's core under CausalPolicy (flash_policy.cuh).
 // ---------------------------------------------------------------------------
-template <typename KT>
-struct CausalPolicy {
-  static constexpr bool QUANT = sizeof(KT) == 1;
-  static constexpr bool kCopiesThroughL1 = ZT_FM_K2_L1;
-  int lo, hi;
-  int full;  // keys below it are live for every row of the block
-  int klen, bq, s0, S, H, D;
-  const int* pos_s;  // the block's bq positions (-1 past S), shared memory
-  const __nv_bfloat16* qb;  // q + b * q_sb + (kh * G) * q_sh
-  long long q_ss, q_sh;
-  const KT* kb;
-  const KT* vb;
-  long long k_st, v_st;
-  const float* ksb;  // ks + b * sc_sb + kh * sc_sh (int8 K/V)
-  const float* vsb;
-  __nv_bfloat16* ob;  // out + (b * S * H + kh * G) * D
-  float* lseb;        // lse + b * S * H + kh * G, or nullptr
-  int pos_row[2];
-
-  __device__ __forceinline__ const __nv_bfloat16* q_row_any() const { return qb; }
-  __device__ __forceinline__ const __nv_bfloat16* q_row(int r) const {
-    const int s = s0 + r % bq;
-    return s < S ? qb + (long long)s * q_ss + (long long)(r / bq) * q_sh : nullptr;
-  }
-  __device__ __forceinline__ __nv_bfloat16* out_row(int r) const {
-    const int s = s0 + r % bq;
-    return s < S ? ob + ((long long)s * H + r / bq) * D : nullptr;
-  }
-  __device__ __forceinline__ float* lse_row(int r) const {
-    const int s = s0 + r % bq;
-    return lseb != nullptr && s < S ? lseb + (long long)s * H + r / bq : nullptr;
-  }
-  __device__ __forceinline__ const KT* k_row(int t) const { return kb + (long long)t * k_st; }
-  __device__ __forceinline__ const KT* v_row(int t) const { return vb + (long long)t * v_st; }
-  __device__ __forceinline__ void load_aux(int* aux, int t0, int tid) const {
-    if (QUANT && tid < 2 * FM_BKV) {
-      const int col = tid % FM_BKV;
-      const bool ok = t0 + col < hi;
-      cp_async4_z(aux + tid, (tid < FM_BKV ? ksb : vsb) + (ok ? t0 + col : lo), ok);
-    }
-  }
-  __device__ __forceinline__ void set_rows(int r_lo, int r_hi) {
-    pos_row[0] = pos_s[r_lo % bq];
-    pos_row[1] = pos_s[r_hi % bq];
-  }
-  __device__ __forceinline__ bool needs_mask(const int*, int t0) const { return t0 + FM_BKV > full; }
-  __device__ __forceinline__ bool live(int half, const int*, int, int t) const {
-    return t <= pos_row[half] && t < klen;
-  }
-};
-
 // One block an SM at D = 128 (its 166 registers a thread spill at the 128 that two
 // blocks would allow, and ran slower), two up to D = 64.
 template <int D, typename KT>
@@ -234,38 +177,11 @@ __global__ void __launch_bounds__(FM_THREADS, D <= 64 ? 2 : 1)
                             float scale) {
   extern __shared__ __align__(16) unsigned char fm_smem[];
   __shared__ int pos_s[FM_ROWS];
-  const int bq = FM_ROWS / G;  // query positions per block
-  const int s0 = blockIdx.x * bq;
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int klen = min(max(kv_len[b], 0), T);
-  for (int i = threadIdx.x; i < bq; i += FM_THREADS)
-    pos_s[i] = s0 + i < S ? positions[(long long)b * S + s0 + i] : -1;
-  __syncthreads();
-  int pmax = -1, pmin = T;  // over the block's rows below S
-  for (int i = 0; i < bq && s0 + i < S; ++i) {
-    pmax = max(pmax, pos_s[i]);
-    pmin = min(pmin, pos_s[i]);
-  }
-
   CausalPolicy<KT> pol;
-  pol.lo = 0;
-  pol.hi = min(min(pmax, T - 1) + 1, klen);    // causal bound of this block, clipped by kv_len
-  pol.full = min(max(pmin, -1) + 1, klen);
-  pol.klen = klen;
-  pol.bq = bq;
-  pol.s0 = s0;
-  pol.S = S;
-  pol.H = gridDim.y * G;
+  pol.init(blockIdx.x, q, k, v, positions, kv_len, pos_s, S, T, G, q_sb, q_ss, q_sh, k_sb, k_sh, k_st, v_sb, v_sh,
+           v_st);
+  const int kh = blockIdx.y, b = blockIdx.z;
   pol.D = D;
-  pol.pos_s = pos_s;
-  pol.qb = q + (long long)b * q_sb + (long long)kh * G * q_sh;
-  pol.q_ss = q_ss;
-  pol.q_sh = q_sh;
-  pol.kb = k + (long long)b * k_sb + (long long)kh * k_sh;
-  pol.vb = v + (long long)b * v_sb + (long long)kh * v_sh;
-  pol.k_st = k_st;
-  pol.v_st = v_st;
   pol.ksb = ksc != nullptr ? ksc + (long long)b * sc_sb + (long long)kh * sc_sh : nullptr;
   pol.vsb = vsc != nullptr ? vsc + (long long)b * sc_sb + (long long)kh * sc_sh : nullptr;
   pol.ob = out + ((long long)b * S * pol.H + (long long)kh * G) * D;

@@ -3,29 +3,31 @@
 //
 // Replaces no TPU kernel: zoomearth_tpu/ops/flash_causal.py::flash_causal_attention
 // has no VJP (flash_bwd.cuh says more). The query at positions[b, s] sees the kv
-// slots t <= positions[b, s] with t < kv_len[b]; a row with no such slot gets zero
-// gradients. bf16 or fp32 K/V only: the int8 cache is never trained, and the
-// wrapper refuses it before any launch.
+// slots t <= positions[b, s] with t < kv_len[b] (CausalPolicy::rule, the forward's);
+// a row with no such slot gets zero gradients. bf16 or fp32 K/V only: the int8 cache
+// is never trained, and the wrapper refuses it before any launch.
 //
 // GQA: the G = H / Hkv query heads of a kv head read the same k/v rows, so dk and dv
-// of a key sum over all G heads' rows. Both kernels keep the forward's fold:
+// of a key sum over all G heads' rows. Both variants keep the forward's fold:
 // - dq: a block owns (b, kv head, ROWS / G positions) and its ROWS (head, position)
 //   rows (row r is head r / bq, position r % bq) walk the keys below the block's
-//   largest live bound, min(position + 1, kv_len), in tiles of BWD_TILE;
+//   largest live bound, min(position + 1, kv_len);
 // - dk/dv: a block owns (b, kv head, ROWS keys) and walks the (position, head) rows
 //   of the batch row position-major in tiles of BWD_TILE rows (BWD_TILE / G
 //   positions), skipping a tile whose rows all end below its first key (qhi: the
 //   same bound per tile, from the wrapper); keys at or past kv_len get zeros. There
-//   are few such blocks (T / ROWS x Hkv x B: 128 at the SFT path's 2048 tokens, one
-//   an SM), and the causal mask gives the first keys all the rows and the last ones
-//   few, so the tiles are split among nsplit blocks per key block (the wrapper picks
-//   nsplit to fill the card): each writes its fp32 partial sums, and a third kernel
-//   adds the nsplit partials in split order, scales dk and writes both. The sum's
-//   order is fixed: the result is the same every run.
+//   are few such blocks (T / ROWS x Hkv x B: 16 x 2 at the SFT path's 2048 tokens
+//   with the mma variant's 128 keys), and the causal mask gives the first keys all
+//   the rows and the last ones few, so the tiles are split among nsplit blocks per
+//   key block (the wrapper picks nsplit from the card's SM count): each writes its
+//   fp32 partial sums, and a third kernel adds the nsplit partials in split order,
+//   scales dk and writes both. The sum's order is fixed: the result is the same every
+//   run.
 // k, v, dk and dv go through their strides, so the decoder's transposed views of its
 // (B, S, Hkv, D) projections need no copy and get gradients in their own layout.
 //
-// What bounds it and what the design does: flash_bwd.cuh.
+// The variants (bf16: the tensor-core "mma" kernels, fp32: the FMA ones), what bounds
+// them and what the design does: flash_bwd.cuh.
 #include "flash_bwd.cuh"
 
 namespace zt {
@@ -202,6 +204,14 @@ __global__ void __launch_bounds__(BWD_THREADS) flash_causal_bwd_reduce_kernel(Ca
   a.dv[(long long)b * a.dv_sb + (long long)kh * a.dv_sh + (long long)t * a.dv_st + d] = from_f<E>(sv);
 }
 
+template <typename E>
+static int launch_causal_bwd_reduce(const CausalBwdArgs<E>& a, int D, cudaStream_t stream) {
+  const long long n = (long long)a.B * a.Hkv * a.T * D;
+  flash_causal_bwd_reduce_kernel<E><<<static_cast<unsigned>((n + BWD_THREADS - 1) / BWD_THREADS), BWD_THREADS, 0,
+                                      stream>>>(a, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D, typename E>
 static int launch_causal_bwd(const CausalBwdArgs<E>& a, cudaStream_t stream) {
   constexpr int ROWS = bwd_rows<D>();
@@ -213,21 +223,192 @@ static int launch_causal_bwd(const CausalBwdArgs<E>& a, cudaStream_t stream) {
       <<<dim3((a.T + ROWS - 1) / ROWS, a.Hkv, a.B * a.nsplit), BWD_THREADS, 0, stream>>>(a);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0 || a.nsplit == 1) return rc;
-  const long long n = (long long)a.B * a.Hkv * a.T * D;
-  flash_causal_bwd_reduce_kernel<E><<<static_cast<unsigned>((n + BWD_THREADS - 1) / BWD_THREADS), BWD_THREADS, 0,
-                                      stream>>>(a, D);
-  return static_cast<int>(cudaGetLastError());
+  return launch_causal_bwd_reduce(a, D, stream);
+}
+
+
+// ---------------------------------------------------------------------------
+// The tensor-core variant (bf16): flash_bwd.cuh's cores. dq runs under the forward's
+// CausalPolicy; dk/dv under CausalKeysPolicy, the same rule seen from a block of keys.
+// ---------------------------------------------------------------------------
+struct CausalKeysPolicy {
+  static constexpr bool kCopiesThroughL1 = ZT_FM_K2_L1;
+  int t_lo, T, klen, S, H, G, rows, D;  // rows = S G (position, head) rows of the batch row
+  int begin, end;                       // this split's query tiles
+  const int* qhi;                       // this batch row's n_qtiles bounds
+  const __nv_bfloat16* qb;              // q + b * q_sb + kh * G * q_sh
+  long long q_ss, q_sh;
+  const __nv_bfloat16* dob;  // dout + (b * S * H + kh * G) * D; row (s, g) at (s H + g) D
+  const float* lseb;         // lse + b * S * H + kh * G; row (s, g) at s H + g
+  const float* deltab;
+  const int* posb;  // positions + b * S
+  const __nv_bfloat16* kb;
+  const __nv_bfloat16* vb;
+  long long k_st, v_st;
+  __nv_bfloat16* dkb;  // dk + b * dk_sb + kh * dk_sh
+  __nv_bfloat16* dvb;
+  long long dk_st, dv_st;
+  float* pk;  // nsplit > 1: this split's fp32 partial dk rows (t at t D), then dv's
+  float* pv;
+  float scale;
+  int key[2];
+  int wlo;  // this warp's first key
+
+  __device__ __forceinline__ const __nv_bfloat16* any() const { return qb; }
+  __device__ __forceinline__ int next_tile(int i) const {
+    while (i < end && qhi[i] <= t_lo) ++i;
+    return i;
+  }
+  __device__ __forceinline__ int tile_rows(int i) const { return min(BM_BQ, rows - i * BM_BQ); }
+  __device__ __forceinline__ long long row_index(int i, int r) const {
+    const int rr = i * BM_BQ + r;
+    return rr < rows ? (long long)(rr / G) * H + rr % G : -1;
+  }
+  __device__ __forceinline__ const __nv_bfloat16* q_row(int i, int r) const {
+    const int rr = i * BM_BQ + r;
+    return rr < rows ? qb + (long long)(rr / G) * q_ss + (long long)(rr % G) * q_sh : nullptr;
+  }
+  __device__ __forceinline__ const __nv_bfloat16* do_row(int i, int r) const {
+    const long long x = row_index(i, r);
+    return x >= 0 ? dob + x * D : nullptr;
+  }
+  // aux: lse, delta, then position of each row; 0 past the tile's rows
+  __device__ __forceinline__ void load_aux(float* aux, int i, int tid) const {
+    const int part = tid / BM_BQ, r = tid % BM_BQ;
+    const long long x = row_index(i, r);
+    const bool ok = x >= 0;
+    const void* src = !ok ? static_cast<const void*>(lseb)
+                      : part == 0 ? static_cast<const void*>(lseb + x)
+                      : part == 1 ? static_cast<const void*>(deltab + x)
+                                  : static_cast<const void*>(posb + (i * BM_BQ + r) / G);
+    cp_async4_z(aux + tid, src, ok);
+  }
+  __device__ __forceinline__ const __nv_bfloat16* k_row(int j) const {
+    return t_lo + j < T ? kb + (long long)(t_lo + j) * k_st : nullptr;
+  }
+  __device__ __forceinline__ const __nv_bfloat16* v_row(int j) const {
+    return t_lo + j < T ? vb + (long long)(t_lo + j) * v_st : nullptr;
+  }
+  __device__ __forceinline__ void set_keys(int j_lo, int j_hi) {
+    key[0] = t_lo + j_lo;
+    key[1] = t_lo + j_hi;
+  }
+  __device__ __forceinline__ void set_warp(int j0) { wlo = t_lo + j0; }
+  // one row a lane: the tile's largest and smallest bound against the warp's 16 keys
+  __device__ __forceinline__ int warp_mode(const int* tag, int n) const {
+    const int lane = threadIdx.x % 32;
+    const int pos = min(tag[lane], T - 1);
+    int pmax = lane < n ? pos : -1, pmin = lane < n ? pos : T;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      pmax = max(pmax, __shfl_xor_sync(0xffffffffu, pmax, off));
+      pmin = min(pmin, __shfl_xor_sync(0xffffffffu, pmin, off));
+    }
+    if (min(pmax + 1, klen) <= wlo) return 0;
+    return n == BM_BQ && wlo + 16 <= min(pmin + 1, klen) ? 2 : 1;
+  }
+  __device__ __forceinline__ bool live(int h, const int* tag, int col, int n) const {
+    return col < n && CausalPolicy<__nv_bfloat16>::rule(key[h], tag[col], klen);
+  }
+  __device__ __forceinline__ void store(int j, int d, float dk0, float dk1, float dv0, float dv1) const {
+    const int t = t_lo + j;
+    if (t >= T) return;
+    if (pk != nullptr) {
+      *reinterpret_cast<float2*>(pk + (long long)t * D + d) = make_float2(dk0, dk1);
+      *reinterpret_cast<float2*>(pv + (long long)t * D + d) = make_float2(dv0, dv1);
+    } else {
+      *reinterpret_cast<unsigned*>(dkb + (long long)t * dk_st + d) = pack_bf16(dk0 * scale, dk1 * scale);
+      *reinterpret_cast<unsigned*>(dvb + (long long)t * dv_st + d) = pack_bf16(dv0, dv1);
+    }
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(FM_THREADS, 1) flash_causal_bwd_dq_mma_kernel(CausalBwdArgs<__nv_bfloat16> a) {
+  extern __shared__ __align__(16) unsigned char bm_smem[];
+  __shared__ int pos_s[FM_ROWS];
+  CausalPolicy<__nv_bfloat16> pol;
+  // the blocks of the latest positions, which walk the most keys, start first: less of a tail
+  pol.init(gridDim.x - 1 - blockIdx.x, a.q, a.k, a.v, a.positions, a.kv_len, pos_s, a.S, a.T, a.G, a.q_sb, a.q_ss,
+           a.q_sh, a.k_sb, a.k_sh, a.k_st, a.v_sb, a.v_sh, a.v_st);
+  pol.D = D;
+  const long long base = (long long)blockIdx.z * a.S * a.H + (long long)blockIdx.y * a.G;
+  const BwdRows io{a.o + base * D, a.dout + base * D, a.lse + base, a.delta + base, a.dq + base * D};
+  bwd_dq_block<D>(pol, io, bm_smem, a.scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(FM_THREADS, 1) flash_causal_bwd_dkdv_mma_kernel(CausalBwdArgs<__nv_bfloat16> a) {
+  extern __shared__ __align__(16) unsigned char bm_smem[];
+  const int kh = blockIdx.y, b = blockIdx.z / a.nsplit, split = blockIdx.z % a.nsplit;
+  const int per = (a.n_qtiles + a.nsplit - 1) / a.nsplit;  // this block's tiles: [split * per, + per)
+  const long long base = (long long)b * a.S * a.H + (long long)kh * a.G;
+  CausalKeysPolicy pol;
+  pol.t_lo = blockIdx.x * BM_KEYS;
+  pol.T = a.T;
+  pol.klen = min(max(a.kv_len[b], 0), a.T);
+  pol.S = a.S;
+  pol.H = a.H;
+  pol.G = a.G;
+  pol.rows = a.S * a.G;
+  pol.D = D;
+  pol.begin = split * per;
+  pol.end = min(a.n_qtiles, (split + 1) * per);
+  pol.qhi = a.qhi + (long long)b * a.n_qtiles;
+  pol.qb = a.q + (long long)b * a.q_sb + (long long)kh * a.G * a.q_sh;
+  pol.q_ss = a.q_ss;
+  pol.q_sh = a.q_sh;
+  pol.dob = a.dout + base * D;
+  pol.lseb = a.lse + base;
+  pol.deltab = a.delta + base;
+  pol.posb = a.positions + (long long)b * a.S;
+  pol.kb = a.k + (long long)b * a.k_sb + (long long)kh * a.k_sh;
+  pol.vb = a.v + (long long)b * a.v_sb + (long long)kh * a.v_sh;
+  pol.k_st = a.k_st;
+  pol.v_st = a.v_st;
+  pol.dkb = a.dk + (long long)b * a.dk_sb + (long long)kh * a.dk_sh;
+  pol.dvb = a.dv + (long long)b * a.dv_sb + (long long)kh * a.dv_sh;
+  pol.dk_st = a.dk_st;
+  pol.dv_st = a.dv_st;
+  pol.pk = pol.pv = nullptr;
+  if (a.nsplit > 1) {
+    const long long n = (long long)a.nsplit * a.B * a.Hkv * a.T * D;
+    pol.pk = a.part + (((long long)split * a.B + b) * a.Hkv + kh) * a.T * D;
+    pol.pv = pol.pk + n;
+  }
+  pol.scale = a.scale;
+  bwd_dkdv_block<D>(pol, bm_smem, a.scale);
+}
+
+template <int D>
+static int launch_causal_bwd_mma(const CausalBwdArgs<__nv_bfloat16>& a, cudaStream_t stream) {
+  constexpr int dq_smem = bm_dq_smem_bytes<D>(), kv_smem = bm_dkdv_smem_bytes<D>();
+  static const int dq_allowed = fm_allow_smem(flash_causal_bwd_dq_mma_kernel<D>, dq_smem);  // once
+  static const int kv_allowed = fm_allow_smem(flash_causal_bwd_dkdv_mma_kernel<D>, kv_smem);
+  if (dq_allowed != 0) return dq_allowed;
+  if (kv_allowed != 0) return kv_allowed;
+  const int bq = FM_ROWS / a.G;
+  flash_causal_bwd_dq_mma_kernel<D><<<dim3((a.S + bq - 1) / bq, a.Hkv, a.B), FM_THREADS, dq_smem, stream>>>(a);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  flash_causal_bwd_dkdv_mma_kernel<D>
+      <<<dim3((a.T + BM_KEYS - 1) / BM_KEYS, a.Hkv, a.B * a.nsplit), FM_THREADS, kv_smem, stream>>>(a);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0 || a.nsplit == 1) return rc;
+  return launch_causal_bwd_reduce(a, D, stream);
 }
 
 }  // namespace zt
 
 // q (B, S, H, D) and k/v/dk/dv (B, Hkv, T, D) with unit stride on D; o, dout, dq
-// contiguous (B, S, H, D), all of one dtype (fp32 or bf16); lse and delta (B, S, H)
-// fp32; positions (B, S) and kv_len (B,) int32; qhi (B, n_qtiles) int32 from
-// block_key_bounds at BWD_TILE / G positions a tile. G = H / Hkv divides BWD_TILE.
-// nsplit blocks share each block of keys; above 1, part is fp32 scratch of
-// 2 x nsplit x B x Hkv x T x D. Launches the dq kernel, the dk/dv kernel and, above
-// one split, the kernel that adds the partials, on `stream`.
+// contiguous (B, S, H, D), all of one dtype (fp32 or bf16; bf16 at D = 16, 32, 64 or
+// 128 takes the mma variant, whose copies need 16-byte aligned bases and strides);
+// lse and delta (B, S, H) fp32; positions (B, S) and kv_len (B,) int32; qhi (B,
+// n_qtiles) int32 from block_key_bounds at BWD_TILE / G positions a tile. G = H / Hkv
+// divides BWD_TILE. The blocks of keys are of bwd_variant_rows(dtype, D) keys, and
+// nsplit blocks share each; above 1, part is fp32 scratch of 2 x nsplit x B x Hkv x T
+// x D. Launches the dq kernel, the dk/dv kernel and, above one split, the kernel that
+// adds the partials, on `stream`.
 extern "C" int zt_flash_causal_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                                    const float* lse, const int* positions, const int* kv_len, const int* qhi,
                                    void* dq, void* dk, void* dv, float* delta, float* part, int B, int S, int H,
@@ -241,27 +422,34 @@ extern "C" int zt_flash_causal_bwd(const void* q, const void* k, const void* v, 
   if (Hkv <= 0 || H % Hkv != 0 || BWD_TILE % (H / Hkv) != 0 || nsplit < 1 || (nsplit > 1 && part == nullptr))
     return ZT_UNSUPPORTED;
   const int G = H / Hkv;
+  const int rows = bwd_variant_rows(dtype, D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ZT_CAU_BWD(DD, EE)                                                                                         \
-  {                                                                                                                \
-    const CausalBwdArgs<EE> a{static_cast<const EE*>(q), static_cast<const EE*>(k), static_cast<const EE*>(v),      \
-                              static_cast<const EE*>(o), static_cast<const EE*>(dout), lse, positions, kv_len, qhi, \
-                              static_cast<EE*>(dq), static_cast<EE*>(dk), static_cast<EE*>(dv), delta, part, B, S, \
-                              H, Hkv, T, G, n_qtiles, nsplit, q_sb, q_ss, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, \
-                              dk_sb, dk_sh, dk_st, dv_sb, dv_sh, dv_st, scale};                                    \
-    return launch_causal_bwd<DD, EE>(a, st);                                                                       \
+#define ZT_CAU_BWD_ARGS(EE)                                                                                    \
+  const CausalBwdArgs<EE> a{static_cast<const EE*>(q), static_cast<const EE*>(k), static_cast<const EE*>(v),    \
+                            static_cast<const EE*>(o), static_cast<const EE*>(dout), lse, positions, kv_len, qhi, \
+                            static_cast<EE*>(dq), static_cast<EE*>(dk), static_cast<EE*>(dv), delta, part, B, S,  \
+                            H, Hkv, T, G, n_qtiles, nsplit, q_sb, q_ss, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, \
+                            dk_sb, dk_sh, dk_st, dv_sb, dv_sh, dv_st, scale};
+  if (dtype == BF16 && rows == BM_ROWS) {
+    ZT_CAU_BWD_ARGS(__nv_bfloat16)
+    switch (D) {
+      case 16: return launch_causal_bwd_mma<16>(a, st);
+      case 32: return launch_causal_bwd_mma<32>(a, st);
+      case 64: return launch_causal_bwd_mma<64>(a, st);
+      case 128: return launch_causal_bwd_mma<128>(a, st);
+      default: return ZT_UNSUPPORTED;
+    }
   }
-#define ZT_CAU_BWD_D(EE)             \
-  switch (D) {                       \
-    case 16: ZT_CAU_BWD(16, EE)      \
-    case 32: ZT_CAU_BWD(32, EE)      \
-    case 64: ZT_CAU_BWD(64, EE)      \
-    case 128: ZT_CAU_BWD(128, EE)    \
-    default: return ZT_UNSUPPORTED;  \
+  if (dtype == F32) {
+    ZT_CAU_BWD_ARGS(float)
+    switch (D) {
+      case 16: return launch_causal_bwd<16, float>(a, st);
+      case 32: return launch_causal_bwd<32, float>(a, st);
+      case 64: return launch_causal_bwd<64, float>(a, st);
+      case 128: return launch_causal_bwd<128, float>(a, st);
+      default: return ZT_UNSUPPORTED;
+    }
   }
-  if (dtype == F32) ZT_CAU_BWD_D(float)
-  if (dtype == BF16) ZT_CAU_BWD_D(__nv_bfloat16)
-#undef ZT_CAU_BWD_D
-#undef ZT_CAU_BWD
+#undef ZT_CAU_BWD_ARGS
   return ZT_UNSUPPORTED;
 }

@@ -120,6 +120,67 @@ constexpr int fm_smem_bytes() {
 }
 
 // ---------------------------------------------------------------------------
+// One warp's mma.sync m16n8k16 products on bf16 rows in shared memory (row stride LD
+// elements, 16-byte aligned rows, padded against bank conflicts), fp32 accumulators in
+// the C-fragment layout (common.cuh):
+// - mma_rows_abt: c (16 x 8 NT) = A B^T, A the 16 rows at a, B the 8 NT rows at b,
+//   both D wide (S = Q K^T; in the backward also dP = dO V^T and their transposes);
+// - mma_c_to_a: the bf16 A fragments of a 16 x 16 KS operand from the C fragments of
+//   2 KS n8 tiles (P or dS stays in registers between the two products; the forward
+//   packs its own, with the int8 value scales on the way);
+// - mma_rows_pv: o (16 x 8 DT) += P V, P as those A fragments, V the 16 KS rows at v
+//   (read transposed by ldmatrix .trans: O += P V, dQ += dS K, dV += P^T dO, dK += dS^T Q).
+// ---------------------------------------------------------------------------
+template <int D, int NT, int LD>
+__device__ __forceinline__ void mma_rows_abt(float (&c)[NT][4], const __nv_bfloat16* a, const __nv_bfloat16* b,
+                                             int lane) {
+  static_assert(D % 16 == 0 && NT % 2 == 0, "k16 steps, n16 pairs");
+  const int mi = lane / 8;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    unsigned af[4];
+    ldmatrix_x4(af, a + (lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      unsigned bf[4];  // rows jp * 16 .. + 7 (bf[0], bf[1]) and + 8 .. + 15 (bf[2], bf[3])
+      ldmatrix_x4(bf, b + (jp * 16 + (mi / 2) * 8 + lane % 8) * LD + kk * 16 + (mi % 2) * 8);
+      mma_bf16(c[2 * jp], af, bf[0], bf[1], c[2 * jp]);
+      mma_bf16(c[2 * jp + 1], af, bf[2], bf[3], c[2 * jp + 1]);
+    }
+  }
+}
+
+template <int KS>
+__device__ __forceinline__ void mma_c_to_a(unsigned (&a)[KS][4], const float (&c)[2 * KS][4]) {
+#pragma unroll
+  for (int jp = 0; jp < KS; ++jp) {
+    a[jp][0] = pack_bf16(c[2 * jp][0], c[2 * jp][1]);
+    a[jp][1] = pack_bf16(c[2 * jp][2], c[2 * jp][3]);
+    a[jp][2] = pack_bf16(c[2 * jp + 1][0], c[2 * jp + 1][1]);
+    a[jp][3] = pack_bf16(c[2 * jp + 1][2], c[2 * jp + 1][3]);
+  }
+}
+
+template <int DT, int KS, int LD>
+__device__ __forceinline__ void mma_rows_pv(float (&o)[DT][4], const unsigned (&pa)[KS][4], const __nv_bfloat16* v,
+                                            int lane) {
+  static_assert(DT % 2 == 0, "n16 pairs");
+  const int mi = lane / 8;
+#pragma unroll
+  for (int jp = 0; jp < KS; ++jp) {
+#pragma unroll
+    for (int j = 0; j < DT; j += 2) {
+      unsigned vb[4];  // dims j * 8 .. + 7 (vb[0], vb[1]) and the next eight (vb[2], vb[3])
+      ldmatrix_x4_trans(vb, v + (jp * 16 + (mi % 2) * 8 + lane % 8) * LD + (j + mi / 2) * 8);
+      mma_bf16(o[j], pa[jp], vb[0], vb[1], o[j]);
+      mma_bf16(o[j + 1], pa[jp], vb[2], vb[3], o[j + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Warpgroup products (wgmma.mma_async, sm_90a): four warps multiply a 64-row tile;
 // B comes from shared memory through a 64-bit descriptor, A from shared memory or
 // from registers (the mma.sync A-fragment layout, warp w of the group holding rows
@@ -263,7 +324,7 @@ __device__ __forceinline__ void flash_mma_block(Policy& pol, unsigned char* smem
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4, mi = lane / 8;
+  const int g = lane / 4, t4 = lane % 4;
   const int lo = pol.lo, hi = pol.hi;
   const int ntiles = (max(hi - lo, 0) + FM_BKV - 1) / FM_BKV;
 
@@ -361,20 +422,7 @@ __device__ __forceinline__ void flash_mma_block(Policy& pol, unsigned char* smem
       wgmma_wait();
       fm_pin(c);
     } else {
-#pragma unroll
-      for (int j = 0; j < NT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        unsigned a[4];
-        ldmatrix_x4(a, qs + (warp * 16 + lane % 16) * L::LD + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-        for (int jp = 0; jp < NT / 2; ++jp) {
-          unsigned kb[4];  // keys jp * 16 .. + 7 (kb[0], kb[1]) and + 8 .. + 15 (kb[2], kb[3])
-          ldmatrix_x4(kb, kt + (jp * 16 + (mi / 2) * 8 + lane % 8) * L::LD + kk * 16 + (mi % 2) * 8);
-          mma_bf16(c[2 * jp], a, kb[0], kb[1], c[2 * jp]);
-          mma_bf16(c[2 * jp + 1], a, kb[2], kb[3], c[2 * jp + 1]);
-        }
-      }
+      mma_rows_abt<D, NT, L::LD>(c, qs + warp * 16 * L::LD, kt, lane);
     }
 
     // int8 key scales on the raw logits; mask where the tile needs it
@@ -469,16 +517,7 @@ __device__ __forceinline__ void flash_mma_block(Policy& pol, unsigned char* smem
 #pragma unroll
       for (int jp = 0; jp < NT / 2; ++jp) fm_pin(pa[jp]);  // P's registers were read until the wait
     } else {
-#pragma unroll
-      for (int jp = 0; jp < NT / 2; ++jp) {
-#pragma unroll
-        for (int j = 0; j < DT; j += 2) {
-          unsigned vb[4];  // dims j * 8 .. + 7 (vb[0], vb[1]) and the next eight (vb[2], vb[3])
-          ldmatrix_x4_trans(vb, vt + (jp * 16 + (mi % 2) * 8 + lane % 8) * L::LD + (j + mi / 2) * 8);
-          mma_bf16(o[j], pa[jp], vb[0], vb[1], o[j]);
-          mma_bf16(o[j + 1], pa[jp], vb[2], vb[3], o[j + 1]);
-        }
-      }
+      mma_rows_pv<DT, NT / 2, L::LD>(o, pa, vt, lane);
     }
   }
   cp_async_wait<0>();  // q, when the range was empty; no copy outlives the block

@@ -32,13 +32,7 @@
 // 16 keep the first version below: plain fp32 FMA over an fp32 tile of 32 keys, 64
 // rows a block. zt_flash_segment_variant says which of the two a dtype and head dim
 // get; the wrapper computes the key ranges for that block size.
-#include "flash_mma.cuh"
-
-// Tile copies bypass L1 (cp.async.cg): with two blocks an SM the shared-memory
-// carve-out leaves little L1, and on the card .cg ran 15 % faster here than .ca.
-#ifndef ZT_FM_K1_L1
-#define ZT_FM_K1_L1 0
-#endif
+#include "flash_policy.cuh"
 
 namespace zt {
 
@@ -140,55 +134,8 @@ static int launch_segment(const void* q, const void* k, const void* v, const int
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core variant: the policy of flash_mma.cuh's core for K1.
+// The tensor-core variant: flash_mma.cuh's core under SegmentPolicy (flash_policy.cuh).
 // ---------------------------------------------------------------------------
-struct SegmentPolicy {
-  static constexpr bool kCopiesThroughL1 = ZT_FM_K1_L1;
-  int lo, hi;
-  int s0, S, H, D;
-  int block_id;  // the block's one segment id, or -1 when its rows span several
-  const int* seg;
-  const __nv_bfloat16* qb;  // q + h * q_sh, and so on
-  const __nv_bfloat16* kb;
-  const __nv_bfloat16* vb;
-  long long q_ss, k_ss, v_ss;
-  __nv_bfloat16* ob;  // out + h * D
-  float* lseb;        // lse + h, or nullptr
-  int seg_row[2];
-
-  __device__ __forceinline__ const __nv_bfloat16* q_row_any() const { return qb; }
-  __device__ __forceinline__ const __nv_bfloat16* q_row(int r) const {
-    return s0 + r < S ? qb + (long long)(s0 + r) * q_ss : nullptr;
-  }
-  __device__ __forceinline__ __nv_bfloat16* out_row(int r) const {
-    return s0 + r < S ? ob + (long long)(s0 + r) * H * D : nullptr;
-  }
-  __device__ __forceinline__ float* lse_row(int r) const {
-    return lseb != nullptr && s0 + r < S ? lseb + (long long)(s0 + r) * H : nullptr;
-  }
-  __device__ __forceinline__ const __nv_bfloat16* k_row(int t) const { return kb + (long long)t * k_ss; }
-  __device__ __forceinline__ const __nv_bfloat16* v_row(int t) const { return vb + (long long)t * v_ss; }
-  // aux[col] = segment id of key t0 + col (0 past hi: live() checks the bound itself)
-  __device__ __forceinline__ void load_aux(int* aux, int t0, int tid) const {
-    if (tid < FM_BKV) {
-      const bool ok = t0 + tid < hi;
-      cp_async4_z(aux + tid, seg + (ok ? t0 + tid : lo), ok);
-    }
-  }
-  // real ids are >= 0: a row past S matches nothing
-  __device__ __forceinline__ void set_rows(int r_lo, int r_hi) {
-    seg_row[0] = s0 + r_lo < S ? seg[s0 + r_lo] : -1;
-    seg_row[1] = s0 + r_hi < S ? seg[s0 + r_hi] : -1;
-  }
-  // ids ascend: a whole tile whose first and last keys carry the block's one id needs no compare
-  __device__ __forceinline__ bool needs_mask(const int* aux, int t0) const {
-    return !(t0 + FM_BKV <= hi && aux[0] == block_id && aux[FM_BKV - 1] == block_id);
-  }
-  __device__ __forceinline__ bool live(int half, const int* aux, int col, int t) const {
-    return t < hi && aux[col] == seg_row[half];
-  }
-};
-
 // Two blocks an SM up to D = 80 (128 registers a thread: one block's products and
 // copies then fill the other's softmax and barrier waits), one at D = 128.
 template <int D>
@@ -200,24 +147,10 @@ __global__ void __launch_bounds__(FM_THREADS, D <= 80 ? 2 : 1)
                              long long q_sh, long long k_ss, long long k_sh, long long v_ss, long long v_sh,
                              float scale) {
   extern __shared__ __align__(16) unsigned char fm_smem[];
-  const int qb = blockIdx.x;
-  const int h = blockIdx.y;
   SegmentPolicy pol;
-  pol.lo = kv_first[qb];
-  pol.hi = kv_last[qb];
-  pol.s0 = qb * FM_ROWS;
-  pol.S = S;
-  pol.H = gridDim.y;
+  pol.init(q, k, v, seg, kv_first, kv_last, S, q_ss, q_sh, k_ss, k_sh, v_ss, v_sh);
+  const int h = blockIdx.y;
   pol.D = D;
-  const int id_first = seg[pol.s0], id_last = seg[min(pol.s0 + FM_ROWS, S) - 1];
-  pol.block_id = id_first == id_last ? id_first : -1;
-  pol.seg = seg;
-  pol.qb = q + (long long)h * q_sh;
-  pol.kb = k + (long long)h * k_sh;
-  pol.vb = v + (long long)h * v_sh;
-  pol.q_ss = q_ss;
-  pol.k_ss = k_ss;
-  pol.v_ss = v_ss;
   pol.ob = out + (long long)h * D;
   pol.lseb = lse != nullptr ? lse + h : nullptr;
   flash_mma_block<D, __nv_bfloat16>(pol, fm_smem, scale * LOG2E);

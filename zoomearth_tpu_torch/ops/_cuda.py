@@ -23,9 +23,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("common.cuh", "flash_mma.cuh", "decode_split.cuh", "flash_bwd.cuh", "flash_segment.cu", "flash_causal.cu",
-           "flash_segment_bwd.cu", "flash_causal_bwd.cu", "flash_decode.cu", "paged_decode.cu", "probe_stream.cu",
-           "probe_bigmm.cu", "split_merge.cu")
+SOURCES = ("common.cuh", "flash_mma.cuh", "flash_policy.cuh", "decode_split.cuh", "flash_bwd.cuh", "flash_segment.cu",
+           "flash_causal.cu", "flash_segment_bwd.cu", "flash_causal_bwd.cu", "flash_decode.cu", "paged_decode.cu",
+           "probe_stream.cu", "probe_bigmm.cu", "split_merge.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -93,7 +93,7 @@ _SIGNATURES = {
     "zt_flash_segment_variant": [_I, _I],
     "zt_flash_causal_variant": [_I, _I, _I],
     "zt_flash_causal": [_P] * 8 + [_I] * 6 + [_L] * 11 + [_F, _I, _I, _P, _P],
-    "zt_flash_bwd_rows": [_I],
+    "zt_flash_bwd_variant": [_I, _I],
     "zt_flash_segment_bwd": [_P] * 13 + [_I] * 3 + [_L] * 6 + [_F, _I, _P],
     "zt_flash_causal_bwd": [_P] * 14 + [_I] * 8 + [_L] * 15 + [_F, _I, _P],
     "zt_flash_decode": [_P] * 8 + [_I] * 7 + [_L] * 10 + [_F, _I, _I, _P],
@@ -174,6 +174,14 @@ def require_cuda(name: str, *tensors) -> None:
             raise ValueError(f"{name}: all tensors must be on one CUDA device (got {t.device})")
         if t.stride(-1) != 1 and t.dim() > 1:
             raise ValueError(f"{name}: last dim must have unit stride (strides {t.stride()})")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous from a 16-byte aligned base: as it is where it already is, else a
+    copy (an operand a kernel reads in 16-byte vectors, such as a gradient handed
+    down by autograd, which may be a view)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def require_aligned16(name: str, *tensors) -> None:

@@ -14,9 +14,13 @@ inputs and D = 8, which bf16 products would cost their precision. Here:
   gradient is asked for (autograd on, an input that requires grad) it goes through
   `SegmentAttention`, an autograd.Function whose forward and backward dispatch the
   same way: the forward also returns each row's log-sum-exp `lse`, the backward
-  kernel (csrc/flash_segment_bwd.cu: dq, then dk and dv; the reference's Pallas
-  kernel has no VJP to port) reads it. A backward on CUDA tensors launches that
-  kernel or raises; it never recomputes through the plain version.
+  kernels (csrc/flash_segment_bwd.cu: dq, then dk and dv; the reference's Pallas
+  kernel has no VJP to port) read it. They have two variants, chosen in C from the
+  dtype and head dim (`zt_flash_bwd_variant`, mirrored by `bwd_variant_rows`): "mma",
+  the tensor-core backward of csrc/flash_bwd.cuh (128 rows and keys a block), for bf16
+  at D a multiple of 16 (the model's path), and "fma", fp32 arithmetic, for fp32
+  inputs and D = 8. A backward on CUDA tensors launches that kernel or raises; it never
+  recomputes through the plain version or falls back to the other variant.
 - `flash_segment_attention_plain` / `flash_segment_attention_bwd_plain` are the
   plain torch versions of both directions, in fp32.
 - `segment_kv_ranges` is the launch prep: the contiguous kv row range of each
@@ -26,7 +30,7 @@ inputs and D = 8, which bf16 products would cost their precision. Here:
 - `work` / `work_bwd` are the least work a call needs (flops, bytes), from its inputs.
 - `segment_attention_cuda.launches` counts kernel launches, `.variants` by variant;
   `segment_attention_bwd_cuda.launches` counts backward calls (each launches the dq
-  kernel, then the dk/dv kernel).
+  kernel, then the dk/dv kernel), `.variants` by variant.
 """
 
 from __future__ import annotations
@@ -41,6 +45,24 @@ PAD_SEG = 2**30
 BLOCK_Q = 128  # query rows per block of the tensor-core variant (FM_ROWS in csrc/flash_mma.cuh)
 BLOCK_Q_FMA = 64  # of the fp32 variant (SEG_ROWS in csrc/flash_segment.cu)
 TILE = 64  # keys per tile of the tensor-core variant (FM_BKV)
+# The backward (csrc/flash_bwd.cuh): rows (dq) and keys (dk/dv) per block of its
+# tensor-core variant (BM_ROWS), query rows per tile of its dk/dv kernels (BWD_TILE,
+# both variants), and the FMA variant's threads per block (BWD_THREADS)
+BWD_ROWS = 128
+BWD_TILE = 32
+BWD_THREADS = 256
+
+
+def bwd_variant_rows(dtype: torch.dtype, D: int) -> int:
+    """The backward's variant rule as the C query zt_flash_bwd_variant states it: rows
+    per block of the variant a dtype and head dim get, BWD_ROWS for the tensor-core
+    ("mma") kernels (bf16, D a multiple of 16 up to 128), the FMA kernels' rows (fp32,
+    and bf16 at D = 8: BWD_THREADS over 8 threads a row from D = 64 on, 4 below), or -1."""
+    if dtype not in (torch.float32, torch.bfloat16) or D not in (8, 16, 32, 64, 80, 128):
+        return -1
+    if dtype == torch.bfloat16 and D % 16 == 0:
+        return BWD_ROWS
+    return BWD_THREADS // (8 if D >= 64 else 4)
 
 
 def segment_kv_ranges(seg: torch.Tensor, block_q: int = BLOCK_Q):
@@ -163,9 +185,12 @@ segment_attention_cuda.variants = {"mma": 0, "fma": 0}
 
 def segment_attention_bwd_cuda(q, k, v, seg, out, dout, lse):
     """Launch K1's backward (the dq kernel, then the dk/dv kernel, on the current
-    stream). q/k/v as the forward took them (any strides with unit stride on D),
-    out and dout (S, H, D) of q's dtype, lse (S, H) fp32 from the forward. Returns
-    (dq, dk, dv), contiguous (S, H, D) of q's dtype. Nothing here waits for the device."""
+    stream): the tensor-core variant for bf16 at D a multiple of 16 (q/k/v bases and
+    strides whole 16-byte multiples, else ValueError), the FMA variant for fp32 and
+    D = 8 (`zt_flash_bwd_variant` chooses). q/k/v as the forward took them (any strides
+    with unit stride on D), out and dout (S, H, D) of q's dtype, lse (S, H) fp32 from the
+    forward. Returns (dq, dk, dv), contiguous (S, H, D) of q's dtype. Nothing here waits
+    for the device."""
     name = "flash_segment_attention_bwd"
     _cuda.require_cuda(name, q, k, v, seg, out, dout, lse)
     S, H, D = q.shape
@@ -174,10 +199,13 @@ def segment_attention_bwd_cuda(q, k, v, seg, out, dout, lse):
     if lse.shape != (S, H) or lse.dtype != torch.float32:
         raise ValueError(f"{name}: lse must be (S, H) fp32")
     code = _cuda.dtype_code(q, name, (torch.float32, torch.bfloat16))
-    rows = _cuda.lib().zt_flash_bwd_rows(D)
+    rows = _cuda.lib().zt_flash_bwd_variant(code, D)
     if rows < 0:
         raise ValueError(f"{name}: no kernel for head dim {D}")
-    out, dout, lse = out.contiguous(), dout.contiguous(), lse.contiguous()
+    variant = "mma" if rows == BWD_ROWS else "fma"
+    if variant == "mma":
+        _cuda.require_aligned16(name, q, k, v)
+    out, dout, lse = _cuda.aligned16(out), _cuda.aligned16(dout), lse.contiguous()
     seg = seg.to(torch.int32).contiguous()
     first, last = segment_kv_ranges(seg, rows)
     dq, dk, dv = (torch.empty((S, H, D), dtype=q.dtype, device=q.device) for _ in range(3))
@@ -190,11 +218,12 @@ def segment_attention_bwd_cuda(q, k, v, seg, out, dout, lse):
         D**-0.5, code, _cuda.stream(q.device),
     )
     _cuda.check(rc, name)
-    _cuda.count_launch(segment_attention_bwd_cuda)
+    _cuda.count_launch(segment_attention_bwd_cuda, variant)
     return dq, dk, dv
 
 
 segment_attention_bwd_cuda.launches = 0
+segment_attention_bwd_cuda.variants = {"mma": 0, "fma": 0}
 
 
 class SegmentAttention(torch.autograd.Function):

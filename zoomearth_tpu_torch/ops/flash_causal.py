@@ -15,10 +15,12 @@ fp32 queries, which bf16 products would cost their precision. Here:
   training path, where k and v arrive as transposed views of the (B, S, Hkv, D)
   projections) it goes through `CausalAttention`, an autograd.Function whose forward
   (which also returns each row's log-sum-exp) and backward dispatch the same way;
-  the backward kernel is csrc/flash_causal_bwd.cu (the reference's Pallas kernel has
-  no VJP to port). The backward takes bf16 or fp32 K/V only: int8 K/V under autograd
-  raises before any launch. dk and dv sum over the G query heads of a kv head and
-  come back in k's and v's own layout. A row with no live key gets zero gradients.
+  the backward kernels are csrc/flash_causal_bwd.cu (the reference's Pallas kernel has
+  no VJP to port): for bf16 the tensor-core backward of csrc/flash_bwd.cuh ("mma"),
+  for fp32 fp32 arithmetic ("fma"), chosen in C (`zt_flash_bwd_variant`). The backward
+  takes bf16 or fp32 K/V only: int8 K/V under autograd raises before any launch. dk
+  and dv sum over the G query heads of a kv head and come back in k's and v's own
+  layout. A row with no live key gets zero gradients.
 - `flash_causal_attention_plain` / `flash_causal_attention_bwd_plain` are the plain
   torch versions of both directions, the forward including the int8 K/V algebra.
 - `block_key_bounds` is what each block of the kernel works out for itself: where
@@ -29,7 +31,7 @@ fp32 queries, which bf16 products would cost their precision. Here:
   `.int8_launches` those on int8 K/V; `causal_attention_bwd_cuda.launches` counts
   backward calls (each launches the dq kernel, then the dk/dv kernel, then, where the
   dk/dv kernel's key blocks are split among several blocks to fill the card
-  (`dkdv_splits`), the kernel that adds their partials).
+  (`dkdv_splits`), the kernel that adds their partials), `.variants` by variant.
 """
 
 from __future__ import annotations
@@ -38,12 +40,14 @@ import torch
 
 from . import _cuda
 from .attention import NEG_INF, causal_attention
+from .flash_attention import BWD_ROWS
 
 ROWS = 128  # (head, query) rows per block of the tensor-core variant (FM_ROWS in csrc/flash_mma.cuh)
 ROWS_FMA = 64  # of the fp32 variant (CAU_ROWS in csrc/flash_causal.cu); G = H / Hkv must divide both
 TILE = 64  # keys per tile of the tensor-core variant (FM_BKV)
-BWD_TILE = 32  # (position, head) rows per tile of the backward's dk/dv kernel (BWD_TILE in csrc/flash_bwd.cuh)
-BWD_BLOCKS_PER_SM = 4  # the backward's dk/dv blocks to aim for, per SM of the card
+BWD_TILE = 32  # (position, head) rows per tile of the backward's dk/dv kernels (BWD_TILE in csrc/flash_bwd.cuh)
+BWD_BLOCKS_PER_SM = 4  # the backward's dk/dv blocks to aim for, per SM of the card: its FMA variant
+BWD_BLOCKS_PER_SM_MMA = 3  # and its tensor-core variant (one resident block an SM; 1-6 tried on the H100, 3 fastest)
 
 
 def block_key_bounds(positions: torch.Tensor, kv_len: torch.Tensor, T: int, bq: int):
@@ -97,9 +101,9 @@ def work_bwd(positions: torch.Tensor, kv_len: torch.Tensor, H: int, Hkv: int, D:
 
 def dkdv_splits(key_blocks: int, Hkv: int, B: int, n_qtiles: int, target: int) -> int:
     """How many blocks share each block of keys in the backward's dk/dv kernel: enough
-    to reach `target` blocks (BWD_BLOCKS_PER_SM a streaming multiprocessor), at most one
-    per tile of query rows. Split s of n takes the tiles [s * per, (s + 1) * per), per =
-    ceil(n_qtiles / n)."""
+    to reach `target` blocks (BWD_BLOCKS_PER_SM_MMA or BWD_BLOCKS_PER_SM a streaming
+    multiprocessor, by variant), at most one per tile of query rows. Split s of n takes
+    the tiles [s * per, (s + 1) * per), per = ceil(n_qtiles / n)."""
     return max(1, min(n_qtiles, -(-target // (key_blocks * Hkv * B))))
 
 
@@ -234,11 +238,13 @@ def _require_trainable(name, q, k, v, ks=None, vs=None):
 def causal_attention_bwd_cuda(q, k, v, positions, kv_len, out, dout, lse):
     """Launch K2's backward (the dq kernel, then the dk/dv kernel, split over the query
     tiles by dkdv_splits, then the kernel that adds the splits' partials, on the
-    current stream). q/k/v as the forward took them, bf16 or fp32 (k/v any strides with unit
-    stride on D); out and dout (B, S, H, D); lse (B, S, H) fp32 from the forward.
-    Returns (dq, dk, dv): dq contiguous (B, S, H, D), dk and dv (B, Hkv, T, D) in k's
-    and v's own layout where that is dense (the decoder's transposed views),
-    contiguous otherwise. Nothing here waits for the device."""
+    current stream): the tensor-core variant for bf16 (q/k/v bases and strides whole
+    16-byte multiples, else ValueError), the FMA variant for fp32 (`zt_flash_bwd_variant`
+    chooses). q/k/v as the forward took them (k/v any strides with unit stride on D); out
+    and dout (B, S, H, D); lse (B, S, H) fp32 from the forward. Returns (dq, dk, dv): dq
+    contiguous (B, S, H, D), dk and dv (B, Hkv, T, D) in k's and v's own layout where that
+    is dense (the decoder's transposed views), contiguous otherwise. Nothing here waits
+    for the device."""
     name = "flash_causal_attention_bwd"
     _cuda.require_cuda(name, q, k, v, positions, kv_len, out, dout, lse)
     _require_trainable(name, q, k, v)
@@ -251,15 +257,19 @@ def causal_attention_bwd_cuda(q, k, v, positions, kv_len, out, dout, lse):
     if lse.shape != (B, S, H) or lse.dtype != torch.float32:
         raise ValueError(f"{name}: lse must be (B, S, H) fp32")
     code = _cuda.dtype_code(q, name, (torch.float32, torch.bfloat16))
-    rows = _cuda.lib().zt_flash_bwd_rows(D)
+    rows = _cuda.lib().zt_flash_bwd_variant(code, D)
     if rows < 0 or D not in (16, 32, 64, 128):
         raise ValueError(f"{name}: no kernel for head dim {D}")
-    out, dout, lse = out.contiguous(), dout.to(q.dtype).contiguous(), lse.contiguous()
+    variant = "mma" if rows == BWD_ROWS else "fma"
+    if variant == "mma":
+        _cuda.require_aligned16(name, q, k, v)
+    out, dout, lse = _cuda.aligned16(out), _cuda.aligned16(dout.to(q.dtype)), lse.contiguous()
     positions = positions.to(torch.int32).contiguous()
     kv_len = kv_len.to(torch.int32).contiguous()
     qhi = block_key_bounds(positions, kv_len, T, BWD_TILE // (H // Hkv))[0].contiguous()
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    nsplit = dkdv_splits(-(-T // rows), Hkv, B, qhi.shape[1], BWD_BLOCKS_PER_SM * sms)
+    per_sm = BWD_BLOCKS_PER_SM_MMA if variant == "mma" else BWD_BLOCKS_PER_SM
+    nsplit = dkdv_splits(-(-T // rows), Hkv, B, qhi.shape[1], per_sm * sms)
     part = torch.empty((2, nsplit, B, Hkv, T, D), dtype=torch.float32, device=q.device) if nsplit > 1 else None
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -273,11 +283,12 @@ def causal_attention_bwd_cuda(q, k, v, positions, kv_len, out, dout, lse):
         dv.stride(0), dv.stride(1), dv.stride(2), D**-0.5, code, _cuda.stream(q.device),
     )
     _cuda.check(rc, name)
-    _cuda.count_launch(causal_attention_bwd_cuda)
+    _cuda.count_launch(causal_attention_bwd_cuda, variant)
     return dq, dk, dv
 
 
 causal_attention_bwd_cuda.launches = 0
+causal_attention_bwd_cuda.variants = {"mma": 0, "fma": 0}
 
 
 class CausalAttention(torch.autograd.Function):
