@@ -106,7 +106,33 @@ Phases, each fatal on failure (nothing is caught):
    equal the uninterrupted run's and its parameters stay within a bf16 step, and the
    export must load back equal. Seconds per micro-step (host clock, synchronized),
    tokens and patches per second and peak memory are printed.
-9. decode-variants — the decode-attention entry points beside the serving path, at
+9. grpo — GRPOTrainer on Qwen2.5-VL-3B at full width (random bf16 weights from seed 0;
+   a FakeTokenizer that reads every id as a letter, since random weights pick ids the
+   byte-level tokenizer has no text for and a completion without text counts as none;
+   rl_prompt with its instruction cut to 80 characters) on two synthetic 5000 px
+   tiles, one prompt of G = 4 rows a step, beta 0.04, epsilon 0.2, temperature 0.7,
+   reuse_cache, rewards iou / format / answer plus `letter_share` (random weights earn
+   no Region-Guided reward, and equal rewards give no advantage). The one reduction:
+   completion budgets of 64 / 48 (the reference's 2048 / 800); widths, depth, the 512
+   px stage-1 size and G are the reference's. Two full fine-tune steps at lr 1e-4 (a
+   cut prompt, where stage 2 runs through K2's chunk prefill, then an uncut one): every
+   gradient leaf finite and nonzero at the first, the ViT's wqkv and the decoder's
+   wq/wk/wv among them, and every leaf moved after the two, except leaves that no bf16
+   step of 2 lr can move (the norm scales at 1: ROADMAP §3); then a LoRA trainer (r 8,
+   alpha 16, lr 1e-7): a cut step (every base bit for bit, every adapter moved, |kl| at
+   the first step below 1e-3) and a cut step whose rollouts go through a ServingEngine
+   of 4 slots x 2048 (stage 2 as a Continuation of the held slot; the engine's
+   contained failures 0). Each step logs its seconds by stage (synchronized: stage-1
+   rollout, stage-2 rollout, rewards and stitch, ref logps, loss and backward, update),
+   its peak memory and its launches by kernel and variant: K1-bwd once per ViT block
+   and K2-bwd once per decoder layer, K2 four times per layer on a cut step (prefill,
+   chunk prefill, reference, policy) and three on an uncut one, K3 a whole number of
+   layers, every bf16 K1/K2 launch forward and backward on the tensor-core variant.
+   [kernels] also times K1-bwd at the cut step's ViT (8 images, S = 10368, window and
+   full segments) and K2-bwd at the policy pass (B = 4, S = T = 1024), and [parity]
+   holds one tiny fp32 GRPO policy step's loss, metrics and every gradient leaf on the
+   card against the CPU.
+10. decode-variants — the decode-attention entry points beside the serving path, at
    the reference's shapes. First the checks: K4 (paged decode) against its plain
    version and K3 at (B=32|64, T=4096, 30 % live, pages 64|256); P1 (stream probe)
    and P2 (big-product decode) against their plain versions at B=32, T=1536; then,
@@ -128,7 +154,8 @@ time, its plain version's, the library call's where there is one, its bound and 
 share of it reached; the untimed checks; launches from the path that runs it: calls
 of the wrapper, and each K3, K4 or P2 call runs two kernels, its split pass and the
 split merge; a P1 call is one memset and one kernel; a backward call runs its dq
-kernel, then its dk/dv kernel, and its launches are the training phase's); the last
+kernel, then its dk/dv kernel, and its launches are the training phase's; the
+`launches_grpo` of K1, K2, K3 and the backward kernels are the GRPO phase's); the last
 is the device contract line.
 """
 
@@ -433,6 +460,9 @@ def check_kernels(card):
     for name, cases in forwards.items():
         rows[name][2].extend(cases)
     rows.update(backwards)
+    log("[kernels] GRPO: K1's and K2's backward kernels at the policy pass's shapes")
+    for name, cases in check_grpo_kernels(card, randn).items():
+        rows[name][2].extend(cases)
     log("[kernels] untimed checks where the kernels have edges")
     return rows, {"flash_segment_attention": check_k1_edges(randn),
                   "flash_causal_attention": check_k2_edges(randn, int8, scales) + check_k2_int8_chunk(randn, cache8),
@@ -689,6 +719,81 @@ def check_training_kernels(card, randn):
     return ({"flash_segment_attention": fwd1, "flash_causal_attention": fwd2},
             {"flash_segment_attention_bwd": ("zoomearth_tpu_torch/csrc/flash_segment_bwd.cu", None, [bwd1]),
              "flash_causal_attention_bwd": ("zoomearth_tpu_torch/csrc/flash_causal_bwd.cu", None, [bwd2])})
+
+
+GRPO_IMAGES, GRPO_GRID = 8, (1, 36, 36)  # a cut step's ViT: 4 rows x (stage-1 image + crop), 512 px each
+GRPO_B, GRPO_TOKENS = 4, 1024  # the policy pass: G = 4 rows in the 1024 length bucket
+
+
+def check_grpo_kernels(card, randn):
+    """K1's and K2's backward kernels at the GRPO policy pass's shapes, timed in turns
+    like the SFT cases: K1-bwd over the cut step's 8 images (S = 10368 patches, the
+    window segments 28 of the 32 blocks take and the full-image segments of the other
+    4, from the port's vision_metadata), K2-bwd at B = 4, S = T = 1024, kv_len = S
+    (its dk/dv split plan at B = 4 is not SFT's at B = 1). Returns {backward kernel
+    name: [cases]}."""
+    import torch
+
+    from zoomearth_tpu_torch.config import VLMConfig
+    from zoomearth_tpu_torch.models.vit import vision_metadata
+    from zoomearth_tpu_torch.ops import flash_attention as K1
+    from zoomearth_tpu_torch.ops import flash_causal as K2
+
+    dev = torch.device("cuda")
+    vcfg = VLMConfig.qwen2_5_vl_3b().vision
+    S = GRPO_IMAGES * GRPO_GRID[1] * GRPO_GRID[2]
+    meta = vision_metadata([GRPO_GRID] * GRPO_IMAGES, vcfg, pad_to=S)
+    H, D = vcfg.num_heads, vcfg.head_dim
+    qkv = randn(S, 3, H, D)
+    q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def heads_first(*ts):
+        return [t[None].transpose(1, 2) for t in ts]
+
+    k1 = []
+    for label, seg_np in (("window segments", meta.seg_window), ("full-image segments", meta.seg_full)):
+        seg = torch.as_tensor(seg_np, dtype=torch.int32, device=dev)
+        seg_mask = seg[:, None] == seg[None, :]
+        out, lse = K1.segment_attention_cuda(q, k, v, seg, return_lse=True)
+        plain_out, plain_lse = K1.flash_segment_attention_plain(q, k, v, seg, return_lse=True)
+        dout = randn(S, H, D)
+        before = dict(K1.segment_attention_bwd_cuda.variants)
+        row = case(f"K1-bwd segment GRPO cut step S={S} H={H} D={D} ({GRPO_IMAGES} images, {label}), the plain "
+                   "backward from the plain forward",
+                   lambda: K1.segment_attention_bwd_cuda(q, k, v, seg, out, dout, lse),
+                   lambda: K1.flash_segment_attention_bwd_plain(q, k, v, seg, plain_out, dout, plain_lse), card,
+                   K1.work_bwd(seg, H, D, 2),
+                   lambda: torch.autograd.grad(sdpa(*heads_first(lq, lk, lv), seg_mask)[0].transpose(0, 1),
+                                               (lq, lk, lv), dout),
+                   tol=grad_tol, library_tol=library_grad_tol)
+        row["variant"] = ran_variant(K1.segment_attention_bwd_cuda, before)
+        k1.append(row)
+        del seg_mask, out, lse, plain_out, plain_lse, dout
+
+    B, S, H, Hkv, D = GRPO_B, GRPO_TOKENS, 16, 2, 128
+    q2 = randn(B, S, H, D)
+    kp, vp = randn(B, S, Hkv, D), randn(B, S, Hkv, D)  # the decoder's projections, passed transposed
+    k2, v2 = kp.transpose(1, 2), vp.transpose(1, 2)
+    pos = torch.arange(S, device=dev)[None].expand(B, S)
+    kvl = torch.full((B,), S, device=dev)
+    mask = (torch.arange(S, device=dev)[None, :] <= torch.arange(S, device=dev)[:, None])[None, None]
+    out, lse = K2.causal_attention_cuda(q2, k2, v2, pos, kvl, return_lse=True)
+    plain_out, plain_lse = K2.flash_causal_attention_plain(q2, k2, v2, pos, kvl, return_lse=True)
+    dout = randn(B, S, H, D)
+    lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q2, kp, vp))
+    before = dict(K2.causal_attention_bwd_cuda.variants)
+    row = case(f"K2-bwd no-cache GRPO policy pass B={B} S=T={S} H={H} Hkv={Hkv} D={D}, kv_len = S, the plain "
+               "backward from the plain forward",
+               lambda: K2.causal_attention_bwd_cuda(q2, k2, v2, pos, kvl, out, dout, lse),
+               lambda: K2.flash_causal_attention_bwd_plain(q2, k2, v2, pos, kvl, plain_out, dout, plain_lse), card,
+               K2.work_bwd(pos, kvl, H, Hkv, D, S, 2),
+               lambda: (lambda g: (g[0], g[1].transpose(1, 2), g[2].transpose(1, 2)))(torch.autograd.grad(
+                   sdpa(lq.transpose(1, 2), lk.transpose(1, 2), lv.transpose(1, 2), mask).transpose(1, 2),
+                   (lq, lk, lv), dout)),
+               tol=grad_tol, library_tol=library_grad_tol)
+    row["variant"] = ran_variant(K2.causal_attention_bwd_cuda, before)
+    return {"flash_segment_attention_bwd": k1, "flash_causal_attention_bwd": [row]}
 
 
 def ran_variant(wrapper, before):
@@ -987,6 +1092,255 @@ def run_training(card):
              "flash_causal_attention_bwd": launches["causal_attention_bwd_cuda"]})
 
 
+def check_tiny_grpo_parity():
+    """The tiny config in fp32: one GRPO policy step's loss, metrics and the gradient
+    of every parameter leaf on the card (K1's and K2's fp32 forward variants with lse,
+    their backward kernels) against the CPU plain path, on one sampled rollout batch
+    made on the CPU (images, a stage-2 crop, text) with reference and old logps that
+    make the KL and the clip both work."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from zoomearth_tpu_torch.agent import prompts as PT
+    from zoomearth_tpu_torch.agent.processor import Processor
+    from zoomearth_tpu_torch.config import VLMConfig
+    from zoomearth_tpu_torch.models.params import init_vlm_params, map_tree, tree_leaves
+    from zoomearth_tpu_torch.ops import flash_attention as K1
+    from zoomearth_tpu_torch.ops import flash_causal as K2
+    from zoomearth_tpu_torch.tokenizer import FakeTokenizer
+    from zoomearth_tpu_torch.train import grpo as TG
+    from zoomearth_tpu_torch.train.data import LRSGROSample
+
+    cfg = VLMConfig.tiny()
+    tile = Image.fromarray(np.random.default_rng(0).integers(0, 255, (600, 600, 3), dtype=np.uint8))
+    samples = [LRSGROSample(question_id="1", image_name="a.png", category="c", question="what?", higher_level="p",
+                            ground_truth="car", bbox=[10, 10, 40, 40], type="object"),
+               LRSGROSample(question_id="2", image_name="", category="m", question="1+2?", higher_level="r",
+                            ground_truth="3", bbox=[], type="global")]
+    trainer = TG.GRPOTrainer(
+        init_vlm_params(cfg, torch.Generator().manual_seed(0)), cfg,
+        TG.GRPOConfig(num_generations=2, max_completion_length=6, stage2_max_completion_length=4,
+                      rollout_temperature=1.0), Processor(FakeTokenizer(cfg.tokens), cfg, max_pixels=4 * 28 * 28),
+        [lambda c1, c2, **kw: [float(len(a) % 7) / 7.0 + 0.5 * (i % 2) for i, a in enumerate(c1)]],
+        max_cache_len=1024, image_loader=lambda s: tile, length_buckets=(512, 768), patch_buckets=(64, 128),
+        prompt_fn=lambda q: PT.PREFIX + q + "<|im_end|>\n<|im_start|>assistant\n", device="cpu")
+    rb = trainer.rollout(samples, seed=0)
+    rng = np.random.default_rng(1)
+    rb.old_logps = (rb.ref_logps + rng.normal(0, 0.3, rb.ref_logps.shape)).astype(np.float32)
+    rb.ref_logps = (rb.ref_logps + rng.normal(0, 0.1, rb.ref_logps.shape)).astype(np.float32)
+    results = []
+    for device in ("cpu", "cuda"):
+        p = map_tree(lambda t: t.detach().to(device, copy=True).requires_grad_(), trainer.params)
+        before = (K1.segment_attention_bwd_cuda.launches, K2.causal_attention_bwd_cuda.launches)
+        loss, aux = TG.grpo_loss(p, cfg, TG.batch_to_device(rb, device), beta=0.04, epsilon_low=0.2,
+                                 epsilon_high=0.2)
+        grads = torch.autograd.grad(loss, tree_leaves(p), materialize_grads=True)
+        ran = (K1.segment_attention_bwd_cuda.launches - before[0], K2.causal_attention_bwd_cuda.launches - before[1])
+        results.append((float(loss.detach()), {k: float(v) for k, v in aux.items()}, [g.cpu() for g in grads], ran))
+    (lc, mc, gc, ran_cpu), (lg, mg, gg, ran_gpu) = results
+    errs = [(a - b).abs().max().item() / max(1.0, b.abs().max().item()) for a, b in zip(gg, gc)]
+    worst = max(errs)
+    metric_err = max(abs(mg[k] - mc[k]) for k in mc)
+    log(f"  tiny fp32 GRPO policy step ({rb.input_ids.shape[0]} rows x {rb.input_ids.shape[1]} tokens, "
+        f"{rb.pixel_values.shape[0]} patches): loss card {lg:.6f} vs CPU {lc:.6f}, metrics max |diff| {metric_err:.3e} "
+        f"({sorted(mc)}); {len(errs)} gradient leaves, worst max_abs_err relative to the leaf's largest gradient "
+        f"(or 1) {worst:.3e} (tol 1e-4); backward launches on the card K1 {ran_gpu[0]}, K2 {ran_gpu[1]}, on the CPU "
+        f"{ran_cpu}")
+    if not (abs(lg - lc) <= 1e-4 and metric_err <= 1e-4 and worst <= 1e-4 and ran_cpu == (0, 0)
+            and ran_gpu == (cfg.vision.depth, cfg.text.num_hidden_layers) and mc["clip_ratio"] > 0
+            and max(g.abs().max().item() for g in gc) > 1e-3):
+        raise AssertionError("tiny-config GRPO gradient parity on the card failed")
+
+
+GRPO_NEW_1, GRPO_NEW_2 = 64, 48  # completion budgets, stage 1 / stage 2 (the reference's 2048 / 800, cut)
+GRPO_ENGINE_SLOTS, GRPO_ENGINE_SEQ = 4, 2048
+
+
+def grpo_setup():
+    """What the GRPO phase runs on: Qwen2.5-VL-3B's config, a processor whose tokenizer
+    reads every id as a letter (legible_tokenizer), two synthetic 5000 px tiles, the
+    rl_prompt template with its instruction cut to 80 characters, the Region-Guided
+    rewards plus `letter_share`, and a maker of the seeded bf16 weights."""
+    import torch
+
+    from zoomearth_tpu_torch.agent import prompts as PT
+    from zoomearth_tpu_torch.agent.processor import Processor
+    from zoomearth_tpu_torch.config import VLMConfig
+    from zoomearth_tpu_torch.models.params import init_vlm_params
+    from zoomearth_tpu_torch.rewards.registry import get_reward_funcs
+    from zoomearth_tpu_torch.train.data import LRSGROSample
+
+    cfg = VLMConfig.qwen2_5_vl_3b()
+    processor = Processor(legible_tokenizer(cfg.tokens), cfg, max_pixels=512 * 512)
+    tiles = {f"tile{i}.png": synthetic_tile(20 + i) for i in range(2)}
+    body = PT.INSTRUCTION.rsplit("<|im_end|>", 1)[0][:80]
+
+    def prompt_fn(question):
+        return PT.PREFIX + question + body + "<|im_end|>\n<|im_start|>assistant\n"
+
+    def letter_share(completion1, completion2, **kw):
+        """Random weights earn nothing from the Region-Guided set, and G equal rewards
+        give no advantage: the share of the letters a-m in the final completion tells
+        the G samples apart, so the policy gradient is not zero."""
+        finals = [c2 or c1 for c1, c2 in zip(completion1, completion2)]
+        return [sum(ch <= "m" for ch in f) / max(len(f), 1) for f in finals]
+
+    names = ["iou", "format", "answer"]
+    rewards = get_reward_funcs(names) + [letter_share]
+    cut = LRSGROSample(question_id="1", image_name="tile0.png", category="object",
+                       question="what is near the marked area?", higher_level="perception", ground_truth="ship",
+                       bbox=[2200, 2200, 2380, 2350], type="object")
+    uncut = LRSGROSample(question_id="2", image_name="tile1.png", category="count",
+                         question="how many ships are there?", higher_level="perception", ground_truth="3",
+                         bbox=[], type="global")
+
+    def new_params():
+        return init_vlm_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                               dtype=torch.bfloat16)
+
+    return cfg, processor, tiles, prompt_fn, rewards, names + ["letter_share"], cut, uncut, new_params
+
+
+def bf16_step_vanishes(t, lr):
+    """Whether no AdamW step of at most 2 lr (its first updates, weight decay included)
+    can move any element of a bf16 leaf: every element's half-ulp (at least |x| 2^-9)
+    is larger than the step. The norm scales, initialized to 1, are such leaves at lr
+    1e-4 (ROADMAP §3: bf16 updates vanish)."""
+    import torch
+
+    return t.dtype == torch.bfloat16 and t.float().abs().min().item() * 2.0 ** -9 > 2 * lr
+
+
+def run_grpo(card):
+    """GRPO at Qwen2.5-VL-3B width (the module docstring, phase 9). Returns
+    ({kernel name: {"launches_grpo": n}} for K1, K2, K3 and the backward kernels)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from zoomearth_tpu_torch.models.params import tree_leaves
+    from zoomearth_tpu_torch.ops import flash_attention as K1
+    from zoomearth_tpu_torch.ops import flash_causal as K2
+    from zoomearth_tpu_torch.ops import flash_decode as K3
+    from zoomearth_tpu_torch.serve.engine import ServingEngine
+    from zoomearth_tpu_torch.train import grpo as TG
+    from zoomearth_tpu_torch.train import lora as TLORA
+
+    cfg, processor, tiles, prompt_fn, rewards, names, cut, uncut, new_params = grpo_setup()
+    counters = {"flash_segment_attention": K1.segment_attention_cuda,
+                "flash_segment_attention_bwd": K1.segment_attention_bwd_cuda,
+                "flash_causal_attention": K2.causal_attention_cuda,
+                "flash_causal_attention_bwd": K2.causal_attention_bwd_cuda,
+                "flash_decode_attention": K3.decode_attention_cuda}
+    with_variants = [n for n, c in counters.items() if hasattr(c, "variants")]
+    total = dict.fromkeys(counters, 0)
+    L, V = cfg.text.num_hidden_layers, cfg.vision.depth
+    base = TG.GRPOConfig(num_generations=4, max_completion_length=GRPO_NEW_1, stage2_max_completion_length=GRPO_NEW_2,
+                         rollout_temperature=0.7, learning_rate=1e-4, beta=0.04, epsilon_low=0.2, epsilon_high=0.2,
+                         reuse_cache=True)
+
+    def trainer_for(params, grpo_cfg):
+        return TG.GRPOTrainer(params, cfg, grpo_cfg, processor, rewards, reward_names=names,
+                              image_loader=lambda s: tiles[s.image_name], prompt_fn=prompt_fn, device="cuda",
+                              time_stages=True)
+
+    def step(trainer, label, sample, seed):
+        """One step with the counts at 0: its metrics, seconds by stage, launches by kernel and variant, peak."""
+        for c in counters.values():
+            c.launches = 0
+        for n in with_variants:
+            counters[n].variants = dict.fromkeys(counters[n].variants, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = trainer.step([sample], seed=seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+        variants = {n: dict(counters[n].variants) for n in with_variants}
+        peak = torch.cuda.max_memory_allocated()
+        rb = trainer._buffered
+        for n in total:
+            total[n] += launches[n]
+        log(f"  {label}: {wall:.3f} s; by stage (synchronized) "
+            f"{ {k: round(v, 3) for k, v in trainer.stage_seconds.items()} }; {rb.input_ids.shape[0]} rows x "
+            f"{rb.input_ids.shape[1]} tokens, {0 if rb.pixel_values is None else rb.pixel_values.shape[0]} patches, "
+            f"stage 2 in {sum(c != '' for c in rb.completions2)} rows; peak memory allocated {peak / 2**30:.2f} GiB "
+            f"| {card}")
+        log(f"    metrics {m}")
+        log(f"    launches {launches}; by variant {variants}")
+        assert all(np.isfinite(v) for v in m.values()), m
+        assert all(v["fma"] == 0 and v["mma"] == launches[n] for n, v in variants.items()), variants
+        if rb.pixel_values is not None:
+            assert launches["flash_segment_attention_bwd"] == V, launches
+        assert launches["flash_causal_attention_bwd"] == L, launches
+        assert launches["flash_decode_attention"] > 0 and launches["flash_decode_attention"] % L == 0, launches
+        return m, rb, launches
+
+    # (1) the full fine-tune: a cut step (stage 2 through K2's chunk prefill), then an uncut one
+    params = new_params()
+    trainer = trainer_for(params, base)
+    leaves = tree_leaves(trainer.params)
+    before = [t.detach().clone() for t in leaves]
+    first = {}
+
+    def on_grads(grads):
+        if not first:
+            first["nonzero"] = int(torch.stack([g.abs().amax() > 0 for g in grads]).sum())
+            first["finite"] = int(torch.stack([torch.isfinite(g).all() for g in grads]).sum())
+            index = {id(t): i for i, t in enumerate(leaves)}
+            watched = [b["attn"]["wqkv"] for b in trainer.params["vision"]["blocks"]]
+            watched += [layer["attn"][n] for layer in trainer.params["text"]["layers"] for n in ("wq", "wk", "wv")]
+            first["attention"] = min(float(grads[index[id(t)]].float().abs().sum()) for t in watched)
+
+    trainer.on_grads = on_grads
+    m1, rb1, l1 = step(trainer, "full fine-tune, cut step", cut, 1)
+    assert all(c != "" for c in rb1.completions2), "stage 2 did not run on the cut step"
+    assert l1["flash_causal_attention"] == 4 * L, l1  # prefill, chunk prefill, reference, policy
+    m2, rb2, l2 = step(trainer, "full fine-tune, uncut step", uncut, 2)
+    assert all(c == "" for c in rb2.completions2) and l2["flash_causal_attention"] == 3 * L, l2
+    moved = [not torch.equal(a, b) for a, b in zip(leaves, before)]
+    still = [i for i, m in enumerate(moved) if not m]
+    vanish = [i for i in still if bf16_step_vanishes(leaves[i], base.learning_rate)]
+    log(f"  first step's gradients: {first['nonzero']} of {len(leaves)} leaves nonzero, {first['finite']} finite, "
+        f"smallest summed |gradient| of a ViT wqkv or decoder wq/wk/wv {first['attention']:.3e}; after 2 updates at lr "
+        f"{base.learning_rate}: {sum(moved)} of {len(leaves)} leaves moved, {len(still)} did not, of which "
+        f"{len(vanish)} are leaves no bf16 step of 2 lr can move (every |x| 2^-9 above it: the norm scales at 1)")
+    assert first["nonzero"] == first["finite"] == len(leaves) and first["attention"] > 0, first
+    assert still == vanish, [i for i in still if i not in vanish]
+    assert all(moved[i] for i, t in enumerate(leaves) if t.dim() > 1), "a matrix did not move"
+    del trainer, params, leaves, before
+    torch.cuda.empty_cache()
+
+    # (2) LoRA (r 8, alpha 16) at lr 1e-7, its reference policy the adapter-disabled view: a cut step,
+    # then one whose rollouts go through a ServingEngine (the held stage-1 slot continued with the crop)
+    params = new_params()
+    lora_cfg = dataclasses.replace(base, use_lora=True, lora_r=8, lora_alpha=16.0, learning_rate=1e-7)
+    trainer = trainer_for(params, lora_cfg)
+    adapted = [w for layer in trainer.params["text"]["layers"] for g in ("attn", "mlp") for w in layer[g].values()
+               if TLORA.is_lora(w)]
+    bases = [w["w"].detach().clone() for w in adapted]
+    m3, rb3, l3 = step(trainer, "LoRA r 8 alpha 16, cut step", cut, 3)
+    b_moved = sum(bool(w["b"].abs().max() > 0) for w in adapted)
+    engine = ServingEngine(trainer.params, cfg, max_slots=GRPO_ENGINE_SLOTS, max_seq_len=GRPO_ENGINE_SEQ)
+    trainer.rollout_engine = engine
+    m4, rb4, l4 = step(trainer, f"LoRA, rollouts through a ServingEngine ({GRPO_ENGINE_SLOTS} slots x "
+                       f"{GRPO_ENGINE_SEQ}), cut step", cut, 4)
+    contained = {key: engine.stats.get(key, 0) for key in ("errors", "admission_retries", "pump_errors")}
+    base_same = all(torch.equal(w["w"], b) for w, b in zip(adapted, bases))
+    log(f"  LoRA: {len(adapted)} adapted matrices; after 2 updates the bases bit for bit: {base_same}; adapters "
+        f"moved by the first update {b_moved}; |kl| at the first step {abs(m3['kl']):.3e} (tol 1e-3); engine stats "
+        f"{engine.stats}, contained failures {contained}")
+    assert base_same and b_moved == len(adapted) and abs(m3["kl"]) < 1e-3, (base_same, b_moved, m3)
+    assert all(c != "" for c in rb3.completions2 + rb4.completions2), "stage 2 did not run"
+    assert not any(contained.values()) and not engine._running and not engine.held, (contained, engine.held)
+    del trainer, engine, params, adapted, bases
+    torch.cuda.empty_cache()
+    return {n: {"launches_grpo": total[n]} for n in counters}
+
+
 def profile_training(card, parent=None):
     """`--profile-sft`: where one warm SFT micro-step's time goes, by kernel. The
     training phase's model, samples and processor; gradient accumulation over 8
@@ -1139,6 +1493,20 @@ def check_tiny_parity():
         f"max |logit| {lp.abs().max().item():.2f}); K2 variants that ran: {ran}")
     if not (err <= tol and ran["mma"] > 0 and ran["fma"] == 0 and bool(torch.isfinite(lk).all())):
         raise AssertionError("tiny-config bf16 parity on the card failed")
+
+
+def legible_tokenizer(tokens):
+    """A FakeTokenizer that reads every id that is no special token as a letter: random
+    weights pick ids all over the model's vocabulary, where the byte-level tokenizer has
+    no text, and a completion without text is read as no completion at all."""
+    from zoomearth_tpu_torch.tokenizer import FakeTokenizer
+
+    class LegibleTokenizer(FakeTokenizer):
+        def decode(self, ids, skip_special_tokens=True):
+            return "".join((self._id_to_special[int(i)] if not skip_special_tokens else "")
+                           if int(i) in self._id_to_special else chr(97 + int(i) % 26) for i in ids)
+
+    return LegibleTokenizer(tokens)
 
 
 def synthetic_tile(seed, size=5000):
@@ -1516,7 +1884,6 @@ def run_serving(card, env):
     from zoomearth_tpu_torch.serve import episodes as SE
     from zoomearth_tpu_torch.serve.engine import Request, ServingEngine
     from zoomearth_tpu_torch.serve.server import OpenAIServer
-    from zoomearth_tpu_torch.tokenizer import FakeTokenizer
 
     cfg, processor, tiles = env.cfg, env.processor, env.tiles
     samples = env.samples[:SERVE_EPISODES]
@@ -1677,20 +2044,12 @@ def run_serving(card, env):
         L = cfg.text.num_hidden_layers
         assert launches[names[1]] == L * st["prefills"] and launches[names[2]] == L * st["decode_steps"], (launches, st)
 
-    class LegibleTokenizer(FakeTokenizer):
-        """Random weights pick ids all over the model's vocabulary, where the byte-level tokenizer
-        has no text, and an answer without text streams no content event: the endpoint's
-        tokenizer reads every id that is no special token as a letter."""
-
-        def decode(self, ids, skip_special_tokens=True):
-            return "".join((self._id_to_special[int(i)] if not skip_special_tokens else "")
-                           if int(i) in self._id_to_special else chr(97 + int(i) % 26) for i in ids)
-
-    # (1) the endpoint: real HTTP against the pump thread
+    # (1) the endpoint: real HTTP against the pump thread; an answer without text streams no
+    # content event, so the endpoint's tokenizer reads every id as a letter
     reset()
     engine = engine_for(env.params)
     legible = copy.copy(processor)
-    legible.tokenizer = LegibleTokenizer(cfg.tokens)
+    legible.tokenizer = legible_tokenizer(cfg.tokens)
     server = OpenAIServer(engine, legible, host="127.0.0.1", port=0)
     # the tokens are read beside the server's router too, by request in order of arrival
     routed, route = {}, engine.on_tokens
@@ -2184,6 +2543,7 @@ def main(argv=()) -> int:
         "then one SFT micro-step's gradients")
     check_tiny_parity()
     check_tiny_grad_parity()
+    check_tiny_grpo_parity()
     log("[slice] Qwen2.5-VL-3B bf16, run_inference + run_episodes(reuse_cache=True)")
     env = slice_setup()
     launches = run_slice(card, env)
@@ -2200,6 +2560,9 @@ def main(argv=()) -> int:
         f"update), checkpoints, a resume from step {TRAIN_RESUME_AT}, the HF export")
     training, bwd_launches = run_training(card)
     launches.update(bwd_launches)
+    log(f"[grpo] Qwen2.5-VL-3B bf16, GRPOTrainer with G = 4: two full fine-tune steps (cut, uncut), a LoRA step, a "
+        f"LoRA step through a ServingEngine; budgets {GRPO_NEW_1} / {GRPO_NEW_2}")
+    grpo = run_grpo(card)
     log("[decode-variants] K4 / P1 / P2 checked at the reference's shapes and at their edges, then the entry "
         "points' runs")
     checks = check_decode_variants()
@@ -2215,6 +2578,7 @@ def main(argv=()) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             **({"note": BWD_NOTE} if replaces is None else {}),
             "launches": launches[name], **pipelined.get(name, {}), **serving.get(name, {}), **training.get(name, {}),
+            **grpo.get(name, {}),
             "max_abs_err": max(c["max_abs_err"] for c in cases + checks),
             **{key: cases[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
                                               "library_device_ms", "share_of_bound")},

@@ -1064,3 +1064,64 @@ def test_logits_head_gradient_on_card(dev):
     for got, ref in ((dh, rh), (dw, rw)):
         # g rounded to bf16 (2^-9 relative) and the result rounded to bf16 (2^-9): two bf16 half-steps
         assert _err(got, ref) <= 2.0 ** -7 * ref.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# GRPO: the backward kernels at the policy pass's shapes, LoRA's product
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_backward_at_the_grpo_policy_shape(dev, dtype):
+    """The policy pass's decoder attention: B = 4 rows of S = T = 1024, kv_len = S (K2-bwd's dk/dv split plan at
+    B > 1, which SFT's batch of one never takes)."""
+    q, k, v, pos, kvl = _k2_train_case(dev, dtype, 4, 1024, 16, 2, 128, (1024,) * 4)
+    out, lse = K2.causal_attention_cuda(q, k, v, pos, kvl, return_lse=True)
+    dout = _randn((4, 1024, 16, 128), dev, dtype, 86)
+    got = K2.causal_attention_bwd_cuda(q, k, v, pos, kvl, out, dout, lse)
+    torch.cuda.synchronize()
+    _assert_grads(got, K2.flash_causal_attention_bwd_plain(q, k, v, pos, kvl, out, dout, lse), dtype)
+
+
+@pytest.mark.parametrize("which", ["seg_window", "seg_full"])
+def test_k1_backward_at_the_grpo_cut_step(dev, which):
+    """The cut step's ViT in the policy pass: 4 rows x (stage-1 image + crop) = 8 images of 36 x 36 patches
+    (S = 10368), in the window segments and the full-image segments of the port's vision_metadata, bf16 on the
+    tensor-core variant."""
+    from zoomearth_tpu_torch.config import VLMConfig as PortConfig
+    from zoomearth_tpu_torch.models.vit import vision_metadata
+
+    vcfg = PortConfig.qwen2_5_vl_3b().vision
+    meta = vision_metadata([(1, 36, 36)] * 8, vcfg, pad_to=10368)
+    seg = torch.as_tensor(getattr(meta, which), dtype=torch.int32, device=dev)
+    qkv = _randn((10368, 3, vcfg.num_heads, vcfg.head_dim), dev, torch.bfloat16, 87)
+    q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    out, lse = K1.segment_attention_cuda(q, k, v, seg, return_lse=True)
+    dout = _randn(tuple(out.shape), dev, torch.bfloat16, 88)
+    v0 = dict(K1.segment_attention_bwd_cuda.variants)
+    got = K1.segment_attention_bwd_cuda(q, k, v, seg, out, dout, lse)
+    torch.cuda.synchronize()
+    assert K1.segment_attention_bwd_cuda.variants["mma"] == v0["mma"] + 1
+    _assert_grads(got, K1.flash_segment_attention_bwd_plain(q, k, v, seg, out, dout, lse), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_qdot_forward_and_backward_match_the_cpu(dev, dtype):
+    """A LoRA weight ({"w", "a", "b", "s"}, 0-d s) through ops.quant.qdot on the card against the CPU in fp32:
+    the output and the gradients of x, w, a, b and s."""
+    from zoomearth_tpu_torch.ops.quant import qdot
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 40, 256, generator=g)
+    leaf = {"w": torch.randn(256, 512, generator=g) * 0.05, "a": torch.randn(256, 8, generator=g) / 8,
+            "b": torch.randn(8, 512, generator=g) * 0.01, "s": torch.tensor(2.0)}
+    dy = torch.randn(3, 40, 512, generator=g)
+    results = []
+    for device, dt in (("cpu", torch.float32), (dev, dtype)):
+        xs = x.to(device, dt).requires_grad_()
+        w = {k: t.to(device, dt).requires_grad_() for k, t in leaf.items()}
+        y = qdot(xs, w)
+        grads = torch.autograd.grad(y, [xs] + [w[k] for k in ("w", "a", "b", "s")], dy.to(device, dt))
+        results.append([t.float().cpu() for t in (y, *grads)])
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for name, got, ref in zip(("y", "dx", "dw", "da", "db", "ds"), results[1], results[0]):
+        assert _err(got, ref) <= tol * max(1.0, ref.abs().max().item()), (name, _err(got, ref))

@@ -593,7 +593,9 @@ def test_port_imports_no_jax():
         "assert len(mods) >= 30, mods\n"
         "new = {'serve.engine', 'serve.episodes', 'serve.server', 'eval.client', 'ops.quant', 'cli.serve',\n"
         "       'train.sft', 'train.sft_loop', 'train.checkpoints', 'train.callbacks', 'utils.metrics_sinks',\n"
-        "       'cli.train_sft'}\n"
+        "       'cli.train_sft', 'rewards.detection', 'rewards.generic', 'rewards.internvl', 'rewards.llm_judge',\n"
+        "       'rewards.registry', 'rewards.zoomearth', 'utils.mathcheck', 'train.grpo', 'train.lora',\n"
+        "       'cli.train_grpo'}\n"
         "assert {'zoomearth_tpu_torch.' + m for m in new} <= set(mods), mods\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'zoomearth_tpu'))\n"
@@ -610,3 +612,138 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+# ---------------------------------------------------------------------------
+# the reward modules and mathcheck (the port's own copies)
+# ---------------------------------------------------------------------------
+
+from zoomearth_tpu.rewards import detection as JDET  # noqa: E402
+from zoomearth_tpu.rewards import generic as JGEN  # noqa: E402
+from zoomearth_tpu.rewards import internvl as JIVL  # noqa: E402
+from zoomearth_tpu.rewards import llm_judge as JLLM  # noqa: E402
+from zoomearth_tpu.rewards import zoomearth as JZE  # noqa: E402
+from zoomearth_tpu.train import lora as JLORA  # noqa: E402
+from zoomearth_tpu.utils import mathcheck as JMATH  # noqa: E402
+from zoomearth_tpu_torch.rewards import detection as TDET  # noqa: E402
+from zoomearth_tpu_torch.rewards import generic as TGEN  # noqa: E402
+from zoomearth_tpu_torch.rewards import internvl as TIVL  # noqa: E402
+from zoomearth_tpu_torch.rewards import llm_judge as TLLM  # noqa: E402
+from zoomearth_tpu_torch.rewards import zoomearth as TZE  # noqa: E402
+from zoomearth_tpu_torch.utils import mathcheck as TMATH  # noqa: E402
+
+_BOX_TEXTS = _TEXTS + [
+    '<think>a</think>[{"bbox_2d": [1.5, 2.5, 300.25, 400]}]', '{"bbox_2d" : [ 7 , 8 , 9 , 10 ]}',
+    '<think >spaced</think > <answer>\n x \n</answer>', '"bbox_2d": [1e3, 2, 3, 4]',
+]
+_BOXES = [[10, 20, 300, 400], [0, 0, 50, 50], [900, 700, 1000, 800], [-20, -5, 2000, 90], [100, 100, 50, 50],
+          [4990, 4990, 5000, 5000], [90, 40, 110, 60], [1.5, 2.5, 3, 4], [10, 20, 30]]
+
+
+@pytest.mark.parametrize("pair", [(TZE, JZE), (TDET, JDET), (TGEN, JGEN), (TIVL, JIVL), (TLLM, JLLM),
+                                  (TMATH, JMATH)], ids=lambda p: p[1].__name__.rsplit(".", 1)[-1])
+def test_reward_module_copies_have_the_references_names_and_constants(pair):
+    ours, theirs = pair
+    names = {n for n, v in vars(theirs).items() if not n.startswith("__") and not isinstance(v, type(sys))}
+    assert names <= set(vars(ours)), names - set(vars(ours))
+    for n in names:
+        v = getattr(theirs, n)
+        if isinstance(v, (str, int, float, tuple)):
+            assert getattr(ours, n) == v, n
+        elif isinstance(v, np.ndarray):
+            np.testing.assert_array_equal(getattr(ours, n), v)
+
+
+@pytest.mark.parametrize("text", _BOX_TEXTS)
+def test_region_guided_helpers_equal_reference(text):
+    assert TZE.extract_bboxes_float(text) == JZE.extract_bboxes_float(text)
+    for tag in ("think", "answer", "bbox"):
+        assert TZE.extract_tag(text, tag) == JZE.extract_tag(text, tag)
+    assert TDET.clean_text(text) == JDET.clean_text(text)
+    assert TDET.parse_json_boxes(text) == JDET.parse_json_boxes(text)
+    assert TGEN.extract_choice(text) == JGEN.extract_choice(text)
+    assert TGEN._answer_of(text) == JGEN._answer_of(text)
+
+
+def test_box_geometry_of_the_rewards_equals_reference():
+    for a in _BOXES:
+        if len(a) == 4:
+            assert TZE.get_crop_area(a) == JZE.get_crop_area(a)
+            assert TZE.get_crop_area(a, 128) == JZE.get_crop_area(a, 128)
+        for b in _BOXES:
+            assert TZE.crop_iou(a, b) == JZE.crop_iou(a, b)
+            if len(a) == len(b) == 4:
+                assert TDET.iou_inclusive(a, b) == JDET.iou_inclusive(a, b)
+                assert TIVL._iou(a, b) == JIVL._iou(a, b)
+    for x in (0.0, 0.5, -2.0, 30.0):
+        assert TZE._tanh(x) == JZE._tanh(x)
+    preds = [{"bbox_2d": b, "label": lab} for b, lab in zip(_BOXES[:6], "aabbab")]
+    gts = [{"bbox_2d": b, "label": lab} for b, lab in zip(_BOXES[1:5], "abab")]
+    for st in (0, 1):
+        assert TDET.calculate_map(preds, gts, st) == JDET.calculate_map(preds, gts, st)
+
+
+@pytest.mark.parametrize("a,b", [("3", "3"), ("\\boxed{3}", "3"), ("\\frac{1}{2}", "1/2"), ("0.5", "\\frac12"),
+                                 ("\\sqrt2", "\\sqrt{2}"), ("10\\text{ cm}", "10"), ("\\dfrac{3}{4}", "\\frac{3}{4}"),
+                                 ("\\left(1,2\\right)", "(1,2)"), ("x = 5", "5"), ("", "1"), ("\\fbox{7}", "7")])
+def test_mathcheck_equals_reference(a, b):
+    for f in ("compute_score", "is_equiv"):
+        assert getattr(TMATH, f)(a, b) == getattr(JMATH, f)(a, b), f
+    for f in ("strip_string", "last_boxed_only_string", "_fix_fracs", "_fix_a_slash_b", "_fix_sqrt",
+              "_remove_right_units"):
+        assert getattr(TMATH, f)(a) == getattr(JMATH, f)(a), f
+
+
+def test_llm_judge_equals_reference_with_a_stub_client_and_without_an_endpoint(monkeypatch):
+    """The judge's exact-match fallback (no endpoint configured, or a failing client)
+    and its parse of a client's answer; with JUDGE_BASE_URL the port builds its own
+    ChatClient (constructing it opens no connection)."""
+    class Stub:
+        def __init__(self, reply):
+            self.reply, self.seen = reply, []
+
+        def create(self, messages, **kw):
+            self.seen.append((messages, kw))
+            if isinstance(self.reply, Exception):
+                raise self.reply
+            return self.reply
+
+    monkeypatch.delenv("JUDGE_BASE_URL", raising=False)
+    monkeypatch.delenv("OPENAI_API_BASE", raising=False)
+    assert TLLM._default_client() is None and JLLM._default_client() is None
+    for content, sol in (("<answer>car</answer>", "<answer>car</answer>"), ("a ship", "<answer>boat</answer>"),
+                         ("<answer>x</answer><answer> y </answer>", "y")):
+        assert TLLM.llm_reward(content, sol) == JLLM.llm_reward(content, sol)
+        for reply in (" 1.0 ", "0.0", "maybe", RuntimeError("down")):
+            ours, theirs = Stub(reply), Stub(reply)
+            assert TLLM.llm_reward(content, sol, client=ours) == JLLM.llm_reward(content, sol, client=theirs)
+            assert ours.seen == theirs.seen
+    monkeypatch.setenv("JUDGE_BASE_URL", "http://127.0.0.1:9")
+    client = TLLM._default_client()
+    assert isinstance(client, TCL.ChatClient) and client.model == "qwen2.5:7b" and client.port == 9
+
+
+def test_params_from_numpy_carries_lora_and_int8_trees_both_ways():
+    """A LoRA tree of the JAX package ({"w", "a", "b", "s"} leaves with a 0-d s) and
+    an int8 tree ({"q", "s"}) come across leaf for leaf, in structure, dtype and value,
+    and go back to the same numpy arrays."""
+    from zoomearth_tpu.ops.quant import quantize_decoder_int8
+    from zoomearth_tpu_torch.models.params import map_tree
+    from zoomearth_tpu_torch.ops.quant import qdot
+
+    jp = JLORA.apply_lora(jax_init_vlm_params(jax.random.key(0), CFG), jax.random.key(1), r=4, alpha=8.0)
+    ours = params_from_numpy(jax.tree.map(np.asarray, jp))
+    wq = ours["text"]["layers"][0]["attn"]["wq"]
+    assert set(wq) == {"w", "a", "b", "s"} and wq["s"].dim() == 0 and float(wq["s"]) == 2.0
+    for tree in (jp, quantize_decoder_int8(jax_init_vlm_params(jax.random.key(2), CFG))):
+        ours = params_from_numpy(jax.tree.map(np.asarray, tree))
+        theirs = jax.tree.leaves(tree)
+        back = jax.tree.leaves(map_tree(lambda t: t.numpy(), ours))
+        assert len(back) == len(theirs)
+        for a, b in zip(back, theirs):
+            b = np.asarray(b)
+            assert a.shape == b.shape and a.dtype == (np.int8 if b.dtype == np.int8 else np.float32)
+            np.testing.assert_array_equal(a, b)
+    x = torch.randn(3, CFG.text.hidden_size, generator=torch.Generator().manual_seed(0))
+    wq = params_from_numpy(jax.tree.map(np.asarray, jp))["text"]["layers"][0]["attn"]["wq"]
+    torch.testing.assert_close(qdot(x, wq), x @ wq["w"] + (x @ wq["a"]) @ wq["b"] * wq["s"])

@@ -54,9 +54,11 @@ def tree_leaves(tree):
 
 def params_from_numpy(tree, device="cpu", dtype=None) -> Dict:
     """The JAX package's parameter tree (leaves as numpy arrays or anything
-    np.asarray accepts, (in, out) layout) -> the port's tree on `device`. Float
-    leaves take `dtype` (float32 when omitted); integer leaves (the int8 values of a
-    quantized tree, ops/quant.py) keep their own dtype."""
+    np.asarray accepts, (in, out) layout) -> the port's tree on `device`, structure
+    for structure: a LoRA leaf {"w", "a", "b", "s"} (train/lora.py; s 0-d) and an int8
+    leaf {"q", "s"} (ops/quant.py) come across as dicts of tensors that ops.quant.qdot
+    takes as they are. Float leaves take `dtype` (float32 when omitted); integer
+    leaves (the int8 values) keep their own dtype."""
     def conv(leaf):
         a = np.asarray(leaf)
         if a.dtype.kind in "iu":

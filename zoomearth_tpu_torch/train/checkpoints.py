@@ -7,7 +7,8 @@ for GRPO, grpo_jsonl.py:1006-1009, in one implementation): save(step) writes
 checkpoint-{step}/ with the parameter tree (params.pt), the optimizer's state
 (opt_state.pt) and meta.json, and points training_info.json beside them at it;
 latest() finds the newest complete checkpoint; restore() loads a checkpoint onto the
-templates' devices and dtypes.
+templates' devices and dtypes. The trees may hold dict leaves (a LoRA tree's {"w", "a",
+"b", "s"}); the optimizer state is SFTOptimizer's state_dict, SFT's or GRPO's.
 """
 
 from __future__ import annotations

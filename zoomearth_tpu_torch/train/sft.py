@@ -24,7 +24,7 @@ There is no mesh here: the reference's sharded step is ROADMAP item 16.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -86,15 +86,24 @@ class SFTOptimizer:
     module docstring). The leaves are updated in place; their moments live in their
     dtype, as optax keeps them. `state_dict()` / `load_state_dict()` carry everything
     a resume needs: AdamW's state, the update count, the micro-step and the running
-    mean of a partial accumulation."""
+    mean of a partial accumulation.
 
-    def __init__(self, params, cfg: SFTConfig):
+    `schedule` replaces the warmup-and-decay schedule (GRPO's rate is constant);
+    `frozen` names leaves that AdamW never steps (GRPO's frozen vision tower, LoRA's
+    base weights): their gradients still count in the global norm, as the JAX
+    package's masked updates do, but neither the update nor the weight decay moves
+    them."""
+
+    def __init__(self, params, cfg: SFTConfig, *, schedule: Optional[Callable[[int], float]] = None,
+                 frozen: Sequence[torch.Tensor] = ()):
         self.params: List[torch.Tensor] = tree_leaves(params)
         self.cfg = cfg
-        self.schedule = make_schedule(cfg)
+        self.schedule = schedule or make_schedule(cfg)
         self.k = max(1, cfg.gradient_accumulation_steps)
-        self.adamw = torch.optim.AdamW(self.params, lr=0.0, betas=(cfg.adam_b1, cfg.adam_b2), eps=1e-8,
-                                       weight_decay=cfg.weight_decay)
+        frozen_ids = {id(t) for t in frozen}
+        self.moving = [id(p) not in frozen_ids for p in self.params]
+        self.adamw = torch.optim.AdamW([p for p, m in zip(self.params, self.moving) if m], lr=0.0,
+                                       betas=(cfg.adam_b1, cfg.adam_b2), eps=1e-8, weight_decay=cfg.weight_decay)
         self.updates = 0  # updates applied: the schedule's count
         self.mini_step = 0
         self.acc: Optional[List[torch.Tensor]] = None
@@ -116,8 +125,9 @@ class SFTOptimizer:
             grads, self.acc, self.mini_step = self.acc, None, 0
         norm = global_norm(grads)
         clip = self.cfg.max_grad_norm
-        for p, g in zip(self.params, grads):
-            p.grad = torch.where(norm < clip, g, g / norm.to(g.dtype) * clip)
+        for p, g, moving in zip(self.params, grads, self.moving):
+            if moving:
+                p.grad = torch.where(norm < clip, g, g / norm.to(g.dtype) * clip)
         for group in self.adamw.param_groups:
             group["lr"] = self.schedule(self.updates)
         self.adamw.step()
