@@ -87,7 +87,10 @@ Phases, each fatal on failure (nothing is caught):
    each padded patch count, bf16 and int8 with the scale rows. The scheduler's own
    containment (a failed batch retried row by row, a tick that raised in the pump) is
    counted by the engine and must read 0 throughout, and the wait for the episodes is
-   bounded. Last, the
+   bounded. The endpoint's engine also serves the data-generation pipeline
+   (train/datagen.generate_records over the engine and its processor): 4 prompts x 2
+   sampled generations of up to 32 tokens, every record with its 2 generations and the
+   containment counts still 0. Last, the
    engine's decode step with 8 live rows timed over bf16 weights and over the int8
    layout of ops/quant.py (which widens the weights for every product), in turns, and
    one decoder matmul at that step's shape on the device, bf16 torch.mm beside qdot.
@@ -148,6 +151,26 @@ Phases, each fatal on failure (nothing is caught):
    be left unchanged; K4, P1 and P2 must each have launched. A count is of launches
    through the wrapper: calls captured into a CUDA graph are not counted, nor its
    replays.
+11. internvl — the second model family. First the tiny InternVL config in fp32 on the
+   card against the CPU plain path (which the CPU tests hold against the JAX package):
+   InternViT's embeddings, the embeds-path prefill logits and the greedy tokens. Then
+   InternVLVLMConfig() at full width (an InternViT-300M tower: 24 blocks, width 1024,
+   448 px tiles of 256 tokens; a 2-layer projector; the Qwen2.5-3B decoder), random
+   bf16 weights from a seeded torch.Generator: InternVLRunner.generate over 8 synthetic
+   5000 px tiles, greedy, 64 new tokens, the REC question template. The one reduction:
+   max_anyres_num 8 (5 tiles an image, 40 through InternViT in one call, prompts of
+   1805 tokens in the 2048 bucket) instead of the reference's 12, whose 10 tiles make a
+   3085-token prompt that the reference's runner refuses. Every row must return
+   tokens; K2 must launch once per decoder layer (36, all on the tensor-core variant),
+   K3 a whole number of layers, K1 never; the decoder's kernel dispatchers are shadowed
+   to keep the inputs of the first call of each form, and K2 and K3 are then held
+   against their plain versions row by row (each query and head within one bf16 step
+   of its own largest value) and timed (beside one SDPA call) at exactly those forms.
+   Two planted faults must fail that check: K2 run with every row's last 64 keys
+   dropped, and K3 fed kv_len - 64. The stages again, warm, through utils/profiling.PhaseTimer with device
+   synchronization (anyres tiling, InternViT over the 40 tiles, the prefill, decode ms
+   a step), the peak memory, and one utils/profiling.trace of a warm prefill, whose
+   Chrome trace must hold the annotated region and device kernels.
 
 The second-to-last line is {"kernels": [...]} (every case of each kernel with its
 time, its plain version's, the library call's where there is one, its bound and the
@@ -155,8 +178,9 @@ share of it reached; the untimed checks; launches from the path that runs it: ca
 of the wrapper, and each K3, K4 or P2 call runs two kernels, its split pass and the
 split merge; a P1 call is one memset and one kernel; a backward call runs its dq
 kernel, then its dk/dv kernel, and its launches are the training phase's; the
-`launches_grpo` of K1, K2, K3 and the backward kernels are the GRPO phase's); the last
-is the device contract line.
+`launches_grpo` of K1, K2, K3 and the backward kernels are the GRPO phase's, the
+`launches_internvl` of K2 and K3 the InternVL phase's); the last is the device contract
+line.
 """
 
 from __future__ import annotations
@@ -181,6 +205,7 @@ SAMPLES, BATCH, NEW_TOKENS = 8, 8, 64
 PIPE_SAMPLES, PIPE_NEW_TOKENS_2 = 24, 48  # the pipelined phase: three waves of BATCH, budgets NEW_TOKENS / 48
 SERVE_EPISODES, SERVE_SLOTS, SERVE_SEQ_LEN, SERVE_CHUNK = 16, 8, 2048, 8  # the serving phase (budgets as pipelined)
 SERVE_WAIT_S = 240  # the longest one episodes run may take; on the H100 it has taken 13 to 28 s
+DATAGEN_PROMPTS = ["describe the harbour", "count the ships in the tile", "name the terrain", "where is the runway?"]
 # first pair step's logits against the solo step's, bf16 at 3B width: the same arithmetic, but cuBLAS may
 # choose another kernel for 16 rows than for 8, and 36 layers of bf16 roundings follow: three bf16 steps
 # (2^-5) of a logit near 4.5, the largest here
@@ -300,12 +325,13 @@ def sdpa_backends(fn):
     return ok
 
 
-def case(label, kernel, plain, card, work, library=None, nbytes=None, tol=None, library_tol=None):
+def case(label, kernel, plain, card, work, library=None, nbytes=None, tol=None, library_tol=None, rows=False):
     """One kernel case: its output against its plain version's (max abs error within
-    TOL_BF16, or within `tol(ref)`: one number, or one for each of a tuple's outputs),
-    the library call's too where there is one (within `library_tol(ref)` where given),
-    then all of them timed in turns, L2 cold: per call (CUDA events around each call)
-    and on the device (CUDA graph replays)."""
+    TOL_BF16, or within `tol(ref)`: one number, or one for each of a tuple's outputs;
+    with rows=True, held row by row as held_on_path holds it), the library call's too
+    where there is one (within `library_tol(ref)` where given), then all of them timed
+    in turns, L2 cold: per call (CUDA events around each call) and on the device (CUDA
+    graph replays)."""
     import torch
 
     from zoomearth_tpu_torch.scripts.timing import time_in_turns
@@ -313,13 +339,18 @@ def case(label, kernel, plain, card, work, library=None, nbytes=None, tol=None, 
     out = kernel()
     ref = plain()
     torch.cuda.synchronize()
-    errs = errors(out, ref)
-    tol = TOL_BF16 if tol is None else tol(ref)
-    if not (within(errs, tol) and all_finite(out)):
-        raise AssertionError(f"{label}: kernel disagrees with its plain version ({errs}, tol {tol})")
-    check = {"max_abs_err": max(errs), "tol": tol}
-    if len(errs) > 1:
-        check["max_abs_err_each"] = errs
+    if rows:
+        check = held_on_path(label, out, ref)
+        check.pop("case")
+        tol = check["tol"]
+    else:
+        errs = errors(out, ref)
+        tol = TOL_BF16 if tol is None else tol(ref)
+        if not (within(errs, tol) and all_finite(out)):
+            raise AssertionError(f"{label}: kernel disagrees with its plain version ({errs}, tol {tol})")
+        check = {"max_abs_err": max(errs), "tol": tol}
+        if len(errs) > 1:
+            check["max_abs_err_each"] = errs
     if library is not None:
         lib_tol = tol if library_tol is None else library_tol(ref)
         lib_errs = errors(library(), ref)
@@ -491,11 +522,57 @@ def edge_check(label, out, ref, tol=TOL_BF16):
     return {"case": label, "max_abs_err": max(errs), "tol": tol}
 
 
+ROW_TOL = "each row (one query, one head) within 2^-7 of its own largest |value| + 1e-5"
+
+
+def row_ratios(out, ref):
+    """Each output row's (the last dim: one query and one head) largest error over its
+    tolerance, one bf16 step (2^-7) of that row's largest value plus 1e-5: at most 1
+    where the kernel agrees with its plain version."""
+    o, r = out.float(), ref.float()
+    return (o - r).abs().amax(-1) / (2.0 ** -7 * r.abs().amax(-1) + 1e-5)
+
+
 def held_on_path(label, out, ref):
-    """edge_check for a kernel fed the model's own keys and values, which run past 2, where
-    TOL_BF16 was stated: one bf16 step (2^-7) of the largest output, which a scale or a row
-    read from a wrong slot exceeds by orders."""
-    return edge_check(label, out, ref, max(TOL_BF16, 2.0 ** -7 * ref.abs().max().item()))
+    """A kernel fed the model's own keys and values, held row by row (ROW_TOL). The
+    outputs' scale varies by orders between rows: a first causal row copies one value
+    near 5, while a row that averages over a thousand keys holds values near 0.03. So one
+    tolerance for the whole tensor is as large as a long row's values; a row's own bf16
+    step is not, and a row that skips a key tile or reads a wrong slot exceeds it
+    (run_internvl plants both faults and shows it). Logs and returns the check."""
+    import torch
+
+    torch.cuda.synchronize()
+    ratio = row_ratios(out, ref).max().item()
+    err = max_err(out, ref)
+    log(f"  {label}: max_abs_err {err:.3e}, worst row's error over its tolerance {ratio:.3f} ({ROW_TOL})")
+    if not (ratio <= 1 and all_finite(out)):
+        raise AssertionError(f"{label}: kernel disagrees with its plain version (worst row {ratio:.3f} of its "
+                             f"tolerance, max_abs_err {err})")
+    return {"case": label, "max_abs_err": err, "worst_row_over_tol": ratio, "tol": ROW_TOL}
+
+
+def planted_fault(label, out, ref, long_rows):
+    """A negative control for held_on_path: `out` is the kernel run on inputs that make it
+    skip keys its plain version sees. Fails unless the row check rejects it; returns the
+    share of rows it flags, among all and among `long_rows` (a mask that broadcasts to
+    the rows' shape), and whether one tolerance for the whole tensor,
+    max(TOL_BF16, 2^-7 max|ref|), would have passed it."""
+    import torch
+
+    torch.cuda.synchronize()
+    flagged = row_ratios(out, ref) > 1
+    long_rows = long_rows.expand(flagged.shape)
+    whole = max(TOL_BF16, 2.0 ** -7 * ref.float().abs().max().item())
+    c = {"case": label, "rows_flagged": flagged.float().mean().item(),
+         "long_rows_flagged": flagged[long_rows].float().mean().item(),
+         "max_abs_err": max_err(out, ref), "whole_tensor_tol": whole,
+         "whole_tensor_tol_passes_it": max_err(out, ref) <= whole}
+    log(f"  planted fault, {label}: the row check flags {c['rows_flagged']:.4f} of the rows and "
+        f"{c['long_rows_flagged']:.4f} of the rows over 1024 keys; max_abs_err {c['max_abs_err']:.3e} against one "
+        f"whole-tensor tolerance of {whole:.3e}, which would {'pass' if c['whole_tensor_tol_passes_it'] else 'fail'} it")
+    assert bool(flagged.any()), f"{label}: the row check passed a kernel that skipped keys"
+    return c
 
 
 def check_k1_edges(randn):
@@ -1884,6 +1961,7 @@ def run_serving(card, env):
     from zoomearth_tpu_torch.serve import episodes as SE
     from zoomearth_tpu_torch.serve.engine import Request, ServingEngine
     from zoomearth_tpu_torch.serve.server import OpenAIServer
+    from zoomearth_tpu_torch.train.datagen import generate_records
 
     cfg, processor, tiles = env.cfg, env.processor, env.tiles
     samples = env.samples[:SERVE_EPISODES]
@@ -2110,6 +2188,19 @@ def run_serving(card, env):
             f"in {len(chunks)} events, {len(content)} of them with content, arriving "
             f"{[round(at, 3) for _, at in content]} s after the request (24 new tokens each), over-long prompt refused "
             f"with HTTP 400; launches {chat_launches}; {engine.latency_percentiles()} | {card}")
+        # the data-generation pipeline's engine backend on the same running engine: prompts x G
+        # requests through continuous batching, sampled at its default temperature
+        done = engine.stats["completed"]
+        t0 = time.time()
+        records = generate_records(DATAGEN_PROMPTS, engine=engine, processor=legible, num_generations=2,
+                                   max_new_tokens=32, timeout=SERVE_WAIT_S)
+        t_gen = time.time() - t0
+        assert [r["instruction"] for r in records] == DATAGEN_PROMPTS, records
+        assert all(len(r["generations"]) == 2 and all(isinstance(g, str) for g in r["generations"]) for r in records)
+        assert engine.stats["completed"] == done + 2 * len(DATAGEN_PROMPTS), engine.stats
+        assert not any(contained(engine).values()), f"the scheduler caught and served on after {contained(engine)}"
+        log(f"  generate_records(engine=...): {len(DATAGEN_PROMPTS)} prompts x 2 generations of up to 32 tokens in "
+            f"{t_gen:.3f} s; generation lengths {[[len(g) for g in r['generations']] for r in records]} | {card}")
     finally:
         server.stop()
         undo()
@@ -2503,6 +2594,253 @@ def run_decode_variants(card, checks):
     return rows, launches
 
 
+INTERNVL_IMAGES, INTERNVL_ANYRES = 8, 8  # 8 images of 5000 px at 5 tiles each (4 + the thumbnail)
+# 75 bytes: in the REC template under the byte-level FakeTokenizer, 5 tiles of 256 tokens make a
+# 1805-token prompt (the 2048 bucket); the reference's max_anyres_num=12 gives 10 tiles and 3085 tokens
+INTERNVL_QUESTION = "Which vessel is moored closest to the end of the long pier in the harbours?"
+
+
+def frozen(t):
+    """A copy of t with t's strides (a prefix view of a longer cache stays such a view), or
+    a plain clone where t repeats elements (an expanded view)."""
+    import torch
+
+    if t is None:
+        return None
+    if 0 in t.stride():
+        return t.clone()
+    c = torch.empty_strided(t.size(), t.stride(), dtype=t.dtype, device=t.device)
+    c.copy_(t)
+    return c
+
+
+def check_tiny_internvl_parity():
+    """The tiny InternVL config in fp32 on the card (K2's and K3's fp32 variants) against
+    the CPU plain path, which tests/test_torch_internvl.py holds against the JAX package:
+    InternViT's embeddings, the embeds-path prefill logits and the greedy tokens, over
+    two images of different aspect (9 and 7 tiles of 28 px)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from zoomearth_tpu_torch.config import InternVLVLMConfig
+    from zoomearth_tpu_torch.models.internvit import init_internvl_params
+    from zoomearth_tpu_torch.models.internvl import InternVLRunner, get_question_template
+    from zoomearth_tpu_torch.models.params import map_tree
+    from zoomearth_tpu_torch.runtime.generate import GenerationConfig
+
+    cfg = InternVLVLMConfig.tiny()
+    rng = np.random.default_rng(0)
+    images = [Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)) for w, h in ((200, 100), (90, 150))]
+    questions = [get_question_template().format(Question=q) for q in ("where is the ship?", "a road?")]
+    params = init_internvl_params(cfg, torch.Generator().manual_seed(0))
+    tok = legible_tokenizer(cfg.tokens)
+    cpu = InternVLRunner(params, cfg, tok, max_cache_len=1024, device="cpu")
+    gpu = InternVLRunner(map_tree(lambda t: t.cuda(), params), cfg, tok, max_cache_len=1024)
+    (ec, counts), (eg, counts_g) = cpu.encode_images(images), gpu.encode_images(images)
+    err_e = (ec - eg.cpu()).abs().max().item()
+    bc, bg = cpu.prepare(questions, ec, counts), gpu.prepare(questions, eg, counts_g)
+    lc = cpu.generator.run_prefill(bc, max_new=16)[0]
+    lg = gpu.generator.run_prefill(bg, max_new=16)[0].cpu()
+    err_l = (lc - lg).abs().max().item()
+    gen = GenerationConfig(max_new_tokens=16, temperature=0.0)
+    toks_c, toks_g = cpu.generator.generate(bc, gen), gpu.generator.generate(bg, gen)
+    texts = gpu.generate(questions, images, gen)
+    log(f"  tiny InternVL fp32, {counts} tiles, prompt bucket {bc.input_ids.shape[1]}: InternViT embeds max_abs_err "
+        f"{err_e:.3e}, prefill logits {err_l:.3e} (tol 1e-4 each); greedy tokens "
+        f"{'identical' if toks_c == toks_g else 'DIFFER'} ({sum(map(len, toks_g))} tokens)")
+    if not (counts == counts_g == [9, 7] and err_e <= 1e-4 and err_l <= 1e-4 and toks_c == toks_g
+            and all(texts) and texts == [tok.decode(t).strip() for t in toks_g]):
+        raise AssertionError("tiny InternVL parity on the card failed")
+
+
+def run_internvl(card):
+    """InternVL at full width (the module docstring, phase 11). Returns ({kernel name:
+    {"launches_internvl": n, "planted_faults_rejected": [...]}}, {kernel name: [timed
+    cases at the path's forms]}, {kernel name: [untimed checks]})."""
+    import gc
+
+    import torch
+
+    from zoomearth_tpu_torch.config import InternVLVLMConfig
+    from zoomearth_tpu_torch.models import decoder as DEC
+    from zoomearth_tpu_torch.models.internvit import init_internvl_params, internvit_embeds
+    from zoomearth_tpu_torch.models.internvl import InternVLRunner, get_question_template
+    from zoomearth_tpu_torch.models.params import param_count
+    from zoomearth_tpu_torch.ops import flash_attention as K1
+    from zoomearth_tpu_torch.ops import flash_causal as K2
+    from zoomearth_tpu_torch.ops import flash_decode as K3
+    from zoomearth_tpu_torch.runtime.generate import GenerationConfig
+    from zoomearth_tpu_torch.utils.profiling import PhaseTimer, annotate, trace
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_tiny_internvl_parity()
+
+    cfg = InternVLVLMConfig()
+    L = cfg.text.num_hidden_layers
+    t0 = time.time()
+    params = init_internvl_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                                  dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"  InternVLVLMConfig() random bf16 params: {param_count(params) / 1e9:.3f} B (vision "
+        f"{param_count(params['vision']) / 1e9:.3f} B) in {time.time() - t0:.2f} s")
+    tok = legible_tokenizer(cfg.tokens)
+    runner = InternVLRunner(params, cfg, tok, max_anyres_num=INTERNVL_ANYRES)
+    images = [synthetic_tile(100 + i) for i in range(INTERNVL_IMAGES)]
+    question = get_question_template().format(Question=INTERNVL_QUESTION)
+    questions = [question] * INTERNVL_IMAGES
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS, temperature=0.0)
+    names = ("flash_segment_attention", "flash_causal_attention", "flash_decode_attention")
+    kernels = (K1.segment_attention_cuda, K2.causal_attention_cuda, K3.decode_attention_cuda)
+
+    # the main path, as a user runs it, with the decoder's two kernel dispatchers shadowed to keep a
+    # copy of the inputs of the first call of each form (shapes and strides): what K2 and K3 are
+    # held against their plain versions at afterwards
+    forms = {"k2": {}, "k3": {}}
+    causal, decode = DEC.flash_causal_attention, DEC.flash_decode_attention
+
+    def keep(store, args):
+        q, k = args[0], args[1]
+        key = (tuple(q.shape), tuple(k.shape), k.stride(), str(k.dtype))
+        if key not in store:
+            store[key] = tuple(frozen(a) for a in args)
+
+    def causal_kept(*args):
+        keep(forms["k2"], args)
+        return causal(*args)
+
+    def decode_kept(*args):
+        keep(forms["k3"], args)
+        return decode(*args)
+
+    for k in kernels:
+        k.launches = 0
+    for k in kernels[:2]:
+        k.variants = dict.fromkeys(k.variants, 0)
+    DEC.flash_causal_attention, DEC.flash_decode_attention = causal_kept, decode_kept
+    try:
+        t0 = time.time()
+        texts = runner.generate(questions, images, gen)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        DEC.flash_causal_attention, DEC.flash_decode_attention = causal, decode
+    launches = {n: k.launches for n, k in zip(names, kernels)}
+    variants = dict(K2.causal_attention_cuda.variants)
+    assert len(texts) == INTERNVL_IMAGES and all(texts), f"a row returned no tokens: {texts}"
+    assert launches[names[0]] == 0, f"K1 ran on the InternVL path: {launches}"
+    assert launches[names[1]] == L and variants == {"mma": L, "fma": 0}, (launches, variants)
+    assert launches[names[2]] > 0 and launches[names[2]] % L == 0, launches
+    log(f"  runner.generate over {INTERNVL_IMAGES} x 5000 px (max_anyres_num {INTERNVL_ANYRES}), greedy, "
+        f"{NEW_TOKENS} new tokens: {wall:.3f} s cold | {card}")
+    log(f"  launches {launches} (K2 {launches[names[1]] // L} prefill x {L} layers, all {variants}; K3 "
+        f"{launches[names[2]] // L} decode steps x {L} layers); answer lengths {[len(t) for t in texts]}")
+
+    # the stages again, warm, each timed between device synchronizations
+    timer = PhaseTimer()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with timer.phase("anyres_tiles"):
+        patches, counts = runner.tile_images(images)
+    with timer.phase("internvit", sync=True), torch.inference_mode():
+        embeds = internvit_embeds(params["vision"], cfg.vision, torch.as_tensor(patches, device="cuda"))
+    vit_peak = torch.cuda.max_memory_allocated()
+    batch = runner.prepare(questions, embeds, counts)
+    with timer.phase("prefill", sync=True):
+        logits, cache, attend = runner.generator.run_prefill(batch, max_new=NEW_TOKENS)
+    before = K3.decode_attention_cuda.launches
+    with timer.phase("decode", sync=True):
+        tokens, cache = runner.generator.run_decode(logits, cache, batch.next_pos, gen, attend=attend)
+    steps = (K3.decode_attention_cuda.launches - before) // L
+    peak = torch.cuda.max_memory_allocated()
+    B, S = batch.input_ids.shape
+    n_tiles = sum(counts)
+    assert counts == [5] * INTERNVL_IMAGES and embeds.shape == (n_tiles * cfg.vision.num_image_token,
+                                                                cfg.text.hidden_size), (counts, embeds.shape)
+    assert int(batch.lengths.max()) <= 2048 and S == 2048, (batch.lengths, S)
+    assert logits.shape == (B, cfg.text.vocab_size) and bool(torch.isfinite(logits).all()), "non-finite logits"
+    s = timer.summary()
+    log(f"  prompt lengths {sorted(set(batch.lengths.tolist()))} tokens ({n_tiles} tiles, "
+        f"{embeds.shape[0]} image tokens) in the {S} bucket; attend span {attend}")
+    log(f"  stages (warm, synchronized): anyres tiles (host) {s['anyres_tiles']['total_s']:.4f} s; InternViT over "
+        f"{n_tiles} tiles {s['internvit']['total_s']:.4f} s; prefill B={B} S={S} {s['prefill']['total_s']:.4f} s; decode "
+        f"{steps} steps {s['decode']['total_s']:.4f} s = {1e3 * s['decode']['total_s'] / max(steps, 1):.2f} ms/step "
+        f"| {card}")
+    log(f"  peak memory {peak / 2**30:.3f} GiB ({vit_peak / 2**30:.3f} GiB during InternViT; {base / 2**30:.3f} GiB "
+        f"allocated before, the weights {2 * param_count(params) / 2**30:.3f} GiB of it) | {card}")
+
+    # one trace of a warm prefill
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tdir:
+        with trace(tdir):
+            with annotate("internvl_prefill"):
+                runner.generator.run_prefill(batch, max_new=NEW_TOKENS)
+            torch.cuda.synchronize()
+        files = os.listdir(tdir)
+        assert len(files) == 1 and os.path.getsize(os.path.join(tdir, files[0])) > 0, files
+        events = json.load(open(os.path.join(tdir, files[0])))["traceEvents"]
+    dev_events = [e for e in events if e.get("cat") == "kernel"]
+    assert any(e.get("name") == "internvl_prefill" for e in events), "the annotated region is not in the trace"
+    assert dev_events, "the trace holds no device kernel"
+    by_name = {}
+    for e in dev_events:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e.get("dur", 0.0)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    log(f"  trace of a warm prefill ({files[0]}): {len(dev_events)} device kernels, {sum(by_name.values()) / 1e3:.3f} ms "
+        f"of device kernel time; largest: {[(n[:60], round(d / 1e3, 4)) for n, d in top]} (ms) | {card}")
+    del logits, cache, tokens, embeds, batch, runner, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K2 and K3 against their plain versions at exactly the forms this phase called them, then timed there
+    assert len(forms["k2"]) == 1 and len(forms["k3"]) == 1, {k: list(v) for k, v in forms.items()}
+    t = cfg.text
+    H, Hkv, D = t.num_attention_heads, t.num_key_value_heads, t.head_dim
+    checks, rows, planted = ({names[1]: [], names[2]: []}, {names[1]: [], names[2]: []},
+                             {names[1]: [], names[2]: []})
+    with torch.inference_mode():
+        (q, k, v, pos, kvl, *_), = forms["k2"].values()
+        T = k.shape[2]
+        label = f"K2 InternVL embeds prefill B={q.shape[0]} S={q.shape[1]} T={T}, layer 0's inputs"
+        checks[names[1]].append(held_on_path(label, K2.causal_attention_cuda(q, k, v, pos, kvl),
+                                             K2.flash_causal_attention_plain(q, k, v, pos, kvl)))
+        slot = torch.arange(T, device="cuda")
+        mask = ((slot[None, None] <= pos[:, :, None]) & (slot[None, None] < kvl[:, None, None]))[:, None]
+        rows[names[1]].append(case(label + ", timed", lambda: K2.causal_attention_cuda(q, k, v, pos, kvl),
+                                   lambda: K2.flash_causal_attention_plain(q, k, v, pos, kvl), card,
+                                   K2.work(pos, kvl, H, Hkv, D, T, 2),
+                                   lambda: sdpa(q.transpose(1, 2), k, v, mask).transpose(1, 2), rows=True,
+                                   library_tol=lambda ref: max(TOL_BF16, 2.0**-7 * ref.abs().max().item())))
+        # the planted faults: every row's last 64 keys dropped (the kernel run on positions 64 lower)
+        keys = torch.minimum(pos + 1, kvl[:, None].to(pos.dtype))
+        long_rows = (keys >= 1024)[:, :, None]
+        dropped = K2.causal_attention_cuda(q, k, v, (pos - 64).clamp(min=0), kvl)
+        planted[names[1]].append(planted_fault(f"K2 with each row's last 64 keys dropped, {label}", dropped,
+                                               K2.flash_causal_attention_plain(q, k, v, pos, kvl), long_rows))
+        del q, k, v, pos, kvl, mask, keys, long_rows, dropped
+        (q1, kd, vd, kvl3, *_), = forms["k3"].values()
+        Td = kd.shape[2]
+        label = (f"K3 InternVL decode B={q1.shape[0]}, attend {Td} view (strides {kd.stride()}), layer 0 at step 0, "
+                 f"kv_len {sorted(set(kvl3.tolist()))}")
+        checks[names[2]].append(held_on_path(label, K3.decode_attention_cuda(q1, kd, vd, kvl3),
+                                             K3.flash_decode_attention_plain(q1, kd, vd, kvl3)))
+        m3 = (torch.arange(Td, device="cuda")[None] < kvl3[:, None])[:, None, None]
+        rows[names[2]].append(case(label + ", timed", lambda: K3.decode_attention_cuda(q1, kd, vd, kvl3),
+                                   lambda: K3.flash_decode_attention_plain(q1, kd, vd, kvl3), card,
+                                   K3.work(kvl3, Td, H, Hkv, D, 2),
+                                   lambda: sdpa(q1.transpose(1, 2), kd, vd, m3).transpose(1, 2),
+                                   K3.read_bytes(kvl3, Td, Hkv, D, 2), rows=True,
+                                   library_tol=lambda ref: max(TOL_BF16, 2.0**-7 * ref.abs().max().item())))
+        # the planted fault: the last 64 keys of the span dropped, as a split lost at the merge would
+        long_rows = (kvl3 >= 1024).reshape(-1, *[1] * (q1.dim() - 2))
+        planted[names[2]].append(planted_fault(
+            f"K3 fed kv_len - 64, {label}", K3.decode_attention_cuda(q1, kd, vd, kvl3 - 64),
+            K3.flash_decode_attention_plain(q1, kd, vd, kvl3), long_rows))
+    del forms
+    return ({n: {"launches_internvl": launches[n], "planted_faults_rejected": planted[n]} for n in names[1:]},
+            rows, checks)
+
+
 def main(argv=()) -> int:
     import torch
 
@@ -2570,6 +2908,14 @@ def main(argv=()) -> int:
     variant_rows, variant_launches = run_decode_variants(card, checks)
     rows.update(variant_rows)
     launches.update(variant_launches)
+    log(f"[internvl] InternVLVLMConfig() bf16 (InternViT-300M + Qwen2.5-3B widths), InternVLRunner over "
+        f"{INTERNVL_IMAGES} x 5000 px at max_anyres_num {INTERNVL_ANYRES}, greedy, {NEW_TOKENS} new tokens; the tiny "
+        f"InternVL config's fp32 parity on the card first")
+    internvl, internvl_rows, internvl_checks = run_internvl(card)
+    for name, cases in internvl_rows.items():
+        rows[name][2].extend(cases)
+    for name, held in internvl_checks.items():
+        untimed[name] = untimed.get(name, []) + held
 
     kernels = []
     for name, (source, replaces, cases) in rows.items():
@@ -2578,7 +2924,7 @@ def main(argv=()) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             **({"note": BWD_NOTE} if replaces is None else {}),
             "launches": launches[name], **pipelined.get(name, {}), **serving.get(name, {}), **training.get(name, {}),
-            **grpo.get(name, {}),
+            **grpo.get(name, {}), **internvl.get(name, {}),
             "max_abs_err": max(c["max_abs_err"] for c in cases + checks),
             **{key: cases[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
                                               "library_device_ms", "share_of_bound")},

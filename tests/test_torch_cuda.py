@@ -260,6 +260,40 @@ def test_tiny_generator_on_card_matches_cpu(dev):
     assert K3.decode_attention_cuda.launches > n[2]
 
 
+def test_tiny_internvl_runner_on_card_matches_cpu(dev):
+    """The tiny InternVL config in fp32 on the card (InternViT in plain torch ops, K2 and
+    K3 for the decoder, K1 never) gives the CPU plain path's embeddings, prefill logits
+    and greedy tokens over two images of different aspect."""
+    from PIL import Image
+
+    from zoomearth_tpu_torch.config import InternVLVLMConfig
+    from zoomearth_tpu_torch.models.internvit import init_internvl_params
+    from zoomearth_tpu_torch.models.internvl import InternVLRunner
+    from zoomearth_tpu_torch.models.params import map_tree
+    from zoomearth_tpu_torch.runtime.generate import GenerationConfig
+    from zoomearth_tpu_torch.tokenizer import FakeTokenizer
+
+    cfg = InternVLVLMConfig.tiny()
+    rng = np.random.default_rng(0)
+    images = [Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)) for w, h in ((200, 100), (90, 150))]
+    questions = ["where is the ship?", "a road?"]
+    params = init_internvl_params(cfg, torch.Generator().manual_seed(0))
+    tok = FakeTokenizer(cfg.tokens)
+    cpu = InternVLRunner(params, cfg, tok, max_cache_len=1024, device="cpu")
+    gpu = InternVLRunner(map_tree(lambda t: t.to(dev), params), cfg, tok, max_cache_len=1024, device=dev)
+    (ec, counts), (eg, counts_g) = cpu.encode_images(images), gpu.encode_images(images)
+    assert counts == counts_g == [9, 7] and eg.device.type == "cuda"
+    assert _err(ec, eg.cpu()) <= TOL[torch.float32]
+    bc, bg = cpu.prepare(questions, ec, counts), gpu.prepare(questions, eg, counts)
+    assert _err(cpu.generator.run_prefill(bc, max_new=12)[0], gpu.generator.run_prefill(bg, max_new=12)[0].cpu()) <= 1e-4
+    n = [K1.segment_attention_cuda.launches, K2.causal_attention_cuda.launches, K3.decode_attention_cuda.launches]
+    gen = GenerationConfig(max_new_tokens=12, temperature=0.0)
+    assert gpu.generator.generate(bg, gen) == cpu.generator.generate(bc, gen)
+    assert gpu.generate(questions, images, gen) == cpu.generate(questions, images, gen)
+    assert K1.segment_attention_cuda.launches == n[0]
+    assert K2.causal_attention_cuda.launches > n[1] and K3.decode_attention_cuda.launches > n[2]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Hkv,D,page,max_pages", [(3, 4, 2, 32, 16, 5), (4, 16, 2, 128, 64, 6),
                                                       (2, 16, 2, 128, 256, 3)])

@@ -595,7 +595,8 @@ def test_port_imports_no_jax():
         "       'train.sft', 'train.sft_loop', 'train.checkpoints', 'train.callbacks', 'utils.metrics_sinks',\n"
         "       'cli.train_sft', 'rewards.detection', 'rewards.generic', 'rewards.internvl', 'rewards.llm_judge',\n"
         "       'rewards.registry', 'rewards.zoomearth', 'utils.mathcheck', 'train.grpo', 'train.lora',\n"
-        "       'cli.train_grpo'}\n"
+        "       'cli.train_grpo', 'image.anyres', 'models.internvit', 'models.internvl', 'train.rec',\n"
+        "       'train.datagen', 'cli.generate', 'eval.benchmarks', 'cli.run_benchmarks', 'utils.profiling'}\n"
         "assert {'zoomearth_tpu_torch.' + m for m in new} <= set(mods), mods\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'zoomearth_tpu'))\n"

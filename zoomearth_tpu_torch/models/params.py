@@ -89,11 +89,11 @@ class _Init:
     def normal(self, shape, scale):
         return torch.randn(shape, generator=self.g, device=self.device, dtype=self.dtype).mul_(scale)
 
-    def ones(self, n):
-        return torch.ones((n,), device=self.device, dtype=self.dtype)
+    def ones(self, shape):
+        return torch.ones(shape, device=self.device, dtype=self.dtype)
 
-    def zeros(self, n):
-        return torch.zeros((n,), device=self.device, dtype=self.dtype)
+    def zeros(self, shape):
+        return torch.zeros(shape, device=self.device, dtype=self.dtype)
 
 
 def init_vision_params(init: _Init, cfg: VisionConfig) -> Dict:
@@ -180,6 +180,34 @@ def _strip_prefix(key: str) -> str:
     return key
 
 
+def text_params_from_hf(get, lin, tcfg: TextConfig, prefix: str, has_lm_head: bool) -> Dict:
+    """The Qwen2 text tree from HF keys under `prefix`: get(name) reads a tensor as it
+    is, lin(name) a torch Linear weight transposed to (in, out). The untied lm_head is
+    read where the config does not tie it and the state holds it."""
+    text = {
+        "embed": {"weight": get(prefix + "embed_tokens.weight")},
+        "layers": [],
+        "final_ln": {"scale": get(prefix + "norm.weight")},
+    }
+    for i in range(tcfg.num_hidden_layers):
+        p = f"{prefix}layers.{i}."
+        text["layers"].append({
+            "input_ln": {"scale": get(p + "input_layernorm.weight")},
+            "post_ln": {"scale": get(p + "post_attention_layernorm.weight")},
+            "attn": {
+                "wq": lin(p + "self_attn.q_proj.weight"), "bq": get(p + "self_attn.q_proj.bias"),
+                "wk": lin(p + "self_attn.k_proj.weight"), "bk": get(p + "self_attn.k_proj.bias"),
+                "wv": lin(p + "self_attn.v_proj.weight"), "bv": get(p + "self_attn.v_proj.bias"),
+                "wo": lin(p + "self_attn.o_proj.weight"),
+            },
+            "mlp": {"wg": lin(p + "mlp.gate_proj.weight"), "wu": lin(p + "mlp.up_proj.weight"),
+                    "wd": lin(p + "mlp.down_proj.weight")},
+        })
+    if not tcfg.tie_word_embeddings and has_lm_head:
+        text["lm_head"] = {"weight": lin("lm_head.weight")}
+    return text
+
+
 def convert_hf_state_dict(state: Dict, cfg: VLMConfig, device="cpu", dtype=None) -> Dict:
     """HF Qwen2.5-VL (or Qwen2-VL) state_dict (torch tensors or numpy arrays) -> the
     port's tree. Accepts transformers>=4.52 keys (model.visual.*, model.language_model.*,
@@ -233,27 +261,7 @@ def convert_hf_state_dict(state: Dict, cfg: VLMConfig, device="cpu", dtype=None)
         })
 
     lp = "language_model." if "language_model.embed_tokens.weight" in flat else ""
-    text = {
-        "embed": {"weight": get(lp + "embed_tokens.weight")},
-        "layers": [],
-        "final_ln": {"scale": get(lp + "norm.weight")},
-    }
-    for i in range(tcfg.num_hidden_layers):
-        p = f"{lp}layers.{i}."
-        text["layers"].append({
-            "input_ln": {"scale": get(p + "input_layernorm.weight")},
-            "post_ln": {"scale": get(p + "post_attention_layernorm.weight")},
-            "attn": {
-                "wq": lin(p + "self_attn.q_proj.weight"), "bq": get(p + "self_attn.q_proj.bias"),
-                "wk": lin(p + "self_attn.k_proj.weight"), "bk": get(p + "self_attn.k_proj.bias"),
-                "wv": lin(p + "self_attn.v_proj.weight"), "bv": get(p + "self_attn.v_proj.bias"),
-                "wo": lin(p + "self_attn.o_proj.weight"),
-            },
-            "mlp": {"wg": lin(p + "mlp.gate_proj.weight"), "wu": lin(p + "mlp.up_proj.weight"),
-                    "wd": lin(p + "mlp.down_proj.weight")},
-        })
-    if not tcfg.tie_word_embeddings and "lm_head.weight" in flat:
-        text["lm_head"] = {"weight": lin("lm_head.weight")}
+    text = text_params_from_hf(get, lin, tcfg, lp, "lm_head.weight" in flat)
     return {"vision": vision, "text": text}
 
 

@@ -9,11 +9,12 @@ There is no hub and no Slurm here, so:
 - `ExportHFCallback` writes an HF-layout checkpoint (safetensors + config) to
   `<export_dir>/<revision>-step<NNN>/`: the "push to a hub revision" with a local
   directory standing in for the hub (read back by `load_hf_checkpoint`).
-- `BenchmarkCallback` records a runnable benchmark job per save: the port's eval
-  pipeline (`zoomearth_tpu_torch.cli.infer` then `zoomearth_tpu_torch.cli.eval`)
-  against the saved checkpoint, appended to `benchmark_jobs.jsonl` for an external
-  runner or, with run_now, spawned as a detached subprocess right away (the Slurm
-  submission's analog).
+- `BenchmarkCallback` records a runnable benchmark job per save through the
+  `eval.benchmarks` registry (`run_benchmark_jobs`): the port's eval pipeline
+  (`zoomearth_tpu_torch.cli.infer`, then `zoomearth_tpu_torch.cli.eval` where the
+  suite scores) against the saved checkpoint, appended to `benchmark_jobs.jsonl` for
+  an external runner or, with run_now, spawned as a detached subprocess right away
+  (the Slurm submission's analog). A suite added with `register_benchmark` reaches it.
 
 Wire into the training loop via `callbacks=[...]`; each is called as
 `cb.on_save(step, ckpt_dir, params)`.
@@ -22,22 +23,9 @@ Wire into the training loop via `callbacks=[...]`; each is called as
 from __future__ import annotations
 
 import dataclasses
-import json
 import os
 import shutil
-import subprocess
-import sys
-import time
 from typing import Optional, Sequence
-
-# The benchmarks a save can queue (the reference's lighteval task registry,
-# evaluation.py:27-62): the LRS-GRO suite, in full and cut to 256 questions. Data
-# paths are templates that data_file / image_folder override.
-BENCHMARKS = {
-    "lrs_gro": {"data_file": "dataset/LRS_GRO/test.jsonl", "image_folder": "image", "extra_infer_args": ()},
-    "lrs_gro_mini": {"data_file": "dataset/LRS_GRO/test.jsonl", "image_folder": "image",
-                     "extra_infer_args": ("--limit", "256")},
-}
 
 
 @dataclasses.dataclass
@@ -62,29 +50,6 @@ class ExportHFCallback:
         return out
 
 
-def benchmark_job(benchmark: str, ckpt_dir: str, *, step: int = 0, out_dir: str = "results",
-                  data_file: Optional[str] = None, image_folder: Optional[str] = None) -> dict:
-    """One benchmark x checkpoint job: infer, then score (the reference's
-    build_job). cli.infer writes {out_dir}/{exp_name}{rank}.jsonl; a job runs one
-    process, so it scores rank 0's file."""
-    if benchmark not in BENCHMARKS:
-        raise ValueError(f"unknown benchmark {benchmark!r}; supported: {list(BENCHMARKS)}")
-    spec = BENCHMARKS[benchmark]
-    exp = f"{benchmark}-step{step:06d}"
-    cmd = [
-        sys.executable, "-m", "zoomearth_tpu_torch.cli.infer",
-        "--model_name", ckpt_dir,
-        "--data_file", data_file or spec["data_file"],
-        "--image_folder", image_folder if image_folder is not None else spec["image_folder"],
-        "--exp_name", exp,
-        "--out_dir", out_dir,
-        *spec["extra_infer_args"],
-    ]
-    return {"benchmark": benchmark, "step": step, "checkpoint": ckpt_dir, "cmd": cmd, "created_at": time.time(),
-            "score_cmd": [sys.executable, "-m", "zoomearth_tpu_torch.cli.eval", "--results_file",
-                          os.path.join(out_dir, f"{exp}0.jsonl")]}
-
-
 @dataclasses.dataclass
 class BenchmarkCallback:
     """Queue (or launch) the LRS-GRO eval pipeline against each saved checkpoint.
@@ -93,7 +58,7 @@ class BenchmarkCallback:
     (utils/evaluation.py:76-91); here the job is the port's own eval CLI pair. With
     run_now the inference subprocess detaches (fire-and-forget, like sbatch); either
     way the job spec lands in `<output_dir>/benchmark_jobs.jsonl`. "all" names every
-    benchmark; an unknown name raises."""
+    registered benchmark; an unknown name raises."""
 
     output_dir: str
     data_file: str = ""
@@ -102,17 +67,17 @@ class BenchmarkCallback:
     run_now: bool = False
 
     def on_save(self, step: int, ckpt_dir: str, params=None) -> list:
-        names = list(BENCHMARKS) if list(self.benchmarks) == ["all"] else list(self.benchmarks)
-        jobs = [benchmark_job(n, ckpt_dir, step=step, out_dir=self.output_dir, data_file=self.data_file or None,
-                              image_folder=self.image_folder or None) for n in names]
-        os.makedirs(self.output_dir, exist_ok=True)
-        for job in jobs:
-            with open(os.path.join(self.output_dir, "benchmark_jobs.jsonl"), "a") as f:
-                f.write(json.dumps(job) + "\n")
-            if self.run_now:
-                subprocess.Popen(job["cmd"], stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
-                                 start_new_session=True)
-        return jobs
+        """One job per registered benchmark via the eval.benchmarks registry (the
+        lighteval task registry equivalent, reference evaluation.py:27-62);
+        data_file/image_folder override the registered template paths."""
+        from ..eval.benchmarks import run_benchmark_jobs
+
+        return run_benchmark_jobs(
+            self.benchmarks, ckpt_dir, step=step, output_dir=self.output_dir,
+            run_now=self.run_now,
+            data_file=self.data_file or None,
+            image_folder=self.image_folder or None,
+        )
 
 
 def run_callbacks(callbacks, step: int, ckpt_dir: str, params=None):
