@@ -6,7 +6,13 @@
     python3 chip_smoke.py --profile-sft [--parent=DIR]   # where a warm 3B SFT micro-step's time goes (and
                                                          # with DIR's backward kernels: an older tree's csrc)
 
-Phases, each fatal on failure (nothing is caught):
+Phases, each fatal on failure (nothing is caught). Every decode loop runs as it runs for a
+user: captured (runtime.graphs), the counterpart of the reference's compiled decode programs.
+A Generator call's first step runs eagerly, then its step is captured and replayed; an
+engine's chunk key runs eagerly once, then replays. Each decoding phase prints the graphs it
+captured, their capture time and the graphs held, and times its decode step at the path's own
+shapes eagerly (the same step function, called in a loop) and captured, whose tokens must be
+identical (`eager_and_captured`; the engine's chunks through whole engine runs in turns).
 
 1. device  — exits 1 without CUDA; prints the card's name and power limit.
 2. build   — compiles the hand-written kernels (csrc/*.cu) with nvcc for sm_90a.
@@ -91,9 +97,11 @@ Phases, each fatal on failure (nothing is caught):
    (train/datagen.generate_records over the engine and its processor): 4 prompts x 2
    sampled generations of up to 32 tokens, every record with its 2 generations and the
    containment counts still 0. Last, the
-   engine's decode step with 8 live rows timed over bf16 weights and over the int8
-   layout of ops/quant.py (which widens the weights for every product), in turns, and
-   one decoder matmul at that step's shape on the device, bf16 torch.mm beside qdot.
+   engine's decode step timed eagerly and captured in turns (tokens identical):
+   full-width chunks with 8 live rows and compact ones with 4, on the bf16 and on the
+   int8 KV cache; then captured over bf16 weights and over the int8 layout of
+   ops/quant.py (which widens the weights for every product), in turns, and one decoder
+   matmul at that step's shape on the device, bf16 torch.mm beside qdot.
 8. training — train_sft on Qwen2.5-VL-3B at full width (random bf16 weights from a
    seeded torch.Generator, FakeTokenizer) over synthetic SFT samples on the 5000 px
    tiles: batch 1 per micro-step, 2 micro-steps to an update, cut (a 500 px bbox, a
@@ -148,9 +156,10 @@ Phases, each fatal on failure (nothing is caught):
    probe_attn.measure and paged_256_test.measure_cell, which time each kernel beside
    its plain version in turns; P1's rate is of the cache it reads, P2's of the cache
    its row blocks walk, on device time) and a paged decode loop whose full row must
-   be left unchanged; K4, P1 and P2 must each have launched. A count is of launches
-   through the wrapper: calls captured into a CUDA graph are not counted, nor its
-   replays.
+   be left unchanged; K4, P1 and P2 must each have launched. A count is of kernel runs
+   through the wrapper: a call captured by runtime.graphs (the decode steps of phases
+   5-7, 9 and 11) counts at every replay of its graph; a call captured into the timing
+   harness's own CUDA graph is not counted, nor are that graph's replays.
 11. internvl — the second model family. First the tiny InternVL config in fp32 on the
    card against the CPU plain path (which the CPU tests hold against the JAX package):
    InternViT's embeddings, the embeds-path prefill logits and the greedy tokens. Then
@@ -174,8 +183,8 @@ Phases, each fatal on failure (nothing is caught):
 
 The second-to-last line is {"kernels": [...]} (every case of each kernel with its
 time, its plain version's, the library call's where there is one, its bound and the
-share of it reached; the untimed checks; launches from the path that runs it: calls
-of the wrapper, and each K3, K4 or P2 call runs two kernels, its split pass and the
+share of it reached; the untimed checks; launches from the path that runs it: kernel
+runs through the wrapper, a captured step's counted at each replay; each K3, K4 or P2 call runs two kernels, its split pass and the
 split merge; a P1 call is one memset and one kernel; a backward call runs its dq
 kernel, then its dk/dv kernel, and its launches are the training phase's; the
 `launches_grpo` of K1, K2, K3 and the backward kernels are the GRPO phase's, the
@@ -1083,6 +1092,7 @@ def run_training(card):
             c.variants = dict.fromkeys(c.variants, 0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         t0 = time.time()
         params, hist = TL.train_sft(params, cfg, sft_cfg, loop, samples, processor, device="cuda",
                                     image_loader=loader, max_steps=TRAIN_MICRO, on_grads=on_grads)
@@ -1142,7 +1152,8 @@ def run_training(card):
     secs = sum(r["step_s"] for r in hist)
     log(f"  uninterrupted run: {micro} micro-steps ({micro // TRAIN_ACCUM} updates) in {wall:.2f} s of train_sft "
         f"wall; {secs / micro:.3f} s per micro-step, {sum(r['input_tokens'] for r in hist) / secs:.0f} tokens/s, "
-        f"{sum(r['patches'] for r in hist) / secs:.0f} patches/s; peak memory allocated {peak / 2**30:.2f} GiB | {card}")
+        f"{sum(r['patches'] for r in hist) / secs:.0f} patches/s; peak memory allocated {peak / 2**30:.2f} GiB "
+        f"({base / 2**30:.2f} GiB of it allocated before the run, the weights included) | {card}")
     log(f"  checkpoint-{TRAIN_RESUME_AT}: {ckpt_bytes / 1e9:.2f} GB; the saving run ({TRAIN_RESUME_AT} micro-steps, the "
         f"save, the HF export) {save_s:.2f} s; the resumed run (the restore, {len(hist2)} micro-steps) {resume_s:.2f} s "
         f"| {card}")
@@ -1301,6 +1312,7 @@ def run_grpo(card):
     from zoomearth_tpu_torch.ops import flash_attention as K1
     from zoomearth_tpu_torch.ops import flash_causal as K2
     from zoomearth_tpu_torch.ops import flash_decode as K3
+    from zoomearth_tpu_torch.runtime.generate import GenerationConfig, prepare_batch
     from zoomearth_tpu_torch.serve.engine import ServingEngine
     from zoomearth_tpu_torch.train import grpo as TG
     from zoomearth_tpu_torch.train import lora as TLORA
@@ -1331,6 +1343,7 @@ def run_grpo(card):
             counters[n].variants = dict.fromkeys(counters[n].variants, 0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        graphs0 = graph_counts(trainer.generator)
         t0 = time.perf_counter()
         m = trainer.step([sample], seed=seed)
         torch.cuda.synchronize()
@@ -1347,7 +1360,8 @@ def run_grpo(card):
             f"stage 2 in {sum(c != '' for c in rb.completions2)} rows; peak memory allocated {peak / 2**30:.2f} GiB "
             f"| {card}")
         log(f"    metrics {m}")
-        log(f"    launches {launches}; by variant {variants}")
+        log(f"    launches {launches}; by variant {variants}; the Generator's captured decode: "
+            f"{graph_line(trainer.generator, graphs0)}")
         assert all(np.isfinite(v) for v in m.values()), m
         assert all(v["fma"] == 0 and v["mma"] == launches[n] for n, v in variants.items()), variants
         if rb.pixel_values is not None:
@@ -1388,6 +1402,16 @@ def run_grpo(card):
     assert first["nonzero"] == first["finite"] == len(leaves) and first["attention"] > 0, first
     assert still == vanish, [i for i in still if i not in vanish]
     assert all(moved[i] for i, t in enumerate(leaves) if t.dim() > 1), "a matrix did not move"
+    # the rollout's decode step at its shapes (G rows, sampled), eagerly and captured
+    ids = [[cfg.tokens.im_start] + [40 + (5 * r + j) % 300 for j in range(700)] for r in range(base.num_generations)]
+    batch = prepare_batch(cfg, ids, [[]] * len(ids), length_buckets=(1024,), patch_buckets=(0,))
+    g = trainer.generator
+    logits, cache, attend = g.run_prefill(batch, max_new=GRPO_NEW_1)
+    rollout = GenerationConfig(max_new_tokens=GRPO_NEW_1, temperature=base.rollout_temperature)
+    eager_and_captured(f"GRPO rollout (run_decode), sampled at {base.rollout_temperature}, attend {attend}", card,
+                       lambda: g.solo_step(logits, cache.clone(), batch.next_pos, rollout, seed=1, attend=attend),
+                       GRPO_NEW_1)
+    del logits, cache, g
     del trainer, params, leaves, before
     torch.cuda.empty_cache()
 
@@ -1409,7 +1433,7 @@ def run_grpo(card):
     base_same = all(torch.equal(w["w"], b) for w, b in zip(adapted, bases))
     log(f"  LoRA: {len(adapted)} adapted matrices; after 2 updates the bases bit for bit: {base_same}; adapters "
         f"moved by the first update {b_moved}; |kl| at the first step {abs(m3['kl']):.3e} (tol 1e-3); engine stats "
-        f"{engine.stats}, contained failures {contained}")
+        f"{engine.stats}, contained failures {contained}; captured decode chunks: {graph_line(engine)}")
     assert base_same and b_moved == len(adapted) and abs(m3["kl"]) < 1e-3, (base_same, b_moved, m3)
     assert all(c != "" for c in rb3.completions2 + rb4.completions2), "stage 2 did not run"
     assert not any(contained.values()) and not engine._running and not engine.held, (contained, engine.held)
@@ -1661,6 +1685,7 @@ def run_slice(card, env):
             k.variants = dict.fromkeys(k.variants, 0)
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        graphs0, steps0 = graph_counts(generator), generator.decode_steps["solo"]
         t0 = time.time()
         run_inference(generator, processor, samples, out_path, batch_size=BATCH, gen=gen, stage2_gen=gen,
                       image_loader=lambda s: tiles[s.image_name])
@@ -1675,6 +1700,8 @@ def run_slice(card, env):
         variants = {k.__name__: dict(k.variants) for k in kernels[:2]}
         peak = torch.cuda.max_memory_allocated()
         records = [json.loads(line) for line in open(out_path)]
+        graphs = graph_line(generator, graphs0)
+        steps = generator.decode_steps["solo"] - steps0
 
     assert len(records) == SAMPLES, f"{len(records)} of {SAMPLES} records written"
     assert sorted(r["question_id"] for r in records) == sorted(s.question_id for s in samples)
@@ -1686,9 +1713,15 @@ def run_slice(card, env):
     # a direct look at the model's output on one stage-1 batch: finite fp32 logits
     batch = EP._stage1_inputs(generator, processor, [s.question for s in samples[:BATCH]],
                               [tiles[s.image_name] for s in samples[:BATCH]], 512)[-1]
-    logits = generator.run_prefill(batch, max_new=NEW_TOKENS)[0]
+    logits, cache, attend = generator.run_prefill(batch, max_new=NEW_TOKENS)
     assert logits.shape == (BATCH, cfg.text.vocab_size) and logits.dtype == torch.float32
     assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    # every decode step of the run went through K3 once per layer: replays counted
+    assert launches["decode_attention_cuda"] == cfg.text.num_hidden_layers * steps, (launches, steps)
+    log(f"  captured decode of the run: {steps} solo steps; {graphs} | {card}")
+    eager_and_captured(f"solo (run_decode), bf16 cache, attend {attend}", card, lambda: generator.solo_step(
+        logits, cache.clone(), batch.next_pos, gen, attend=attend), NEW_TOKENS)
+    del cache
     stage2_lens = sorted({len(r["stage2"]) for r in records})
     log(f"  {len(records)} records written; stage-2 text lengths {stage2_lens[:5]}...")
     log(f"  stage-1 batch: S={batch.input_ids.shape[1]} patches={batch.pixel_values.shape[0]} "
@@ -1726,15 +1759,8 @@ def run_pipelined(card, env):
     kernels = (K1.segment_attention_cuda, K2.causal_attention_cuda, K3.decode_attention_cuda)
     names = ("flash_segment_attention", "flash_causal_attention", "flash_decode_attention")
     loader = lambda s: tiles[s.image_name]  # noqa: E731
-    pair_steps = [0]
-    pair_forward, paired_waves = G.decoder_forward_pair, PL.run_paired_waves
-
-    def counted_pair_forward(*a, **kw):
-        before = K3.decode_attention_cuda.launches
-        out = pair_forward(*a, **kw)
-        assert K3.decode_attention_cuda.launches - before == 2 * L, "K3 must launch twice per layer per pair step"
-        pair_steps[0] += 1
-        return out
+    paired_waves = PL.run_paired_waves
+    steps = {}  # the last run's decode steps by kind, "pair" and "solo", as its Generator counted them
 
     def reset():
         for k in kernels:
@@ -1743,7 +1769,6 @@ def run_pipelined(card, env):
             k.variants = dict.fromkeys(k.variants, 0)
         for k in kernels[1:]:
             k.int8_launches = 0
-        pair_steps[0] = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
@@ -1753,12 +1778,17 @@ def run_pipelined(card, env):
         tokens = []
         g.trim_generated = lambda buf, _fn=g.trim_generated: (tokens.append(_fn(buf)), tokens[-1])[1]
         reset()
+        before = dict(g.decode_steps)
         t0 = time.time()
         try:
             out = fn()
         finally:
             del g.trim_generated  # the instance attribute shadowed the class's method
         torch.cuda.synchronize()
+        steps.update({k: g.decode_steps[k] - before.get(k, 0) for k in ("pair", "solo")})
+        # K3 once per layer per solo step and twice per pair step, captured replays counted
+        assert K3.decode_attention_cuda.launches == L * (2 * steps["pair"] + steps["solo"]), (
+            K3.decode_attention_cuda.launches, steps)
         return time.time() - t0, out, tokens
 
     def pipelined(g, path, chosen):
@@ -1772,167 +1802,179 @@ def run_pipelined(card, env):
         rows = [(ra, rb) for x, y in zip(a, b) for ra, rb in zip(x, y)]
         return (sum(p == q for ra, rb in rows for p, q in zip(ra, rb)), sum(max(len(ra), len(rb)) for ra, rb in rows))
 
-    G.decoder_forward_pair = counted_pair_forward
-    try:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
-            # (1) the main path of this phase, as a user runs it
-            wall, records, tokens = pipelined(generator, os.path.join(out_dir, "pipe0.jsonl"), samples)
-            launches = {n: k.launches for n, k in zip(names, kernels)}
-            variants = {n: dict(k.variants) for n, k in zip(names[:2], kernels[:2])}
-            int8_bf16 = {n: k.int8_launches for n, k in zip(names[1:], kernels[1:])}
-            steps_pair, peak_dummy = pair_steps[0], torch.cuda.max_memory_allocated()
-            assert len(records) == PIPE_SAMPLES, f"{len(records)} of {PIPE_SAMPLES} records written"
-            assert sorted(r["question_id"] for r in records) == sorted(s.question_id for s in samples)
-            assert all(r["error"] is False and isinstance(r["stage2"], str) for r in records)
-            assert len(tokens) == 2 * (PIPE_SAMPLES // BATCH) and all(
-                len(row) == budget for i, stage in enumerate(tokens) for row in stage
-                for budget in ((NEW_TOKENS, PIPE_NEW_TOKENS_2)[i % 2],)), "a stage stopped short of its budget"
-            assert all(n > 0 for n in launches.values()), f"kernel launches of the pipelined run: {launches}"
-            assert all(v == {"mma": launches[n], "fma": 0} for n, v in variants.items()), variants
-            assert int8_bf16 == dict.fromkeys(names[1:], 0), f"int8 entries taken with a bf16 cache: {int8_bf16}"
-            waves = PIPE_SAMPLES // BATCH
-            # every iteration pairs (bootstrap and drain with a dummy partner); the loop may leave early
-            # only at an all-done check, and random weights emit no stop token
-            assert steps_pair == (waves + 1) * min(NEW_TOKENS, PIPE_NEW_TOKENS_2), steps_pair
-            solo_steps, odd = divmod(launches[names[2]] - 2 * L * steps_pair, L)
-            assert odd == 0 and solo_steps == waves * (NEW_TOKENS - PIPE_NEW_TOKENS_2), (solo_steps, odd)
-            log(f"  {len(records)} records written in {wall:.2f} s; launches {launches}; K1/K2 by variant {variants}; "
-                f"{steps_pair} pair steps x 2 x {L} layers + {solo_steps} solo-tail steps x {L} layers of K3 | {card}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+        # (1) the main path of this phase, as a user runs it
+        graphs0 = graph_counts(generator)
+        wall, records, tokens = pipelined(generator, os.path.join(out_dir, "pipe0.jsonl"), samples)
+        launches = {n: k.launches for n, k in zip(names, kernels)}
+        variants = {n: dict(k.variants) for n, k in zip(names[:2], kernels[:2])}
+        int8_bf16 = {n: k.int8_launches for n, k in zip(names[1:], kernels[1:])}
+        steps_pair, peak_dummy = steps["pair"], torch.cuda.max_memory_allocated()
+        graphs_main = graph_line(generator, graphs0)
+        assert len(records) == PIPE_SAMPLES, f"{len(records)} of {PIPE_SAMPLES} records written"
+        assert sorted(r["question_id"] for r in records) == sorted(s.question_id for s in samples)
+        assert all(r["error"] is False and isinstance(r["stage2"], str) for r in records)
+        assert len(tokens) == 2 * (PIPE_SAMPLES // BATCH) and all(
+            len(row) == budget for i, stage in enumerate(tokens) for row in stage
+            for budget in ((NEW_TOKENS, PIPE_NEW_TOKENS_2)[i % 2],)), "a stage stopped short of its budget"
+        assert all(n > 0 for n in launches.values()), f"kernel launches of the pipelined run: {launches}"
+        assert all(v == {"mma": launches[n], "fma": 0} for n, v in variants.items()), variants
+        assert int8_bf16 == dict.fromkeys(names[1:], 0), f"int8 entries taken with a bf16 cache: {int8_bf16}"
+        waves = PIPE_SAMPLES // BATCH
+        # every iteration pairs (bootstrap and drain with a dummy partner); the loop may leave early
+        # only at an all-done check, and random weights emit no stop token
+        assert steps_pair == (waves + 1) * min(NEW_TOKENS, PIPE_NEW_TOKENS_2), steps_pair
+        solo_steps, odd = divmod(launches[names[2]] - 2 * L * steps_pair, L)
+        assert odd == 0 and solo_steps == steps["solo"] == waves * (NEW_TOKENS - PIPE_NEW_TOKENS_2), (solo_steps, odd)
+        log(f"  {len(records)} records written in {wall:.2f} s; launches {launches}; K1/K2 by variant {variants}; "
+            f"{steps_pair} pair steps x 2 x {L} layers + {solo_steps} solo-tail steps x {L} layers of K3 | {card}")
+        log(f"  captured decode of the run: {graphs_main} | {card}")
 
-            # (2) the same samples through the sequential cache-reuse path, batch by batch
-            by_image = sorted(samples, key=lambda s: s.image_name)  # run_inference's order (group_by_image)
-            waves_in = [([s.question for s in by_image[i:i + BATCH]], [loader(s) for s in by_image[i:i + BATCH]])
-                        for i in range(0, PIPE_SAMPLES, BATCH)]
-            wall_seq, res, tokens_seq = run(generator, lambda: [
-                EP.run_episodes(generator, processor, qs, ims, gen=gen1, stage2_gen=gen2, reuse_cache=True)
-                for qs, ims in waves_in])
-            seq = [record_dict(s, r) for s, r in zip(by_image, (r for batch in res for r in batch))]
-            assert [r["question_id"] for r in seq] == [r["question_id"] for r in records]
-            same, total = same_tokens(tokens, tokens_seq)
-            log(f"  wall: pipelined {wall:.3f} s, sequential run_episodes(reuse_cache=True) {wall_seq:.3f} s over the same "
-                f"{PIPE_SAMPLES} samples ({PIPE_SAMPLES / wall:.3f} and {PIPE_SAMPLES / wall_seq:.3f} samples/s) | {card}")
-            log(f"  tokens identical between pipelined and sequential: {same} of {total} ({same / total:.4f}; bf16 at 3B "
-                f"width with random weights: near-flat logits, not asserted) | {card}")
+        # (2) the same samples through the sequential cache-reuse path, batch by batch
+        by_image = sorted(samples, key=lambda s: s.image_name)  # run_inference's order (group_by_image)
+        waves_in = [([s.question for s in by_image[i:i + BATCH]], [loader(s) for s in by_image[i:i + BATCH]])
+                    for i in range(0, PIPE_SAMPLES, BATCH)]
+        wall_seq, res, tokens_seq = run(generator, lambda: [
+            EP.run_episodes(generator, processor, qs, ims, gen=gen1, stage2_gen=gen2, reuse_cache=True)
+            for qs, ims in waves_in])
+        seq = [record_dict(s, r) for s, r in zip(by_image, (r for batch in res for r in batch))]
+        assert [r["question_id"] for r in seq] == [r["question_id"] for r in records]
+        same, total = same_tokens(tokens, tokens_seq)
+        log(f"  wall: pipelined {wall:.3f} s, sequential run_episodes(reuse_cache=True) {wall_seq:.3f} s over the same "
+            f"{PIPE_SAMPLES} samples ({PIPE_SAMPLES / wall:.3f} and {PIPE_SAMPLES / wall_seq:.3f} samples/s) | {card}")
+        log(f"  tokens identical between pipelined and sequential: {same} of {total} ({same / total:.4f}; bf16 at 3B "
+            f"width with random weights: near-flat logits, not asserted) | {card}")
 
-            # (3) one wave (bootstrap and drain, each a pair with the dummy partner) with every Generator
-            # stage between two device synchronizations: the first wave's samples, so its stage-1 tokens
-            # must be the main run's
-            one = by_image[:BATCH]
-            spent = {name: [0.0, 0] for name in ("run_prefill", "run_chunk_prefill", "run_decode_pair", "run_decode")}
+        # (3) one wave (bootstrap and drain, each a pair with the dummy partner) with every Generator
+        # stage between two device synchronizations: the first wave's samples, so its stage-1 tokens
+        # must be the main run's
+        one = by_image[:BATCH]
+        spent = {name: [0.0, 0] for name in ("run_prefill", "run_chunk_prefill", "run_decode_pair", "run_decode")}
+        for name in spent:
+            def timed(*a, _fn=getattr(generator, name), _name=name, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                spent[_name][0] += time.perf_counter() - t0
+                spent[_name][1] += 1
+                return out
+            setattr(generator, name, timed)
+        try:
+            wall_t, _, again = pipelined(generator, os.path.join(out_dir, "pipe_timed.jsonl"), one)
+        finally:
             for name in spent:
-                def timed(*a, _fn=getattr(generator, name), _name=name, **kw):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    out = _fn(*a, **kw)
-                    torch.cuda.synchronize()
-                    spent[_name][0] += time.perf_counter() - t0
-                    spent[_name][1] += 1
-                    return out
-                setattr(generator, name, timed)
-            try:
-                wall_t, _, again = pipelined(generator, os.path.join(out_dir, "pipe_timed.jsonl"), one)
-            finally:
-                for name in spent:
-                    delattr(generator, name)  # the instance attributes shadow the class's methods
-            peak_dummy1, steps_t = torch.cuda.max_memory_allocated(), pair_steps[0]
-            assert again[0] == tokens[0], "the pipelined run is not repeatable"
-            assert steps_t == 2 * min(NEW_TOKENS, PIPE_NEW_TOKENS_2) and spent["run_decode"][1] == 1, (steps_t, spent)
-            in_stages = sum(t for t, _ in spent.values())
-            log(f"  timed pipelined run of one wave ({BATCH} samples): wall {wall_t:.3f} s; " + "; ".join(
-                f"{name} {t:.3f} s in {n} calls" for name, (t, n) in spent.items()) + f" | {card}")
-            log(f"  per step: pair {1e3 * spent['run_decode_pair'][0] / steps_t:.3f} ms ({2 * BATCH} rows, two caches), "
-                f"solo {1e3 * spent['run_decode'][0] / (NEW_TOKENS - PIPE_NEW_TOKENS_2):.3f} ms ({BATCH} rows) | {card}")
-            log(f"  host preparation with the device idle (image resize and crop, tokenize, patchify, trim; everything "
-                f"outside the Generator's stages): {wall_t - in_stages:.3f} s of the wave's {wall_t:.3f} s, share "
-                f"{(wall_t - in_stages) / wall_t:.4f} | {card}")
+                delattr(generator, name)  # the instance attributes shadow the class's methods
+        peak_dummy1, steps_t = torch.cuda.max_memory_allocated(), steps["pair"]
+        assert again[0] == tokens[0], "the pipelined run is not repeatable"
+        assert steps_t == 2 * min(NEW_TOKENS, PIPE_NEW_TOKENS_2) and spent["run_decode"][1] == 1, (steps_t, spent)
+        in_stages = sum(t for t, _ in spent.values())
+        log(f"  timed pipelined run of one wave ({BATCH} samples): wall {wall_t:.3f} s; " + "; ".join(
+            f"{name} {t:.3f} s in {n} calls" for name, (t, n) in spent.items()) + f" | {card}")
+        log(f"  per step, captured (each call's first, eager step and its capture included): pair "
+            f"{1e3 * spent['run_decode_pair'][0] / steps_t:.3f} ms ({2 * BATCH} rows, two caches), "
+            f"solo {1e3 * spent['run_decode'][0] / (NEW_TOKENS - PIPE_NEW_TOKENS_2):.3f} ms ({BATCH} rows) | {card}")
+        log(f"  host preparation with the device idle (image resize and crop, tokenize, patchify, trim; everything "
+            f"outside the Generator's stages): {wall_t - in_stages:.3f} s of the wave's {wall_t:.3f} s, share "
+            f"{(wall_t - in_stages) / wall_t:.4f} | {card}")
 
-            # (4) the same wave with edges="solo": no dummy partner's cache at the bootstrap and the drain.
-            # run_episodes_pipelined takes the runner's default, so the runner is wrapped for this pass.
-            PL.run_paired_waves = functools.partial(paired_waves, edges="solo")
-            try:
-                wall_solo, _, tokens_solo = pipelined(generator, os.path.join(out_dir, "pipe_solo.jsonl"), one)
-            finally:
-                PL.run_paired_waves = paired_waves
-            peak_solo1 = torch.cuda.max_memory_allocated()
-            assert pair_steps[0] == 0, "edges='solo' over one wave pairs nothing"
-            same_s, total_s = same_tokens(again, tokens_solo)
-            log(f"  peak memory allocated: the {waves}-wave run {peak_dummy / 2**30:.3f} GiB; one wave, edges='dummy' "
-                f"{peak_dummy1 / 2**30:.3f} GiB, edges='solo' {peak_solo1 / 2**30:.3f} GiB (weights and the slice's "
-                f"leftovers included; one cache of {BATCH} rows x {generator.max_cache_len} slots is "
-                f"{cache_bytes(generator, BATCH) / 2**30:.3f} GiB); edges='solo' wall {wall_solo:.3f} s, tokens identical "
-                f"to edges='dummy' {same_s} of {total_s} | {card}")
+        # (4) the same wave with edges="solo": no dummy partner's cache at the bootstrap and the drain.
+        # run_episodes_pipelined takes the runner's default, so the runner is wrapped for this pass.
+        PL.run_paired_waves = functools.partial(paired_waves, edges="solo")
+        try:
+            wall_solo, _, tokens_solo = pipelined(generator, os.path.join(out_dir, "pipe_solo.jsonl"), one)
+        finally:
+            PL.run_paired_waves = paired_waves
+        peak_solo1 = torch.cuda.max_memory_allocated()
+        assert steps["pair"] == 0, "edges='solo' over one wave pairs nothing"
+        same_s, total_s = same_tokens(again, tokens_solo)
+        log(f"  peak memory allocated: the {waves}-wave run {peak_dummy / 2**30:.3f} GiB; one wave, edges='dummy' "
+            f"{peak_dummy1 / 2**30:.3f} GiB, edges='solo' {peak_solo1 / 2**30:.3f} GiB (weights and the slice's "
+            f"leftovers included; one cache of {BATCH} rows x {generator.max_cache_len} slots is "
+            f"{cache_bytes(generator, BATCH) / 2**30:.3f} GiB); edges='solo' wall {wall_solo:.3f} s, tokens identical "
+            f"to edges='dummy' {same_s} of {total_s} | {card}")
 
-            # (5) the first pair step's logits against the solo step's, on one stage-1 batch paired with itself
-            qs, ims = [s.question for s in samples[:BATCH]], [loader(s) for s in samples[:BATCH]]
-            batch = EP._stage1_inputs(generator, processor, qs, ims, 512)[-1]
-            la, ca, aa = generator.run_prefill(batch, max_new=NEW_TOKENS)
-            cb, cs = ca.clone(), ca.clone()
-            with torch.inference_mode():
-                tok = greedy(la)
-                pos3 = torch.as_tensor(batch.next_pos, device=la.device).long()[None, :, None].expand(3, BATCH, 1)
-                solo_logits = vlm_forward(env.params, cfg, tok[:, None], pos3, attn_positions=cs.length[:, None],
-                                          cache=cs, attend_len=aa)[0][:, 0]
-            _, _, pa, _, _, _, pb, _ = generator.run_decode_pair((la, ca, batch.next_pos, aa, None),
-                                                                 (la.clone(), cb, batch.next_pos, aa, None), steps=1)
-            torch.cuda.synchronize()
-            err = max(max_err(pa, solo_logits), max_err(pb, solo_logits))
-            agree = float(((pa.argmax(-1) == solo_logits.argmax(-1)) & (pb.argmax(-1) == solo_logits.argmax(-1)))
-                          .float().mean())
-            log(f"  first pair step's logits vs the solo step's: max_abs_err {err:.3e} (tol {TOL_PAIR_LOGITS}; max |logit| "
-                f"{solo_logits.abs().max().item():.2f}); rows whose argmax agrees {agree:.3f} | {card}")
-            assert err <= TOL_PAIR_LOGITS and bool(torch.isfinite(pa).all() and torch.isfinite(pb).all())
-            assert pa.shape == (BATCH, cfg.text.vocab_size) and pa.dtype == torch.float32
-            del la, ca, cb, cs, pa, pb, solo_logits
+        # (5) the first pair step's logits against the solo step's, on one stage-1 batch paired with itself
+        qs, ims = [s.question for s in samples[:BATCH]], [loader(s) for s in samples[:BATCH]]
+        batch = EP._stage1_inputs(generator, processor, qs, ims, 512)[-1]
+        la, ca, aa = generator.run_prefill(batch, max_new=NEW_TOKENS)
+        cb, cs = ca.clone(), ca.clone()
+        with torch.inference_mode():
+            tok = greedy(la)
+            pos3 = torch.as_tensor(batch.next_pos, device=la.device).long()[None, :, None].expand(3, BATCH, 1)
+            solo_logits = vlm_forward(env.params, cfg, tok[:, None], pos3, attn_positions=cs.length[:, None],
+                                      cache=cs, attend_len=aa)[0][:, 0]
+        _, _, pa, _, _, _, pb, _ = generator.run_decode_pair((la, ca, batch.next_pos, aa, None),
+                                                             (la.clone(), cb, batch.next_pos, aa, None), steps=1)
+        torch.cuda.synchronize()
+        err = max(max_err(pa, solo_logits), max_err(pb, solo_logits))
+        agree = float(((pa.argmax(-1) == solo_logits.argmax(-1)) & (pb.argmax(-1) == solo_logits.argmax(-1)))
+                      .float().mean())
+        log(f"  first pair step's logits vs the solo step's: max_abs_err {err:.3e} (tol {TOL_PAIR_LOGITS}; max |logit| "
+            f"{solo_logits.abs().max().item():.2f}); rows whose argmax agrees {agree:.3f} | {card}")
+        assert err <= TOL_PAIR_LOGITS and bool(torch.isfinite(pa).all() and torch.isfinite(pb).all())
+        assert pa.shape == (BATCH, cfg.text.vocab_size) and pa.dtype == torch.float32
+        del la, ca, cb, cs, pa, pb, solo_logits
+        # the pair step (16 rows, two caches) and the solo step (8 rows) eagerly and captured, at the
+        # stage-1 batch's shapes
+        la, ca, aa = generator.run_prefill(batch, max_new=NEW_TOKENS)
+        eager_and_captured(f"pair (run_decode_pair), two bf16 caches, attend {aa}", card, lambda: generator.pair_step(
+            (la, ca.clone(), batch.next_pos, aa, None), (la, ca.clone(), batch.next_pos, aa, None),
+            steps=PIPE_NEW_TOKENS_2), PIPE_NEW_TOKENS_2)
+        eager_and_captured(f"solo (run_decode), bf16 cache, attend {aa}", card, lambda: generator.solo_step(
+            la, ca.clone(), batch.next_pos, gen1, attend=aa), NEW_TOKENS)
+        del la, ca
 
-            # (6) the int8 KV cache: K2's and K3's int8 entries on a path
-            g8 = G.Generator(env.params, cfg, max_cache_len=4096, cache_dtype=torch.int8)
-            wall8, rec8, tokens8 = pipelined(g8, os.path.join(out_dir, "pipe_int8.jsonl"), by_image[:BATCH])
-            launches8 = {n: k.launches for n, k in zip(names, kernels)}
-            int8 = {n: k.int8_launches for n, k in zip(names[1:], kernels[1:])}
-            assert len(rec8) == BATCH and all(r["error"] is False for r in rec8)
-            assert int8 == {n: launches8[n] for n in names[1:]} and all(n > 0 for n in int8.values()), (int8, launches8)
-            same8, total8 = same_tokens(tokens[:2], tokens8)
-            log(f"  int8 KV cache, {BATCH} samples pipelined: {wall8:.3f} s; launches {launches8}, all of K2's and K3's "
-                f"through the int8 entry; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (one int8 cache "
-                f"{cache_bytes(g8, BATCH) / 2**30:.3f} GiB); tokens identical to the bf16 cache's {same8} of {total8} "
-                f"| {card}")
-            # wrong scales would give finite, wrong tokens: the int8 cache's error is far from flipping one
-            # token in ten, even on these near-flat logits
-            assert same8 >= 0.9 * total8, f"int8 cache: only {same8} of {total8} tokens equal the bf16 cache's"
-            # K2 and K3 against their plain versions on a cache that this path's prefill has just
-            # quantized, in the forms the decoder hands them: K2 the whole 4096-row cache, K3 the
-            # [:, :, :attend] prefix views of the values and of the fp32 scales
-            t = cfg.text
-            _, c8, a8 = g8.run_prefill(batch, max_new=NEW_TOKENS)
+        # (6) the int8 KV cache: K2's and K3's int8 entries on a path
+        g8 = G.Generator(env.params, cfg, max_cache_len=4096, cache_dtype=torch.int8)
+        wall8, rec8, tokens8 = pipelined(g8, os.path.join(out_dir, "pipe_int8.jsonl"), by_image[:BATCH])
+        launches8 = {n: k.launches for n, k in zip(names, kernels)}
+        int8 = {n: k.int8_launches for n, k in zip(names[1:], kernels[1:])}
+        assert len(rec8) == BATCH and all(r["error"] is False for r in rec8)
+        assert int8 == {n: launches8[n] for n in names[1:]} and all(n > 0 for n in int8.values()), (int8, launches8)
+        same8, total8 = same_tokens(tokens[:2], tokens8)
+        log(f"  int8 KV cache, {BATCH} samples pipelined: {wall8:.3f} s; launches {launches8}, all of K2's and K3's "
+            f"through the int8 entry; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (one int8 cache "
+            f"{cache_bytes(g8, BATCH) / 2**30:.3f} GiB); tokens identical to the bf16 cache's {same8} of {total8} "
+            f"| {card}")
+        # wrong scales would give finite, wrong tokens: the int8 cache's error is far from flipping one
+        # token in ten, even on these near-flat logits
+        assert same8 >= 0.9 * total8, f"int8 cache: only {same8} of {total8} tokens equal the bf16 cache's"
+        # K2 and K3 against their plain versions on a cache that this path's prefill has just
+        # quantized, in the forms the decoder hands them: K2 the whole 4096-row cache, K3 the
+        # [:, :, :attend] prefix views of the values and of the fp32 scales
+        t = cfg.text
+        l8, c8, a8 = g8.run_prefill(batch, max_new=NEW_TOKENS)
+        eager_and_captured(f"solo (run_decode), int8 cache, attend {a8}", card, lambda: g8.solo_step(
+            l8, c8.clone(), batch.next_pos, gen1, attend=a8), NEW_TOKENS)
+        del l8
 
-            with torch.inference_mode():
-                gq = torch.Generator(device="cuda").manual_seed(1)
-                S8 = batch.input_ids.shape[1]
-                q8 = torch.randn((BATCH, S8, t.num_attention_heads, t.head_dim), generator=gq, device="cuda").bfloat16()
-                q1 = q8[:, :1].contiguous()
-                pos8 = torch.arange(S8, device="cuda")[None].expand(BATCH, S8)
-                for layer in (0, L - 1):
-                    k8, v8, ks8, vs8 = c8.layer(layer)
-                    assert_scale_views_as_is(ks8, vs8)
-                    held_on_path(f"K2 int8 on the path's cache, layer {layer}, B={BATCH} S={S8} T={k8.shape[2]}",
-                         K2.causal_attention_cuda(q8, k8, v8, pos8, c8.length, ks8, vs8),
-                         K2.flash_causal_attention_plain(q8, k8, v8, pos8, c8.length, ks8, vs8))
-                    assert a8 is not None and a8 < k8.shape[2], a8
-                    view = tuple(x[:, :, :a8] for x in (k8, v8, ks8, vs8))
-                    assert_scale_views_as_is(view[2], view[3])
-                    held_on_path(f"K3 int8 on the path's cache, layer {layer}, attend {a8} view of T={k8.shape[2]}",
-                         K3.decode_attention_cuda(q1, view[0], view[1], c8.length, view[2], view[3]),
-                         K3.flash_decode_attention_plain(q1, view[0], view[1], c8.length, view[2], view[3]))
-            del c8, q8, q1, k8, v8, ks8, vs8, view
-            del g8
+        with torch.inference_mode():
+            gq = torch.Generator(device="cuda").manual_seed(1)
+            S8 = batch.input_ids.shape[1]
+            q8 = torch.randn((BATCH, S8, t.num_attention_heads, t.head_dim), generator=gq, device="cuda").bfloat16()
+            q1 = q8[:, :1].contiguous()
+            pos8 = torch.arange(S8, device="cuda")[None].expand(BATCH, S8)
+            for layer in (0, L - 1):
+                k8, v8, ks8, vs8 = c8.layer(layer)
+                assert_scale_views_as_is(ks8, vs8)
+                held_on_path(f"K2 int8 on the path's cache, layer {layer}, B={BATCH} S={S8} T={k8.shape[2]}",
+                     K2.causal_attention_cuda(q8, k8, v8, pos8, c8.length, ks8, vs8),
+                     K2.flash_causal_attention_plain(q8, k8, v8, pos8, c8.length, ks8, vs8))
+                assert a8 is not None and a8 < k8.shape[2], a8
+                view = tuple(x[:, :, :a8] for x in (k8, v8, ks8, vs8))
+                assert_scale_views_as_is(view[2], view[3])
+                held_on_path(f"K3 int8 on the path's cache, layer {layer}, attend {a8} view of T={k8.shape[2]}",
+                     K3.decode_attention_cuda(q1, view[0], view[1], c8.length, view[2], view[3]),
+                     K3.flash_decode_attention_plain(q1, view[0], view[1], c8.length, view[2], view[3]))
+        del c8, q8, q1, k8, v8, ks8, vs8, view
+        del g8
 
-            # (7) the scorer over the jsonl the pipelined run wrote
-            metrics = evaluation_metrics(os.path.join(out_dir, "pipe0.jsonl"), verbose=False)
-            assert metrics["n"] == PIPE_SAMPLES and 0.0 <= metrics["overall_acc2"] <= 1.0 and "per_type" in metrics
-            log(f"  scorer: n {metrics['n']}, overall_acc1 {metrics['overall_acc1']:.3f}, overall_acc2 "
-                f"{metrics['overall_acc2']:.3f} (random weights), wordnet backend {metrics['wordnet_backend']}")
-    finally:
-        G.decoder_forward_pair = pair_forward
+        # (7) the scorer over the jsonl the pipelined run wrote
+        metrics = evaluation_metrics(os.path.join(out_dir, "pipe0.jsonl"), verbose=False)
+        assert metrics["n"] == PIPE_SAMPLES and 0.0 <= metrics["overall_acc2"] <= 1.0 and "per_type" in metrics
+        log(f"  scorer: n {metrics['n']}, overall_acc1 {metrics['overall_acc1']:.3f}, overall_acc2 "
+            f"{metrics['overall_acc2']:.3f} (random weights), wordnet backend {metrics['wordnet_backend']}")
     out = {n: {"launches_pipelined": launches[n]} for n in names}
     for n in names[1:]:
         out[n]["launches_pipelined_int8"] = int8[n]
@@ -2187,7 +2229,8 @@ def run_serving(card, env):
         log(f"  endpoint on port {server.port}: text chat {t_text:.3f} s, image chat {t_image:.3f} s, SSE stream {t_sse:.3f} s "
             f"in {len(chunks)} events, {len(content)} of them with content, arriving "
             f"{[round(at, 3) for _, at in content]} s after the request (24 new tokens each), over-long prompt refused "
-            f"with HTTP 400; launches {chat_launches}; {engine.latency_percentiles()} | {card}")
+            f"with HTTP 400; launches {chat_launches}; {engine.latency_percentiles()}; captured decode chunks "
+            f"{graph_line(engine)} | {card}")
         # the data-generation pipeline's engine backend on the same running engine: prompts x G
         # requests through continuous batching, sampled at its default temperature
         done = engine.stats["completed"]
@@ -2232,6 +2275,8 @@ def run_serving(card, env):
         log(f"    engine stats {dict(st)}; live share of stepped rows "
             f"{st['decode_live_row_steps'] / st['decode_device_row_steps']:.3f} | {card}")
         log(f"    engine phases (host seconds, device waits included) {engine.stats_timing()} | {card}")
+        log(f"    captured decode chunks: {graph_line(engine)}; compact staging rows "
+            f"{engine.staging_bytes() / 2**30:.3f} GiB | {card}")
         log(f"    launches {launches}, of them on int8 K/V {int8}; K1/K2 by variant {variants}; peak memory "
             f"{peak / 2**30:.3f} GiB (slot pool {pools[0] / 2**30:.3f} GiB, prefix pool {pools[1] / 2**30:.3f} GiB; weights "
             f"and earlier phases' leftovers included) | {card}")
@@ -2253,28 +2298,53 @@ def run_serving(card, env):
     # host's timing), and a greedy row that departs once stays apart, so this is no exact bar
     assert same >= 0.9 * total, f"int8 cache: only {same} of {total} tokens equal the bf16 cache's"
 
-    # (4) the decode step over bf16 weights and over the int8 layout, 8 live rows, in turns
+    # (4) the engine's decode step, eagerly and captured, in turns: full-width chunks (8 live rows) and
+    # compact ones (4 live rows: row bucket 4), on the bf16 and on the int8 KV cache; then captured
+    # over bf16 weights and over the int8 weight layout, in turns
     qparams = quantize_decoder_int8(env.params)
     rng_ids = [[cfg.tokens.im_start] + [40 + (7 * r + j) % 200 for j in range(100 + r)] for r in range(SERVE_SLOTS)]
-    times = {"bf16": [], "int8": []}
-    for label in ("bf16", "int8", "int8", "bf16"):
-        e = engine_for(env.params if label == "bf16" else qparams)
-        for r, ids in enumerate(rng_ids):
+
+    def engine_steps(params, cache_dtype, live, captured):
+        """(wall ms per decode step over 5 chunks, every row's tokens, the engine's graph stats, its
+        staging bytes): `live` rows admitted, a first chunk (eager: its key's first) and a second
+        (captured and replayed), then 5 chunks timed. captured=False runs the same chunk step eagerly."""
+        e = engine_for(params, cache_dtype)
+        if not captured:
+            e.graphs.run = lambda key, fn, generators=(): fn()  # the chunk's step function, eagerly
+        for r, ids in enumerate(rng_ids[:live]):
             e.submit(Request(request_id=f"d{r}", token_ids=ids, images=[], max_tokens=SERVE_CHUNK * 8))
-        e.step()  # admission and a first chunk
-        assert e.active.all() and not any(contained(e).values()), contained(e)
+        e.step()
+        e.step()
+        assert e.active.sum() == live and not any(contained(e).values()), contained(e)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(5):
             e.step()
         torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / (5 * SERVE_CHUNK)
         assert not any(contained(e).values()), contained(e)
-        times[label].append(1e3 * (time.perf_counter() - t0) / (5 * SERVE_CHUNK))
-        del e
-    log(f"  engine decode step, {SERVE_SLOTS} live rows, attend 512, wall ms per step over 5 chunks of {SERVE_CHUNK} (both "
-        f"runs each, in turns): bf16 weights {times['bf16']}, int8 layout through qdot (weights widened per product) "
-        f"{times['int8']}; trees {quantized_bytes(env.params) / 2**30:.3f} and {quantized_bytes(qparams) / 2**30:.3f} GiB "
-        f"| {card}")
+        return ms, [list(s.generated) for s in e.slots[:live]], graph_line(e), e.staging_bytes()
+
+    for kind, cache_dtype in (("bf16", None), ("int8", torch.int8)):
+        for live, form in ((SERVE_SLOTS, "full-width"), (SERVE_SLOTS // 2, "compact")):
+            times, toks = {"eager": [], "captured": []}, {}
+            for mode in ("eager", "captured", "captured", "eager"):
+                ms, toks[mode], stats, staging = engine_steps(env.params, cache_dtype, live, mode == "captured")
+                times[mode].append(ms)
+                if mode == "captured":
+                    held = (stats, staging)
+            assert toks["eager"] == toks["captured"], f"engine {form} chunk, {kind} cache: captured tokens differ"
+            log(f"  engine decode step, {form} chunks of {SERVE_CHUNK}, {live} live rows of {SERVE_SLOTS}, {kind} KV "
+                f"cache, attend 512, wall ms per step over 5 chunks (two runs each, in turns): eager {times['eager']}, "
+                f"captured {times['captured']}; tokens identical; graphs {held[0]}, staging rows "
+                f"{held[1] / 2**30:.3f} GiB | {card}")
+    times = {"bf16": [], "int8": []}
+    for label in ("bf16", "int8", "int8", "bf16"):
+        times[label].append(engine_steps(env.params if label == "bf16" else qparams, None, SERVE_SLOTS, True)[0])
+    log(f"  engine decode step, captured, {SERVE_SLOTS} live rows, attend 512, wall ms per step over 5 chunks of "
+        f"{SERVE_CHUNK} (both runs each, in turns): bf16 weights {times['bf16']}, int8 layout through qdot (weights "
+        f"widened per product) {times['int8']}; trees {quantized_bytes(env.params) / 2**30:.3f} and "
+        f"{quantized_bytes(qparams) / 2**30:.3f} GiB | {card}")
     # one decoder matmul at the decode step's shape, on the device: what a W8A16 kernel has to beat
     w, qw = env.params["text"]["layers"][0]["mlp"]["wg"], qparams["text"]["layers"][0]["mlp"]["wg"]
     x = torch.randn((SERVE_SLOTS, 1, w.shape[0]), device="cuda", generator=torch.Generator(device="cuda").manual_seed(2)
@@ -2305,6 +2375,58 @@ def cache_bytes(generator, batch):
     slots = 2 * t.num_hidden_layers * batch * t.num_key_value_heads * generator.max_cache_len
     item = torch_itemsize(generator.cache_dtype)
     return slots * t.head_dim * item + (slots * 4 if item == 1 else 0)
+
+
+def eager_and_captured(label, card, make_step, steps):
+    """A decode path's step at its own shapes, eagerly and captured (runtime.graphs): make_step()
+    gives (state, step, rng) over a fresh copy of the path's decode inputs (a Generator's
+    solo_step or pair_step). `steps` eager steps, timed; then, on a second copy, one eager step,
+    the capture and steps - 1 replays, the last steps - 2 of them timed. Both token buffers must be
+    equal. Returns {"eager_ms": per step, "captured_ms": per replayed step, "capture_ms"}."""
+    import torch
+
+    from zoomearth_tpu_torch.runtime.graphs import StepGraphs
+
+    with torch.inference_mode():  # a Generator's caches are inference tensors
+        st, step, _ = make_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        eager_ms = 1e3 * (time.perf_counter() - t0) / steps
+        eager_tokens = st.tokens.clone()
+        del st, step
+        st, step, rng = make_step()
+        graphs = StepGraphs("cuda")
+        gens = (rng,) if rng is not None else ()
+        graphs.run("step", step, gens)  # eager
+        graphs.run("step", step, gens)  # captured, then replayed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps - 2):
+            graphs.run("step", step, gens)
+        torch.cuda.synchronize()
+        captured_ms = 1e3 * (time.perf_counter() - t0) / (steps - 2)
+        same = torch.equal(st.tokens, eager_tokens)
+    B = st.tokens.shape[0]
+    log(f"  decode step, {label}, {B} rows: eager {eager_ms:.3f} ms, captured {captured_ms:.3f} ms per step "
+        f"({eager_ms / captured_ms:.2f}x), capture {1e3 * graphs.capture_s:.1f} ms; tokens of {steps} steps "
+        f"identical: {same} | {card}")
+    assert same, f"{label}: the captured steps' tokens differ from the eager steps'"
+    return {"eager_ms": eager_ms, "captured_ms": captured_ms, "capture_ms": 1e3 * graphs.capture_s}
+
+
+def graph_line(owner, before=(0, 0.0)):
+    """One line of a Generator's or an engine's captured decode (`owner.graphs`): graphs
+    captured since `before` (graph_counts' earlier reading), their capture seconds, graphs
+    that replay now."""
+    n, secs = owner.graphs.captures - before[0], owner.graphs.capture_s - before[1]
+    return f"{n} graphs captured in {secs:.3f} s ({1e3 * secs / max(n, 1):.1f} ms each), {owner.graphs.held} held"
+
+
+def graph_counts(owner):
+    return owner.graphs.captures, owner.graphs.capture_s
 
 
 def torch_itemsize(dtype):
@@ -2701,6 +2823,8 @@ def run_internvl(card):
     causal, decode = DEC.flash_causal_attention, DEC.flash_decode_attention
 
     def keep(store, args):
+        if torch.cuda.is_current_stream_capturing():
+            return  # a copy made during capture would hold data that no kernel has written yet
         q, k = args[0], args[1]
         key = (tuple(q.shape), tuple(k.shape), k.stride(), str(k.dtype))
         if key not in store:
@@ -2719,6 +2843,7 @@ def run_internvl(card):
     for k in kernels[:2]:
         k.variants = dict.fromkeys(k.variants, 0)
     DEC.flash_causal_attention, DEC.flash_decode_attention = causal_kept, decode_kept
+    graphs0 = graph_counts(runner.generator)
     try:
         t0 = time.time()
         texts = runner.generate(questions, images, gen)
@@ -2735,7 +2860,8 @@ def run_internvl(card):
     log(f"  runner.generate over {INTERNVL_IMAGES} x 5000 px (max_anyres_num {INTERNVL_ANYRES}), greedy, "
         f"{NEW_TOKENS} new tokens: {wall:.3f} s cold | {card}")
     log(f"  launches {launches} (K2 {launches[names[1]] // L} prefill x {L} layers, all {variants}; K3 "
-        f"{launches[names[2]] // L} decode steps x {L} layers); answer lengths {[len(t) for t in texts]}")
+        f"{launches[names[2]] // L} decode steps x {L} layers); answer lengths {[len(t) for t in texts]}; "
+        f"captured decode: {graph_line(runner.generator, graphs0)}")
 
     # the stages again, warm, each timed between device synchronizations
     timer = PhaseTimer()
@@ -2754,6 +2880,10 @@ def run_internvl(card):
         tokens, cache = runner.generator.run_decode(logits, cache, batch.next_pos, gen, attend=attend)
     steps = (K3.decode_attention_cuda.launches - before) // L
     peak = torch.cuda.max_memory_allocated()
+    logits2, cache2, _ = runner.generator.run_prefill(batch, max_new=NEW_TOKENS)
+    eager_and_captured(f"InternVL (run_decode), bf16 cache, attend {attend}", card, lambda: runner.generator.solo_step(
+        logits2, cache2.clone(), batch.next_pos, gen, attend=attend), NEW_TOKENS)
+    del logits2, cache2
     B, S = batch.input_ids.shape
     n_tiles = sum(counts)
     assert counts == [5] * INTERNVL_IMAGES and embeds.shape == (n_tiles * cfg.vision.num_image_token,
@@ -2893,6 +3023,9 @@ def main(argv=()) -> int:
     for name, held in serving_checks.items():
         untimed[name] = untimed.get(name, []) + held
     del env
+    import gc
+
+    gc.collect()  # earlier phases' reference cycles (an engine and its server) would hold the 3B weights
     torch.cuda.empty_cache()
     log(f"[training] Qwen2.5-VL-3B bf16, train_sft: {TRAIN_MICRO} micro-steps of one sample ({TRAIN_ACCUM} to an "
         f"update), checkpoints, a resume from step {TRAIN_RESUME_AT}, the HF export")

@@ -6,6 +6,7 @@ reference module (which imports JAX) and held equal to it by exact-equality test
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -25,9 +26,15 @@ def apply_rotary(x, cos, sin):
     return (x * cos + rotate_half(x) * sin).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
 def _inv_freq(dim: int, theta: float, device) -> torch.Tensor:
+    """The rotary frequencies on `device`, made once per (dim, theta, device): a
+    decode step captured into a CUDA graph may copy nothing from the host. Read-only,
+    and a normal tensor even when first asked for under inference mode (training
+    reads it too)."""
     inv = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
-    return torch.from_numpy(inv.astype(np.float32)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(inv.astype(np.float32)).to(device)
 
 
 def vision_rope_cos_sin(pos_ids: torch.Tensor, head_dim: int, theta: float = 10000.0):

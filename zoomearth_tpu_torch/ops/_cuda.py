@@ -11,12 +11,15 @@ of the package on a machine without nvcc.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -140,15 +143,49 @@ def check(rc: int, name: str) -> None:
 def count_launch(wrapper, variant: str | None = None, int8: bool = False) -> None:
     """Add one to `wrapper.launches` (and to `wrapper.variants[variant]`, where the
     kernel has variants; to `wrapper.int8_launches`, where the launch read int8 K/V)
-    for the kernel it has just launched. A call made while a CUDA graph is being
-    captured launches nothing (the graph's replays run the kernel without passing
-    through the wrapper), so it is not counted."""
-    if not torch.cuda.is_current_stream_capturing():
-        wrapper.launches += 1
-        if variant is not None:
-            wrapper.variants[variant] += 1
-        if int8:
-            wrapper.int8_launches += 1
+    for the kernel it has just launched, so that a count is of kernel runs.
+
+    A call made while a CUDA graph is being captured launches nothing. Under a
+    `recording()` (a runtime.graphs.CapturedStep capturing its step) it goes to that
+    capture's tally instead, which each replay adds to the counts (`add_tally`). Under
+    a raw `torch.cuda.graph` capture (the timing harness) it is not counted, nor are
+    that graph's replays."""
+    if torch.cuda.is_current_stream_capturing():
+        tally = getattr(_capturing, "tally", None)
+        if tally is not None:
+            tally[(wrapper, variant, int8)] += 1
+        return
+    _add_launches(wrapper, 1, variant, int8)
+
+
+def _add_launches(wrapper, n: int, variant: str | None, int8: bool) -> None:
+    wrapper.launches += n
+    if variant is not None:
+        wrapper.variants[variant] += n
+    if int8:
+        wrapper.int8_launches += n
+
+
+_capturing = threading.local()  # .tally: the Counter of the capture this thread is recording, if any
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect, as a Counter of (wrapper, variant, int8) -> launches, the calls that
+    count_launch sees on this thread while a stream captures: one captured step's
+    launches, which `add_tally` adds to the counts at each replay."""
+    outer = getattr(_capturing, "tally", None)
+    _capturing.tally = tally = collections.Counter()
+    try:
+        yield tally
+    finally:
+        _capturing.tally = outer
+
+
+def add_tally(tally) -> None:
+    """Count the launches of one replay of a captured step (its `recording()` tally)."""
+    for (wrapper, variant, int8), n in tally.items():
+        _add_launches(wrapper, n, variant, int8)
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -17,9 +17,9 @@ that reads int8 and multiplies in bf16 is what makes the layout pay; until it ex
 way to decode faster. Measured by chip_smoke.py's serving phase on an NVIDIA H100 80GB
 HBM3 (700 W) at Qwen2.5-VL-3B width: one decoder matmul at the decode shape (8 x 2048 @
 2048 x 11008, device time, L2 cold) takes 0.022 ms as a bf16 `torch.mm` and 0.084 ms
-through `qdot` over int8; the serving engine's decode step with 8 live rows took
-26.6-55.6 ms of wall time over bf16 weights and 31.8-53.6 ms over the int8 layout on
-five shared hosts (the step is bound by the host, which hides the difference).
+through `qdot` over int8; the serving engine's decode step with 8 live rows, replayed
+from its captured graph, takes 7.35 ms of wall time over bf16 weights and 15.58 ms over
+the int8 layout.
 
 Opt-in; the accuracy impact must be validated per checkpoint before serving with it.
 """

@@ -3,16 +3,20 @@ runtime/generate.py).
 
 The host-side packing (`bucket`, `GenerationConfig`, `PreparedBatch`,
 `prepare_batch`, `prepare_continuation`) is a verbatim copy of the reference's,
-held equal to it by exact-equality tests. `Generator` runs eagerly on the params'
-device:
+held equal to it by exact-equality tests. `Generator` runs on the params' device:
 
-- prefill and chunk prefill are one forward each (their attention is K2);
-- decode is a fixed-shape Python step loop (attention K3) that keeps the token
-  buffer on the device, checks for all-rows-done only every DONE_CHECK_EVERY steps
-  (the only host sync of the loop), and reads the tokens back once at the end;
-- `run_decode_pair` is the same loop over TWO row groups with a cache each: one
-  dense pass per step for both (models.decoder.decoder_forward_pair), after which
-  either group resumes in the solo loop;
+- prefill and chunk prefill are one eager forward each (their attention is K2);
+- decode is one step function over fixed device buffers (`DecodeState`: logits,
+  done, positions, the token buffer and a device step counter through which the step
+  writes its token column; attention K3), driven by a host loop that checks for
+  all-rows-done only every DONE_CHECK_EVERY steps (the only host sync of the loop)
+  and reads the tokens back once at the end. On CUDA each call's step runs eagerly
+  once, is captured into a CUDA graph and replayed for the rest of the call
+  (runtime.graphs): the counterpart of the reference's jitted while-loop. On the CPU
+  the same step runs eagerly every time;
+- `run_decode_pair` is the same over TWO row groups with a cache each: one dense
+  pass per step for both (models.decoder.decoder_forward_pair), after which either
+  group resumes in the solo loop;
 - caches are written in place and keep one `length` tensor for their lifetime (see
   models.decoder.KVCache). A consumed cache is never reused: `run_chunk_prefill`
   works on a copy whenever the reference would not have donated its input (an
@@ -25,6 +29,7 @@ Not ported: the split-row prefill, `right_size_cache` and the ZOOMEARTH_* switch
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
@@ -38,6 +43,7 @@ from ..models.rope import mrope_position_ids_batch
 from ..models.vit import meta_to_device, vision_metadata
 from ..models.vlm import embed_tokens, vlm_forward
 from ..ops.sampling import greedy, sample
+from .graphs import StepGraphs
 
 DEFAULT_LENGTH_BUCKETS = (128, 256, 384, 512, 768, 1024, 1536, 2048)
 DEFAULT_CACHE_BUCKETS = (256, 512, 768, 1024, 1280, 1536, 2048, 3072, 4096)
@@ -182,6 +188,19 @@ def prepare_continuation(
     return PreparedBatch(ids, lengths, pos, next_pos, pixel_values, meta_dev)
 
 
+@dataclasses.dataclass
+class DecodeState:
+    """The device buffers one decode call steps over, in place: what its step reads
+    and writes, at addresses that stay fixed for the call (a captured step replays on
+    them)."""
+
+    logits: torch.Tensor  # (B, V) fp32: the logits the next token is picked from
+    done: torch.Tensor  # (B,) bool: rows finished (they emit pad)
+    pos: torch.Tensor  # (B,) int64: the next token's M-RoPE position
+    tokens: torch.Tensor  # (B, steps) int64: the tokens, pad after a stop
+    step: torch.Tensor  # (1,) int64: the column the next token goes to
+
+
 class HostCopy:
     """A device tensor on its way to the host (the reference's copy_to_host_async,
     then np.asarray): from a CUDA tensor, a non-blocking copy into a pinned buffer with
@@ -215,6 +234,9 @@ class Generator:
         self.cache_dtype = torch_dtype(cache_dtype or cfg.dtype)
         self.device = params["text"]["embed"]["weight"].device
         self._stop = torch.as_tensor((cfg.tokens.eos, cfg.tokens.endoftext), device=self.device)
+        self.graphs = StepGraphs(self.device)  # one captured step per decode call (see _drive)
+        self.decode_steps = collections.Counter()  # steps taken, by "solo" and "pair"
+        self._calls = 0
 
     def new_cache(self, batch: int) -> KVCache:
         """Fresh full-size cache in this generator's layout."""
@@ -318,12 +340,18 @@ class Generator:
         cache.length.copy_(keep + chunk_lens)
         return logits, cache, self._attend_bucket(need, T2)
 
-    def _decode_state(self, B: int, max_new: int, done0):
-        """(token buffer (B, max_new) of pad ids, done (B,) bool) on the device."""
-        tokens = torch.full((B, max_new), self.cfg.tokens.pad, dtype=torch.int64, device=self.device)
-        done = (torch.zeros((B,), dtype=torch.bool, device=self.device) if done0 is None
-                else torch.as_tensor(done0, dtype=torch.bool, device=self.device))
-        return tokens, done
+    def _decode_state(self, logits, pos, steps: int, done0) -> DecodeState:
+        """Fresh buffers for one decode call: a copy of the first logits, done0 (or no
+        row done), the positions, a token buffer of pad ids, the step counter at 0."""
+        B = logits.shape[0]
+        done = torch.zeros((B,), dtype=torch.bool, device=self.device)
+        if done0 is not None:
+            done.copy_(torch.as_tensor(done0, dtype=torch.bool, device=self.device))
+        return DecodeState(
+            logits=logits.clone(), done=done, pos=pos,
+            tokens=torch.full((B, steps), self.cfg.tokens.pad, dtype=torch.int64, device=self.device),
+            step=torch.zeros((1,), dtype=torch.int64, device=self.device),
+        )
 
     def _pick(self, logits, done, rng, temperature: float, top_p: float):
         """The next token of each row (pad where the row is done) and the rows done
@@ -332,32 +360,102 @@ class Generator:
         tok = torch.where(done, torch.full_like(tok, self.cfg.tokens.pad), tok)
         return tok, done | torch.isin(tok, self._stop)
 
+    def _rng(self, temperatures, seed: int) -> Optional[torch.Generator]:
+        """The call's generator, where any of its groups samples."""
+        if any(t > 0.0 for t in temperatures):
+            return torch.Generator(device=self.device).manual_seed(seed)
+        return None
+
+    def solo_step(self, first_logits, cache: KVCache, next_pos, gen: GenerationConfig, *, seed: int = 0,
+                  attend: Optional[int] = None, done0=None):
+        """(state, step, rng): the buffers of one run_decode call and its step function,
+        which picks the next token from state.logits, writes it at column state.step,
+        runs the model on it (K3 once per layer) and advances logits, done, pos, step and
+        the cache's `length` in place. It reads no host value and waits for nothing:
+        run_decode captures it on CUDA. Called in a loop, it is the eager decode."""
+        rng = self._rng((gen.temperature,), seed)
+        st = self._decode_state(first_logits, self._tensor(next_pos, torch.int64), gen.max_new_tokens, done0)
+        B = st.done.shape[0]
+
+        def step():
+            tok, done = self._pick(st.logits, st.done, rng, gen.temperature, gen.top_p)
+            st.done.copy_(done)
+            st.tokens.index_copy_(1, st.step, tok[:, None])
+            pos3 = st.pos[None, :, None].expand(3, B, 1)
+            logits, _ = vlm_forward(
+                self.params, self.cfg, tok[:, None], pos3,
+                attn_positions=cache.length[:, None], cache=cache, attend_len=attend,
+            )
+            st.logits.copy_(logits[:, 0])
+            st.pos.add_(1)
+            st.step.add_(1)
+
+        return st, step, rng
+
+    def pair_step(self, a, b, *, steps: int, temperature: float = 0.0, top_p: float = 1.0, seed: int = 0,
+                  temperature_b: Optional[float] = None, top_p_b: Optional[float] = None):
+        """(state, step, rng) of one run_decode_pair call (same arguments): rows [0:Ba]
+        of the state are group a, the rest group b. The step draws for group a, then for
+        group b, and runs one dense pass for both (decoder_forward_pair: K3 twice per
+        layer)."""
+        logits_a, cache_a, pos_a, attend_a, done0_a = a
+        logits_b, cache_b, pos_b, attend_b, done0_b = b
+        Ba, Bb = logits_a.shape[0], logits_b.shape[0]
+        temp_b = temperature if temperature_b is None else temperature_b
+        tp_b = top_p if top_p_b is None else top_p_b
+        rng = self._rng((temperature, temp_b), seed)
+        done0 = None
+        if done0_a is not None or done0_b is not None:
+            done0 = torch.cat([torch.zeros((n,), dtype=torch.bool, device=self.device) if d is None
+                               else torch.as_tensor(d, dtype=torch.bool, device=self.device)
+                               for d, n in ((done0_a, Ba), (done0_b, Bb))])
+        pos = torch.cat([self._tensor(pos_a, torch.int64), self._tensor(pos_b, torch.int64)])
+        st = self._decode_state(torch.cat([logits_a, logits_b]), pos, steps, done0)
+        text = self.params["text"]
+
+        def step():
+            tok_a, done_a = self._pick(st.logits[:Ba], st.done[:Ba], rng, temperature, top_p)
+            tok_b, done_b = self._pick(st.logits[Ba:], st.done[Ba:], rng, temp_b, tp_b)
+            st.done.copy_(torch.cat([done_a, done_b]))
+            tok = torch.cat([tok_a, tok_b])
+            st.tokens.index_copy_(1, st.step, tok[:, None])
+            pos3 = st.pos[None, :, None].expand(3, Ba + Bb, 1)
+            hidden, _, _ = decoder_forward_pair(
+                text, self.cfg.text, embed_tokens(self.params, tok[:, None]), pos3,
+                cache_a, cache_b, attend_a, attend_b,
+            )
+            st.logits.copy_(logits_from_hidden(text, self.cfg.text, hidden)[:, 0])
+            st.pos.add_(1)
+            st.step.add_(1)
+
+        return st, step, rng
+
+    def _drive(self, st: DecodeState, steps: int, step, rng, kind: str) -> None:
+        """Up to `steps` runs of `step`, looking for all-rows-done every
+        DONE_CHECK_EVERY steps (the loop's only host sync), through a graph keyed to this
+        call: on CUDA the first step is eager, then the step is captured and replayed. The
+        graph is released at the end: it holds the addresses of this call's buffers and
+        cache, which the next call does not share."""
+        key = (kind, self._calls)
+        self._calls += 1
+        try:
+            for i in range(steps):
+                if i % DONE_CHECK_EVERY == 0 and bool(st.done.all()):
+                    break
+                self.graphs.run(key, step, (rng,) if rng is not None else ())
+                self.decode_steps[kind] += 1
+        finally:
+            self.graphs.release(key)
+
     @torch.inference_mode()
     def run_decode(self, first_logits, cache: KVCache, next_pos, gen: GenerationConfig, *,
                    seed: int = 0, attend: Optional[int] = None, done0=None):
         """Decode up to gen.max_new_tokens tokens. Returns (tokens (B, max_new) on the
         device, padded with the pad id after a stop token, cache). attend: prefix read
         span; done0: (B,) rows already finished (they stay inert)."""
-        B = first_logits.shape[0]
-        rng = None
-        if gen.temperature > 0.0:
-            rng = torch.Generator(device=self.device).manual_seed(seed)
-        tokens, done = self._decode_state(B, gen.max_new_tokens, done0)
-        pos = self._tensor(next_pos, torch.int64)
-        logits = first_logits
-        for step in range(gen.max_new_tokens):
-            if step % DONE_CHECK_EVERY == 0 and bool(done.all()):
-                break
-            tok, done = self._pick(logits, done, rng, gen.temperature, gen.top_p)
-            tokens[:, step] = tok
-            pos3 = pos[None, :, None].expand(3, B, 1)
-            logits, cache = vlm_forward(
-                self.params, self.cfg, tok[:, None], pos3,
-                attn_positions=cache.length[:, None], cache=cache, attend_len=attend,
-            )
-            logits = logits[:, 0]
-            pos = pos + 1
-        return tokens, cache
+        st, step, rng = self.solo_step(first_logits, cache, next_pos, gen, seed=seed, attend=attend, done0=done0)
+        self._drive(st, gen.max_new_tokens, step, rng, "solo")
+        return st.tokens, cache
 
     @torch.inference_mode()
     def run_decode_pair(self, a, b, *, steps: int, temperature: float = 0.0, top_p: float = 1.0,
@@ -376,35 +474,12 @@ class Generator:
         loop does, so after an early stop a cache's `length` may stand up to
         DONE_CHECK_EVERY - 1 past the reference's: done rows write pad, and a slot
         past the cache's end is dropped."""
-        logits_a, cache_a, pos_a, attend_a, done0_a = a
-        logits_b, cache_b, pos_b, attend_b, done0_b = b
-        Ba, Bb = logits_a.shape[0], logits_b.shape[0]
-        temp_b = temperature if temperature_b is None else temperature_b
-        tp_b = top_p if top_p_b is None else top_p_b
-        rng = None
-        if temperature > 0.0 or temp_b > 0.0:
-            rng = torch.Generator(device=self.device).manual_seed(seed)
-        buf_a, done_a = self._decode_state(Ba, steps, done0_a)
-        buf_b, done_b = self._decode_state(Bb, steps, done0_b)
-        pos = torch.cat([self._tensor(pos_a, torch.int64), self._tensor(pos_b, torch.int64)])
-        logits = torch.cat([logits_a, logits_b])
-        text = self.params["text"]
-        for step in range(steps):
-            if step % DONE_CHECK_EVERY == 0 and bool((done_a.all() & done_b.all())):
-                break
-            tok_a, done_a = self._pick(logits[:Ba], done_a, rng, temperature, top_p)
-            tok_b, done_b = self._pick(logits[Ba:], done_b, rng, temp_b, tp_b)
-            buf_a[:, step] = tok_a
-            buf_b[:, step] = tok_b
-            tok = torch.cat([tok_a, tok_b])
-            pos3 = pos[None, :, None].expand(3, Ba + Bb, 1)
-            hidden, cache_a, cache_b = decoder_forward_pair(
-                text, self.cfg.text, embed_tokens(self.params, tok[:, None]), pos3,
-                cache_a, cache_b, attend_a, attend_b,
-            )
-            logits = logits_from_hidden(text, self.cfg.text, hidden)[:, 0]
-            pos = pos + 1
-        return buf_a, done_a, logits[:Ba], cache_a, buf_b, done_b, logits[Ba:], cache_b
+        st, step, rng = self.pair_step(a, b, steps=steps, temperature=temperature, top_p=top_p, seed=seed,
+                                       temperature_b=temperature_b, top_p_b=top_p_b)
+        self._drive(st, steps, step, rng, "pair")
+        Ba = a[0].shape[0]
+        return (st.tokens[:Ba], st.done[:Ba], st.logits[:Ba], a[1],
+                st.tokens[Ba:], st.done[Ba:], st.logits[Ba:], b[1])
 
     # -- public API ---------------------------------------------------------------
 

@@ -34,12 +34,21 @@ What differs from the functional reference, and why:
 - `torch.inference_mode()` and the current CUDA device are per thread, and the pump
   thread and an HTTP server's handler threads are not the thread that built the
   engine: every method that touches the device enters both itself (`_device_scope`).
-- The decode chunk is an eager loop of `decode_chunk` steps with no host contact
-  and one readback of the (rows, steps) tokens at its end. The full-width chunk runs
-  in place on the pool; the compact chunk gathers the live rows, steps them, and
-  writes them back.
-- No per-shape program caches: `precompile` only loads the kernel library and runs
-  each routine once with inert inputs.
+- The decode chunk is one step function of `decode_chunk` steps with no host
+  contact and one readback of the (rows, steps) tokens at its end. On CUDA it is
+  captured into a CUDA graph per key and replayed (runtime.graphs), the counterpart
+  of the reference's decode programs cached per `attend` and per `(R, attend)`: the
+  full-width chunk's key is (steps, attend, whether a row samples), and it runs in
+  place on the pool; the compact chunk's adds its row bucket R, and it runs on
+  persistent staging rows that the live rows are gathered into and written back
+  from, outside the graph. A key's first chunk runs eagerly, every later one
+  replays. Host arrays (`active`, the temperatures) are copied into static buffers
+  before each chunk. The graphs read the pool and the weights by address: they are
+  dropped by `reset_state()` and by a `params` assignment that moves a leaf; `reseed()`
+  reseeds the generator they are registered with in place. On the CPU the same step
+  runs eagerly.
+- `precompile` loads the kernel library, runs each prefill shape once and captures
+  the decode chunks at `attend_len` None, with inert inputs.
 """
 
 from __future__ import annotations
@@ -57,11 +66,12 @@ import torch
 
 from ..config import VLMConfig
 from ..models.decoder import KVCache, write_index
-from ..models.params import torch_dtype
+from ..models.params import torch_dtype, tree_leaves
 from ..models.rope import mrope_chunk_position_ids, mrope_position_ids
 from ..models.vit import meta_to_device, vision_metadata
 from ..models.vlm import compute_vision_embeds, vlm_forward
 from ..runtime.generate import DEFAULT_LENGTH_BUCKETS, HostCopy, _meta_dict, bucket
+from ..runtime.graphs import StepGraphs
 
 # Coarser than the batch Generator's buckets on purpose: admission batches vary in how
 # many images they carry (scheduler timing), and the patch count decides the padding
@@ -160,6 +170,30 @@ class _PrefixEntry:
         return len(self.token_ids)
 
 
+@dataclasses.dataclass
+class _ChunkIO:
+    """Static device inputs and outputs of a decode chunk (see _chunk_io)."""
+
+    act: torch.Tensor  # (R,) bool: rows that take part
+    temps: torch.Tensor  # (R,) fp32: sampling temperatures, read when `sampling`
+    tokens: torch.Tensor  # (R, n_steps) int64: the chunk's tokens
+    sampling: bool = False  # whether any row of this chunk samples (decides the graph)
+
+
+@dataclasses.dataclass
+class _Staging:
+    """A compact chunk's persistent staging rows (see _staging_for)."""
+
+    cache: KVCache
+    cur: torch.Tensor  # (R,) int64
+    pos: torch.Tensor  # (R,) int64
+
+
+def _cache_tensors(cache: KVCache) -> List[torch.Tensor]:
+    """Every tensor of a cache by rows: k, v, the int8 scales where there are, `length` last."""
+    return cache.k + cache.v + ((cache.kscale + cache.vscale) if cache.quantized else []) + [cache.length]
+
+
 class ServingEngine:
     """Continuous batching over `max_slots` concurrent sequences, on the device the
     params live on.
@@ -181,9 +215,14 @@ class ServingEngine:
         patch_buckets: Sequence[int] = ENGINE_PATCH_BUCKETS,
         seed: int = 0,
     ):
+        self.device = params["text"]["embed"]["weight"].device
+        # the decode chunks' captured graphs by key (public: their counts are read), the
+        # static buffers they read, and the compact chunks' staging rows by row bucket
+        self.graphs = StepGraphs(self.device)
+        self._chunk_bufs: Dict[Tuple[int, int], _ChunkIO] = {}
+        self._staging: Dict[int, _Staging] = {}
         self.params = params
         self.cfg = cfg
-        self.device = params["text"]["embed"]["weight"].device
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
         self.decode_chunk = decode_chunk
@@ -256,6 +295,27 @@ class ServingEngine:
         self._phase_s = collections.defaultdict(float)
         self._latencies = collections.deque(maxlen=1024)  # submit -> completion, seconds
 
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, params):
+        """Assign the weights. A captured chunk reads them by address, so an assignment
+        that moves any leaf (new tensors, another shape or layout) drops every captured
+        chunk; handing over the same tensors (GRPO's weight handoff each rollout, the
+        weights updated in place) keeps them, and the replays read the new values."""
+        layout = [(t.data_ptr(), t.shape, t.stride(), t.dtype) for t in tree_leaves(params)]
+        if layout != getattr(self, "_params_layout", None):
+            self.graphs.drop()
+        self._params, self._params_layout = params, layout
+
+    def reseed(self, seed: int) -> None:
+        """Restart the sampler's stream from `seed`, as a new engine's would start. The
+        generator is reseeded in place: the captured chunks it is registered with read
+        its state at every replay, so they stay."""
+        self._rng.manual_seed(seed)
+
     def stats_timing(self):
         """Cumulative seconds per engine phase (prefill_host_prep, prefill_vit_dispatch,
         prefill_pool_dispatch, prefill_store_dispatch, prefill_readback_wait,
@@ -326,14 +386,13 @@ class ServingEngine:
         put([cache.length], [gcache.length])
         return rows, slots
 
-    def _sample(self, logits: torch.Tensor, temps: np.ndarray) -> torch.Tensor:
-        """Per row: greedy where temps <= 0, else a draw at max(temp, 1e-4). temps is
-        the host array, so a batch without a sampling row draws nothing (and leaves
-        the generator's stream where it was)."""
+    def _sample(self, logits: torch.Tensor, t: Optional[torch.Tensor]) -> torch.Tensor:
+        """Per row: greedy where t <= 0, else a draw at max(t, 1e-4) from the engine's
+        generator. t is None when no row samples (the caller decides from its host
+        array): nothing is drawn then, and the generator's stream stays where it was."""
         tok = torch.argmax(logits, dim=-1)
-        if not (temps > 0.0).any():
+        if t is None:
             return tok
-        t = self._tensor(temps, torch.float32)
         greedy_row = t <= 0.0
         # a greedy row's draw is thrown away: give it flat logits, so that whatever it
         # holds (a padding row's garbage) can never fail the draw's checks on the device
@@ -373,7 +432,7 @@ class ServingEngine:
             write_index=write_index(host_write, T, self.device),
         )
         gcache.length.copy_(self._tensor(keep_lens + chunk_lens, torch.int32))
-        tok = self._sample(logits, temps)
+        tok = self._sample(logits, self._tensor(temps, torch.float32) if (temps > 0.0).any() else None)
         written = self._scatter_rows(cache, gcache, slot_idx)
         if written is not None:
             rows, slots = written
@@ -411,19 +470,17 @@ class ServingEngine:
         ) + self.decode_chunk + 2
         return next((a for a in self.decode_attend_buckets if need <= a), None)
 
-    def _decode_loop(self, cache: KVCache, cur, pos, active: np.ndarray, temps: np.ndarray, n_steps: int,
-                     attend_len: Optional[int]):
-        """n_steps decode steps over `cache` (written in place), `cur` and `pos`
-        (both (B,) int64, advanced in place). Rows where `active` is false step too
-        (they write garbage at their own `length` slot, or nowhere when it equals T)
-        but emit the pad id and keep their `length` and `pos`. Nothing here waits for
-        the device. Returns the (B, n_steps) tokens on the device."""
-        B = cur.shape[0]
-        act = self._tensor(active, torch.bool)
-        inc = act.to(torch.int32)
-        inc_pos = act.to(pos.dtype)
+    def _decode_loop(self, cache: KVCache, cur, pos, io: "_ChunkIO", attend_len: Optional[int]):
+        """The step function of a decode chunk: io.tokens.shape[1] decode steps over
+        `cache` (written in place), `cur` and `pos` (both (B,) int64, advanced in place),
+        the tokens written to io.tokens. Rows where io.act is false step too (they write
+        garbage at their own `length` slot, or nowhere when it equals T) but emit the pad
+        id and keep their `length` and `pos`. It reads no host value and waits for
+        nothing: a chunk's graph captures it."""
+        B, n_steps = io.tokens.shape
+        inc = io.act.to(torch.int32)
+        inc_pos = io.act.to(pos.dtype)
         pad = torch.full_like(cur, self.cfg.tokens.pad)
-        tokens = torch.empty((B, n_steps), dtype=torch.int64, device=self.device)
         for step in range(n_steps):
             pos3 = pos[None, :, None].expand(3, B, 1)
             logits, _ = vlm_forward(
@@ -432,45 +489,95 @@ class ServingEngine:
                 update_cache_len=False, attend_len=attend_len,
             )
             cache.length.add_(inc)
-            tok = torch.where(act, self._sample(logits[:, 0], temps), pad)
-            tokens[:, step] = tok
+            tok = torch.where(io.act, self._sample(logits[:, 0], io.temps if io.sampling else None), pad)
+            io.tokens[:, step] = tok
             cur.copy_(tok)
             pos.add_(inc_pos)
-        return tokens
+
+    def _chunk_io(self, rows: int, n_steps: int, active: np.ndarray, temps: np.ndarray) -> "_ChunkIO":
+        """The static inputs and outputs of a chunk of `rows` rows (one set per shape,
+        shared by its graphs, which replay one at a time), with this chunk's host arrays
+        copied in: outside any graph, so a replay reads this chunk's values."""
+        io = self._chunk_bufs.get((rows, n_steps))
+        if io is None:
+            io = self._chunk_bufs[(rows, n_steps)] = _ChunkIO(
+                act=torch.zeros((rows,), dtype=torch.bool, device=self.device),
+                temps=torch.zeros((rows,), dtype=torch.float32, device=self.device),
+                tokens=torch.zeros((rows, n_steps), dtype=torch.int64, device=self.device),
+            )
+        io.act.copy_(torch.from_numpy(np.ascontiguousarray(active, dtype=bool)))
+        io.sampling = bool((temps > 0.0).any())
+        if io.sampling:
+            io.temps.copy_(torch.from_numpy(np.ascontiguousarray(temps, dtype=np.float32)))
+        return io
+
+    def _run_chunk(self, key, cache: KVCache, cur, pos, io: "_ChunkIO", attend_len: Optional[int]) -> torch.Tensor:
+        """One decode chunk through the graph cached under key + (attend_len, whether a
+        row samples): the counterpart of the reference's decode program cached per key.
+        Returns a copy of the (rows, n_steps) tokens on the device."""
+        self.graphs.run(key + (attend_len, io.sampling),
+                         lambda: self._decode_loop(cache, cur, pos, io, attend_len),
+                         (self._rng,) if io.sampling else ())
+        return io.tokens.clone()
 
     def _decode_steps(self, active, temps, *, n_steps, attend_len=None):
         """One full-width decode chunk, in place on the pool: all max_slots rows step,
         inactive ones inertly (see _decode_loop). Returns tokens (max_slots, n_steps)
         on the device."""
-        return self._decode_loop(self.cache, self.cur_tokens, self.next_pos, active, temps, n_steps, attend_len)
+        io = self._chunk_io(self.max_slots, n_steps, active, temps)
+        return self._run_chunk(("full", n_steps), self.cache, self.cur_tokens, self.next_pos, io, attend_len)
+
+    def _staging_for(self, R: int) -> "_Staging":
+        """The persistent staging rows of the compact chunk at row bucket R: a cache of
+        R rows in the pool's layout and the rows' current tokens and positions. They
+        live as long as the engine, so a compact chunk's graph replays on them."""
+        stage = self._staging.get(R)
+        if stage is None:
+            stage = self._staging[R] = _Staging(
+                cache=KVCache.create(self.cfg.text, R, self.max_seq_len, self.cache_dtype, self.device),
+                cur=torch.zeros((R,), dtype=torch.int64, device=self.device),
+                pos=torch.zeros((R,), dtype=torch.int64, device=self.device),
+            )
+        return stage
+
+    def staging_bytes(self) -> int:
+        """Bytes of the compact chunks' staging caches allocated so far."""
+        return sum(sum(t.numel() * t.element_size() for t in _cache_tensors(s.cache)) for s in self._staging.values())
 
     def _decode_steps_compact(self, slot_idx, active, temps, *, n_steps, attend_len=None):
-        """Row-compacted decode chunk: gather the R rows' cache ONCE, run n_steps at
-        batch R, write back (the slot_idx pattern of _pool_prefill). Decode attention
-        reads scale with LIVE rows, not max_slots; the gather and the write-back are
-        two passes over R rows of the pool per chunk, amortized over n_steps.
+        """Row-compacted decode chunk: gather the R rows' cache ONCE into the staging
+        rows of bucket R, run n_steps at batch R, write back (the slot_idx pattern of
+        _pool_prefill). Decode attention reads scale with LIVE rows, not max_slots; the
+        gather and the write-back are two passes over R rows of the pool per chunk,
+        amortized over n_steps, both outside the chunk's graph.
 
         slot_idx: (R,) pool rows; padding rows carry max_slots (gathered from a
         clamped row, active false, never written back). active/temps are (R,) host
         arrays. Returns tokens (R, n_steps) on the device."""
+        R = len(slot_idx)
+        stage = self._staging_for(R)
         cidx = self._tensor(np.clip(slot_idx, 0, self.max_slots - 1), torch.int64)
-        gcache = self._gather_rows(self.cache, cidx, self.cache.length[cidx])
-        cur, pos = self.cur_tokens[cidx], self.next_pos[cidx]
-        tokens = self._decode_loop(gcache, cur, pos, active, temps, n_steps, attend_len)
-        written = self._scatter_rows(self.cache, gcache, slot_idx)
+        for src, dst in zip(_cache_tensors(self.cache) + [self.cur_tokens, self.next_pos],
+                            _cache_tensors(stage.cache) + [stage.cur, stage.pos]):
+            torch.index_select(src, 0, cidx, out=dst)
+        io = self._chunk_io(R, n_steps, active, temps)
+        tokens = self._run_chunk(("compact", R, n_steps), stage.cache, stage.cur, stage.pos, io, attend_len)
+        written = self._scatter_rows(self.cache, stage.cache, slot_idx)
         if written is not None:
             rows, slots = written
-            self.cur_tokens.index_copy_(0, slots, cur.index_select(0, rows))
-            self.next_pos.index_copy_(0, slots, pos.index_select(0, rows))
+            self.cur_tokens.index_copy_(0, slots, stage.cur.index_select(0, rows))
+            self.next_pos.index_copy_(0, slots, stage.pos.index_select(0, rows))
         return tokens
 
     def precompile(self, *, progress: Optional[Callable[[str], None]] = None):
         """Warm every device routine the engine can hit: on CUDA load (and, the first
         time, build) the kernel library, then run one inert pool prefill per row
-        bucket and one inert decode chunk per row bucket and at full width. Inert
-        inputs (slot_idx past the pool, chunk_lens 0, no active row) leave the pool,
-        `cur_tokens`, `next_pos` and `length` bit for bit unchanged; serving then
-        restarts from `reset_state()`. There is nothing to compile per shape."""
+        bucket and two inert decode chunks per row bucket and at full width, at
+        attend_len None and greedy: the first runs eagerly, the second captures the
+        chunk's graph and replays it. Inert inputs (slot_idx past the pool, chunk_lens
+        0, no active row) change no row's valid window; the pool, `cur_tokens` and
+        `next_pos` are then zeroed in place (not reallocated, which would drop the
+        graphs), so serving starts from a clean state."""
         cfg = self.cfg
         with self._device_scope():
             if self.device.type == "cuda":
@@ -492,25 +599,34 @@ class ServingEngine:
                 )
             if progress:
                 progress("decode")
-            self._decode_steps(np.zeros((self.max_slots,), bool), np.zeros((self.max_slots,), np.float32),
-                               n_steps=self.decode_chunk)
+            for _ in range(2):
+                self._decode_steps(np.zeros((self.max_slots,), bool), np.zeros((self.max_slots,), np.float32),
+                                   n_steps=self.decode_chunk)
             for R in self.decode_row_buckets:
                 if progress:
                     progress(f"decode_compact[{R}]")
-                self._decode_steps_compact(
-                    np.full((R,), self.max_slots, np.int32), np.zeros((R,), bool),
-                    np.zeros((R,), np.float32), n_steps=self.decode_chunk,
-                )
+                for _ in range(2):
+                    self._decode_steps_compact(
+                        np.full((R,), self.max_slots, np.int32), np.zeros((R,), bool),
+                        np.zeros((R,), np.float32), n_steps=self.decode_chunk,
+                    )
             self._ensure_ppool()
-        self.reset_state()
+            for t in _cache_tensors(self.cache) + [self.cur_tokens, self.next_pos]:
+                t.zero_()
+        self._clear_slots()
 
     def reset_state(self):
-        """Reallocate the slot pool's device state (drops all in-flight work)."""
+        """Reallocate the slot pool's device state (drops all in-flight work, and the
+        captured chunks, which read the old pool)."""
+        self.graphs.drop()
         with self._device_scope():
             self.cache = KVCache.create(self.cfg.text, self.max_slots, self.max_seq_len, self.cache_dtype,
                                         self.device)
             self.cur_tokens = torch.zeros((self.max_slots,), dtype=torch.int64, device=self.device)
             self.next_pos = torch.zeros((self.max_slots,), dtype=torch.int64, device=self.device)  # M-RoPE position
+        self._clear_slots()
+
+    def _clear_slots(self):
         self.active = np.zeros((self.max_slots,), bool)
         self.slots: List[_Slot] = [_Slot() for _ in range(self.max_slots)]
         self.held.clear()

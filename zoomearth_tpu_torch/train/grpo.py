@@ -501,7 +501,7 @@ class GRPOTrainer:
         eng.params = self.params  # weight push == pointer handoff
         # seed the engine's sampler: reproducible given the same seed AND the same
         # scheduling (admission batching changes the order of the draws)
-        eng._rng = torch.Generator(device=eng.device).manual_seed(seed)
+        eng.reseed(seed)
         was_running = eng._running
         if not was_running:
             eng.start()
