@@ -143,7 +143,32 @@ identical (`eager_and_captured`; the engine's chunks through whole engine runs i
    full segments) and K2-bwd at the policy pass (B = 4, S = T = 1024), and [parity]
    holds one tiny fp32 GRPO policy step's loss, metrics and every gradient leaf on the
    card against the CPU.
-10. decode-variants — the decode-attention entry points beside the serving path, at
+10. parallel — the training paths over a (data, fsdp) mesh (parallel/), each group of
+   ranks a set of subprocesses under a wall limit (parallel/launch.py: the whole group
+   is killed when one rank fails, and the smoke fails), the parent holding almost
+   nothing meanwhile. (a) One rank over nccl, mesh (1, 1, 1), Qwen2.5-VL-3B at full
+   width and depth, [training]'s samples and settings: train_sft(mesh=) for 4
+   micro-steps (2 updates: the schedule's first rate is 0) against the unsharded
+   train_sft in the same process; losses, grad norms and every leaf within one bf16
+   step (2^-7) of each leaf's largest value, how many bit for bit printed; K1 and K2
+   forward and backward once per block and layer per micro-step, all "mma"; then one
+   GRPOTrainer(mesh=) LoRA cut step ([grpo]'s settings). (b) Two ranks sharing cuda:0
+   over gloo (asked for: NCCL takes no two ranks of one device; compute stays on the
+   card and gloo carries each collective through host copies), the 3B widths at 27
+   decoder layers and 24 ViT blocks (full attention at 7, 15 and 23; the phase's one
+   reduction, so that two ranks fit in 80 GB): 4 SFT micro-steps (2 updates) over
+   (1, 2, 1), whose losses, grad norms and gathered leaves must equal rank 0's
+   single-process unsharded run at that depth within one bf16 step and whose
+   replicated leaves and histories must be equal in bits on both ranks; one LoRA GRPO
+   cut step over (1, 2, 1) (G = 2: both ranks train on every row), its replicated
+   leaves equal in bits on both ranks; then
+   over (2, 1, 1) one LoRA GRPO cut step (G = 4, rows 2 / 2), every leaf equal in bits
+   on both ranks, and the engine tick and pair wave of the dryrun
+   over the gathered weights, their greedy tokens equal on both ranks. Printed: seconds
+   per micro-step and per step beside [training]'s and [grpo]'s, each rank's peak, the
+   bytes each rank handed to collectives (parallel/collectives.traffic) and the
+   launches of K1, K2 and K3 per rank.
+11. decode-variants — the decode-attention entry points beside the serving path, at
    the reference's shapes. First the checks: K4 (paged decode) against its plain
    version and K3 at (B=32|64, T=4096, 30 % live, pages 64|256); P1 (stream probe)
    and P2 (big-product decode) against their plain versions at B=32, T=1536; then,
@@ -158,9 +183,9 @@ identical (`eager_and_captured`; the engine's chunks through whole engine runs i
    its row blocks walk, on device time) and a paged decode loop whose full row must
    be left unchanged; K4, P1 and P2 must each have launched. A count is of kernel runs
    through the wrapper: a call captured by runtime.graphs (the decode steps of phases
-   5-7, 9 and 11) counts at every replay of its graph; a call captured into the timing
+   5-7, 9, 10 and 12) counts at every replay of its graph; a call captured into the timing
    harness's own CUDA graph is not counted, nor are that graph's replays.
-11. internvl — the second model family. First the tiny InternVL config in fp32 on the
+12. internvl — the second model family. First the tiny InternVL config in fp32 on the
    card against the CPU plain path (which the CPU tests hold against the JAX package):
    InternViT's embeddings, the embeds-path prefill logits and the greedy tokens. Then
    InternVLVLMConfig() at full width (an InternViT-300M tower: 24 blocks, width 1024,
@@ -187,7 +212,8 @@ share of it reached; the untimed checks; launches from the path that runs it: ke
 runs through the wrapper, a captured step's counted at each replay; each K3, K4 or P2 call runs two kernels, its split pass and the
 split merge; a P1 call is one memset and one kernel; a backward call runs its dq
 kernel, then its dk/dv kernel, and its launches are the training phase's; the
-`launches_grpo` of K1, K2, K3 and the backward kernels are the GRPO phase's, the
+`launches_grpo` of K1, K2, K3 and the backward kernels are the GRPO phase's, their
+`launches_parallel` the parallel phase's ranks' together, the
 `launches_internvl` of K2 and K3 the InternVL phase's); the last is the device contract
 line.
 """
@@ -988,6 +1014,7 @@ def check_tiny_grad_parity():
         raise AssertionError("tiny-config gradient parity on the card failed")
 
 
+EARLIER = {}  # [training]'s and [grpo]'s seconds and peaks, printed beside [parallel]'s
 TRAIN_MICRO, TRAIN_ACCUM, TRAIN_RESUME_AT = 4, 2, 2  # micro-steps, micro-steps per update, the resume's checkpoint
 TRAIN_MAX_PIXELS = 448 * 448  # each image at most 1024 patches (256 tokens): a sample fits the 2048 token bucket
 
@@ -1150,6 +1177,7 @@ def run_training(card):
     log(f"  {n_leaves} parameter leaves; first micro-step: {first['finite'][0]} of {first['finite'][1]} gradients "
         f"finite; smallest summed |gradient| of any block's or layer's {first['nonzero']}")
     secs = sum(r["step_s"] for r in hist)
+    EARLIER["training"] = {"s_per_micro_step": secs / micro, "peak_gib": peak / 2**30}
     log(f"  uninterrupted run: {micro} micro-steps ({micro // TRAIN_ACCUM} updates) in {wall:.2f} s of train_sft "
         f"wall; {secs / micro:.3f} s per micro-step, {sum(r['input_tokens'] for r in hist) / secs:.0f} tokens/s, "
         f"{sum(r['patches'] for r in hist) / secs:.0f} patches/s; peak memory allocated {peak / 2**30:.2f} GiB "
@@ -1352,6 +1380,7 @@ def run_grpo(card):
         variants = {n: dict(counters[n].variants) for n in with_variants}
         peak = torch.cuda.max_memory_allocated()
         rb = trainer._buffered
+        EARLIER[label] = {"s": wall, "peak_gib": peak / 2**30}
         for n in total:
             total[n] += launches[n]
         log(f"  {label}: {wall:.3f} s; by stage (synchronized) "
@@ -1440,6 +1469,383 @@ def run_grpo(card):
     del trainer, engine, params, adapted, bases
     torch.cuda.empty_cache()
     return {n: {"launches_grpo": total[n]} for n in counters}
+
+
+# [parallel] part (b)'s depth, decoder layers and ViT blocks (full attention at 7, 15, 23): at 18 / 16 the two ranks
+# peaked at 20.1 and 16.2 GiB (SFT) and 22.3 GiB each (GRPO) on the H100; 27 / 24 scales that to ~31 GiB a rank, the
+# deepest cut that leaves the allocator's slack and three CUDA contexts room in 80 GB
+PAR_LAYERS, PAR_BLOCKS = 27, 24
+PAR_MICRO = 4  # SFT micro-steps of (a) and (b): 2 updates, since the schedule's first rate is 0 and moves no leaf
+# (b)'s GRPO step over (1, 2, 1): both ranks take every row, and with G = 4 both ran out of the card's memory at
+# 37.6-39.5 GiB allocated each (27 / 24); G = 2 gives each rank the rows a (2, 1, 1) rank takes
+PAR_FSDP_GENERATIONS = 2
+PAR_TIMEOUT_A, PAR_TIMEOUT_B = 420, 480  # wall limits of the two groups of ranks, seconds
+GRPO_LORA_LABEL = "LoRA r 8 alpha 16, cut step"
+
+
+def cut_depth(cfg, layers, blocks):
+    """cfg with `layers` decoder layers and `blocks` ViT blocks (the full-attention
+    blocks below `blocks` kept); every width stays."""
+    import dataclasses
+
+    vision = dataclasses.replace(cfg.vision, depth=blocks,
+                                 fullatt_block_indexes=tuple(i for i in cfg.vision.fullatt_block_indexes if i < blocks))
+    return dataclasses.replace(cfg, vision=vision, text=dataclasses.replace(cfg.text, num_hidden_layers=layers))
+
+
+def parallel_counters():
+    from zoomearth_tpu_torch.ops import flash_attention as K1
+    from zoomearth_tpu_torch.ops import flash_causal as K2
+    from zoomearth_tpu_torch.ops import flash_decode as K3
+
+    return {"flash_segment_attention": K1.segment_attention_cuda,
+            "flash_segment_attention_bwd": K1.segment_attention_bwd_cuda,
+            "flash_causal_attention": K2.causal_attention_cuda,
+            "flash_causal_attention_bwd": K2.causal_attention_bwd_cuda,
+            "flash_decode_attention": K3.decode_attention_cuda}
+
+
+def zero_counts():
+    """Every [parallel] counter at 0: launches, variants, collective bytes, the peak."""
+    import torch
+
+    from zoomearth_tpu_torch.parallel import collectives
+
+    for c in parallel_counters().values():
+        c.launches = 0
+        if hasattr(c, "variants"):
+            c.variants = dict.fromkeys(c.variants, 0)
+    collectives.traffic.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def read_counts():
+    """(launches by kernel, variants by kernel, collective bytes by kind, peak GiB)."""
+    import torch
+
+    from zoomearth_tpu_torch.parallel import collectives
+
+    torch.cuda.synchronize()
+    cs = parallel_counters()
+    return ({n: c.launches for n, c in cs.items()},
+            {n: dict(c.variants) for n, c in cs.items() if hasattr(c, "variants")},
+            dict(collectives.traffic), torch.cuda.max_memory_allocated() / 2**30)
+
+
+def fingerprints(leaves):
+    """One int per leaf from its bits (a position-weighted sum of its raw words, on the
+    device, in chunks): equal leaves give equal numbers."""
+    import torch
+
+    out = []
+    for t in leaves:
+        words = t.detach().reshape(-1).view({2: torch.int16, 4: torch.int32}[t.element_size()])
+        total = 0
+        for i in range(0, words.numel(), 1 << 24):
+            w = words[i:i + (1 << 24)].to(torch.int64)
+            total += int((w * (torch.arange(i, i + w.numel(), device=w.device) % 65521 + 1)).sum())
+        out.append(total)
+    return out
+
+
+def parallel_setup(rank, world, addr, backend):
+    """A [parallel] rank: joins the group on cuda:0 and loads the kernels built by the
+    parent (the same sources, so the same library)."""
+    sys.path.insert(0, REPO)
+    from zoomearth_tpu_torch.ops import _cuda
+    from zoomearth_tpu_torch.parallel.multihost import initialize
+
+    initialize(addr, world, rank, backend=backend, device="cuda:0")
+    _cuda.build()
+    _cuda.lib()
+
+
+def parallel_nccl(rank, world, addr, out):
+    """[parallel] part (a), one rank over nccl, mesh (1, 1, 1), the 3B model at full
+    depth: train_sft(mesh=) for PAR_MICRO micro-steps against the unsharded train_sft
+    on the same samples, then one GRPOTrainer(mesh=) LoRA step."""
+    import gc
+
+    import torch
+
+    parallel_setup(rank, world, addr, "nccl")
+    from zoomearth_tpu_torch.models.params import tree_leaves
+    from zoomearth_tpu_torch.parallel.mesh import make_mesh
+    from zoomearth_tpu_torch.train import grpo as TG
+    from zoomearth_tpu_torch.train import sft as TS
+    from zoomearth_tpu_torch.train import sft_loop as TL
+
+    mesh = make_mesh()
+    res = {"mesh": mesh.shape, "backend": "nccl", "devices": [str(torch.cuda.current_device())]}
+    cfg, processor, samples, loader, new_params = training_setup()
+    sft_cfg = TS.SFTConfig(learning_rate=1e-4, warmup_steps=1, total_steps=8, weight_decay=0.01,
+                           gradient_accumulation_steps=TRAIN_ACCUM)
+    loop = TL.SFTLoopConfig(output_dir=os.path.join(os.path.dirname(out), "a_sft"), num_train_epochs=1,
+                            batch_size=1, save_steps=PAR_MICRO + 1, log_steps=1, seed=42)
+    ref, ref_hist = TL.train_sft(new_params(), cfg, sft_cfg, loop, samples, processor, device="cuda:0",
+                                 image_loader=loader, max_steps=PAR_MICRO)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    params, hist = TL.train_sft(new_params(), cfg, sft_cfg, loop, samples, processor, mesh=mesh, device="cuda:0",
+                                image_loader=loader, max_steps=PAR_MICRO)
+    launches, variants, traffic, peak = read_counts()
+    same, worst = 0, 0.0
+    for a, b in zip(tree_leaves(params), tree_leaves(ref)):
+        same += int(torch.equal(a, b))
+        worst = max(worst, ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30)).item())
+    res["sft"] = {"losses": [r["loss"] for r in hist], "ref_losses": [r["loss"] for r in ref_hist],
+                  "grad_norms": [r["grad_norm"] for r in hist], "ref_grad_norms": [r["grad_norm"] for r in ref_hist],
+                  "step_s": [r["step_s"] for r in hist], "ref_step_s": [r["step_s"] for r in ref_hist],
+                  "leaves": len(tree_leaves(ref)), "leaves_bit_equal": same, "worst_leaf_rel": worst,
+                  "launches": launches, "variants": variants, "traffic": traffic, "peak_gib": peak,
+                  "depth": [cfg.text.num_hidden_layers, cfg.vision.depth]}
+    del params, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, processor, tiles, prompt_fn, rewards, names, cut, uncut, new_params = grpo_setup()
+    lora = TG.GRPOConfig(num_generations=4, max_completion_length=GRPO_NEW_1, stage2_max_completion_length=GRPO_NEW_2,
+                         rollout_temperature=0.7, learning_rate=1e-7, beta=0.04, epsilon_low=0.2, epsilon_high=0.2,
+                         reuse_cache=True, use_lora=True, lora_r=8, lora_alpha=16.0)
+    trainer = TG.GRPOTrainer(new_params(), cfg, lora, processor, rewards, reward_names=names,
+                             image_loader=lambda s: tiles[s.image_name], prompt_fn=prompt_fn, device="cuda",
+                             time_stages=True, mesh=mesh)
+    zero_counts()
+    t0 = time.perf_counter()
+    m = trainer.step([cut], seed=3)
+    wall = time.perf_counter() - t0
+    launches, variants, traffic, peak = read_counts()
+    res["grpo"] = {"metrics": m, "s": wall, "stages": dict(trainer.stage_seconds), "launches": launches,
+                   "variants": variants, "traffic": traffic, "peak_gib": peak,
+                   "rows": int(trainer._buffered.input_ids.shape[0])}
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def parallel_gloo(rank, world, addr, out_dir, layers, blocks):
+    """[parallel] part (b), two ranks on cuda:0 over gloo, the 3B widths at `layers`
+    decoder layers and `blocks` ViT blocks: PAR_MICRO SFT micro-steps over mesh (1, 2, 1)
+    (rank 0 first runs the single-process unsharded reference, whose losses, grad norms
+    and updated leaves the mesh's are held to), one LoRA GRPO step over (1, 2, 1) (G =
+    PAR_FSDP_GENERATIONS; the fsdp rank's peak), then over mesh (2, 1, 1) one LoRA GRPO
+    step (G = 4: rows 2 / 2), the engine tick and the pair wave over the gathered
+    weights."""
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    parallel_setup(rank, world, addr, "gloo")
+    from zoomearth_tpu_torch.models.params import init_vlm_params, tree_leaves
+    from zoomearth_tpu_torch.parallel.collectives import gather_objects
+    from zoomearth_tpu_torch.parallel.dryrun import serve_surfaces
+    from zoomearth_tpu_torch.parallel.mesh import is_sharded, make_mesh, param_shardings, spec_leaves
+    from zoomearth_tpu_torch.parallel.multihost import gather_params
+    from zoomearth_tpu_torch.train import grpo as TG
+    from zoomearth_tpu_torch.train import sft as TS
+    from zoomearth_tpu_torch.train import sft_loop as TL
+
+    res = {"rank": rank, "backend": "gloo", "device": f"cuda:{torch.cuda.current_device()}"}
+    cfg, processor, samples, loader, _ = training_setup()
+    cfg = cut_depth(cfg, layers, blocks)
+
+    def new_params(c):
+        return init_vlm_params(c, torch.Generator(device="cuda").manual_seed(0), device="cuda", dtype=torch.bfloat16)
+
+    sft_cfg = TS.SFTConfig(learning_rate=1e-4, warmup_steps=1, total_steps=8, weight_decay=0.01,
+                           gradient_accumulation_steps=TRAIN_ACCUM)
+    loop = TL.SFTLoopConfig(output_dir=os.path.join(out_dir, "b_sft"), num_train_epochs=1, batch_size=1,
+                            save_steps=100, log_steps=1, seed=42)
+    ref_leaves = None
+    if rank == 0:
+        ref, ref_hist = TL.train_sft(new_params(cfg), cfg, sft_cfg, loop, samples, processor, device="cuda:0",
+                                     image_loader=loader, max_steps=PAR_MICRO)
+        res["sft_ref_losses"] = [r["loss"] for r in ref_hist]
+        res["sft_ref_grad_norms"] = [r["grad_norm"] for r in ref_hist]
+        ref_leaves = [t.detach().cpu() for t in tree_leaves(ref)]  # held on the host: the mesh run's peak is its own
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = make_mesh(1, 2, 1)
+    zero_counts()
+    shards, hist = TL.train_sft(new_params(cfg), cfg, sft_cfg, loop, samples, processor, mesh=mesh, device="cuda:0",
+                                image_loader=loader, max_steps=PAR_MICRO)
+    launches, variants, traffic, peak = read_counts()
+    with torch.device("meta"):
+        spec_tree = param_shardings(init_vlm_params(cfg, generator=torch.Generator(), device="meta"), mesh)
+    specs = spec_leaves(shards, spec_tree)
+    whole = [t for t, s in zip(tree_leaves(shards), specs) if not is_sharded(s, mesh)]
+    prints = gather_objects(fingerprints(whole), mesh.world_group())
+    res["sft"] = {"losses": [r["loss"] for r in hist], "grad_norms": [r["grad_norm"] for r in hist],
+                  "step_s": [r["step_s"] for r in hist], "launches": launches, "variants": variants,
+                  "traffic": traffic, "peak_gib": peak, "replicated_leaves": len(whole),
+                  "split_leaves": len(specs) - len(whole), "replicas_equal": prints[0] == prints[1],
+                  "history_equal": gather_objects(hist, mesh.world_group())[0] == hist}
+    # the gathered leaves after the second update against the unsharded run's, as (a) holds them
+    full = gather_params(shards, spec_tree, mesh, root=0)
+    if rank == 0:
+        same, worst = 0, 0.0
+        for a, b in zip(tree_leaves(full), ref_leaves):
+            b = b.to(a.device)
+            same += int(torch.equal(a, b))
+            worst = max(worst, ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30)).item())
+        res["sft"].update(leaves=len(ref_leaves), leaves_bit_equal=same, worst_leaf_rel=worst)
+    del shards, full, ref_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, processor, tiles, prompt_fn, rewards, names, cut, uncut, _ = grpo_setup()
+    cfg = cut_depth(cfg, layers, blocks)
+    lora = TG.GRPOConfig(num_generations=4, max_completion_length=GRPO_NEW_1, stage2_max_completion_length=GRPO_NEW_2,
+                         rollout_temperature=0.7, learning_rate=1e-7, beta=0.04, epsilon_low=0.2, epsilon_high=0.2,
+                         reuse_cache=True, use_lora=True, lora_r=8, lora_alpha=16.0)
+
+    def grpo_step(mesh, generations):
+        """One LoRA GRPO step over `mesh` with `generations` rows: its metrics, seconds,
+        launches, peak and whether the leaves both ranks hold are equal in bits."""
+        trainer = TG.GRPOTrainer(new_params(cfg), cfg, dataclasses.replace(lora, num_generations=generations),
+                                 processor, rewards, reward_names=names,
+                                 image_loader=lambda s: tiles[s.image_name], prompt_fn=prompt_fn, device="cuda",
+                                 time_stages=True, mesh=mesh)
+        zero_counts()
+        t0 = time.perf_counter()
+        m = trainer.step([cut], seed=3)
+        wall = time.perf_counter() - t0
+        launches, variants, traffic, peak = read_counts()
+        held = [t for t, s in zip(tree_leaves(trainer.params), spec_leaves(trainer.params, trainer.specs))
+                if not is_sharded(s, mesh)]
+        prints = gather_objects(fingerprints(held), mesh.world_group())
+        return trainer, {"mesh": mesh.shape, "metrics": m, "s": wall, "stages": dict(trainer.stage_seconds),
+                         "launches": launches, "variants": variants, "traffic": traffic, "peak_gib": peak,
+                         "rows": int(trainer._buffered.input_ids.shape[0]), "leaves_equal": prints[0] == prints[1]}
+
+    # G = 2 over fsdp: each rank of (1, 2, 1) trains on every row, and two ranks of 4 rows do not fit in 80 GB
+    trainer, res["grpo_fsdp"] = grpo_step(make_mesh(1, 2, 1), PAR_FSDP_GENERATIONS)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(2, 1, 1)
+    trainer, res["grpo"] = grpo_step(mesh, 4)
+    zero_counts()
+    engine_tokens, stats, lengths, wave = serve_surfaces(trainer.full_params(), cfg, cache_dtype=cfg.dtype)
+    launches, _, _, peak = read_counts()
+    tokens = gather_objects((engine_tokens, wave), mesh.world_group())
+    res["serve"] = {"engine_tokens": engine_tokens, "stats": stats, "wave_lengths": lengths,
+                    "tokens_equal": tokens[0] == tokens[1], "launches": launches, "peak_gib": peak}
+    with open(os.path.join(out_dir, f"b_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def run_parallel(card):
+    """[parallel] (the module docstring, phase 10): the two groups of ranks, their
+    lines and checks. Returns {kernel name: {"launches_parallel": n}}."""
+    from zoomearth_tpu_torch.parallel.launch import run_ranks
+
+    tol = 2.0 ** -7
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        log(f"  (a) nccl, one rank on cuda:0, mesh (1, 1, 1), Qwen2.5-VL-3B at full depth: train_sft(mesh=) for "
+            f"{PAR_MICRO} micro-steps against the unsharded train_sft, then one GRPOTrainer(mesh=) LoRA step")
+        t0 = time.time()
+        run_ranks(f"{os.path.join(REPO, 'chip_smoke.py')}:parallel_nccl", 1, {"out": os.path.join(tmp, "a.json")},
+                  timeout_s=PAR_TIMEOUT_A, cwd=REPO)
+        a = json.load(open(os.path.join(tmp, "a.json")))
+        log(f"  (a) took {time.time() - t0:.1f} s of command (the rank's start, two 3B trees, 2 x {PAR_MICRO} "
+            f"micro-steps, the GRPO step)")
+        sa, ga = a["sft"], a["grpo"]
+        bit = sa["losses"] == sa["ref_losses"] and sa["grad_norms"] == sa["ref_grad_norms"]
+        log(f"  (a) SFT on the mesh: losses {sa['losses']}, grad norms {sa['grad_norms']}; unsharded: "
+            f"{sa['ref_losses']}, {sa['ref_grad_norms']} ({'bit for bit' if bit else 'NOT bit for bit'}); after "
+            f"{PAR_MICRO // TRAIN_ACCUM} updates {sa['leaves_bit_equal']} of {sa['leaves']} leaves bit for bit, "
+            f"worst leaf max |diff| / max |value| {sa['worst_leaf_rel']:.3e} (tol 2^-7)")
+        tr = EARLIER.get("training", {})
+        log(f"  (a) SFT seconds per micro-step on the mesh {sum(sa['step_s']) / PAR_MICRO:.3f}, unsharded in the same "
+            f"rank {sum(sa['ref_step_s']) / PAR_MICRO:.3f} (run first: it pays the warm-up), [training] {tr.get('s_per_micro_step', float('nan')):.3f}; "
+            f"peak {sa['peak_gib']:.2f} GiB ([training] {tr.get('peak_gib', float('nan')):.2f}); collective bytes "
+            f"{sa['traffic']} | {card}")
+        log(f"  (a) SFT launches {sa['launches']}; by variant {sa['variants']}")
+        gr = EARLIER.get(GRPO_LORA_LABEL, {})
+        log(f"  (a) GRPO LoRA cut step on the mesh {ga['s']:.3f} s ([grpo]'s {gr.get('s', float('nan')):.3f}), by "
+            f"stage { {k: round(v, 3) for k, v in ga['stages'].items()} }, {ga['rows']} rows, peak "
+            f"{ga['peak_gib']:.2f} GiB ([grpo]'s {gr.get('peak_gib', float('nan')):.2f}); metrics {ga['metrics']} | "
+            f"{card}")
+        log(f"  (a) GRPO launches {ga['launches']}; by variant {ga['variants']}")
+        L, V = 36, 32
+        assert sa["depth"] == [L, V], sa["depth"]
+        assert sa["worst_leaf_rel"] <= tol, sa["worst_leaf_rel"]
+        assert all(abs(x - y) <= tol * abs(y) for x, y in zip(sa["losses"] + sa["grad_norms"],
+                                                              sa["ref_losses"] + sa["ref_grad_norms"])), sa
+        assert sa["launches"]["flash_segment_attention"] == sa["launches"]["flash_segment_attention_bwd"] == V * PAR_MICRO
+        assert sa["launches"]["flash_causal_attention"] == sa["launches"]["flash_causal_attention_bwd"] == L * PAR_MICRO
+        assert all(v["fma"] == 0 for v in sa["variants"].values()) and all(
+            v["fma"] == 0 for v in ga["variants"].values()), (sa["variants"], ga["variants"])
+        assert ga["launches"]["flash_causal_attention_bwd"] == L and ga["launches"]["flash_decode_attention"] > 0
+        assert all(isinstance(v, float) and v == v for v in ga["metrics"].values()), ga["metrics"]
+
+        log(f"  (b) gloo, two ranks sharing cuda:0 (host copies carry every collective: its times are not an NCCL "
+            f"figure), Qwen2.5-VL-3B widths at {PAR_LAYERS} decoder layers and {PAR_BLOCKS} ViT blocks (the phase's "
+            f"one reduction): {PAR_MICRO} SFT micro-steps over (1, 2, 1) against the unsharded run, one LoRA GRPO "
+            f"step over (1, 2, 1) (G = {PAR_FSDP_GENERATIONS}), then over (2, 1, 1) one LoRA GRPO step, the engine tick and the pair wave")
+        t1 = time.time()
+        run_ranks(f"{os.path.join(REPO, 'chip_smoke.py')}:parallel_gloo", 2,
+                  {"out_dir": tmp, "layers": PAR_LAYERS, "blocks": PAR_BLOCKS}, timeout_s=PAR_TIMEOUT_B, cwd=REPO)
+        b = [json.load(open(os.path.join(tmp, f"b_rank{r}.json"))) for r in range(2)]
+        log(f"  (b) took {time.time() - t1:.1f} s of command")
+        for r in b:
+            s, f, g, v = r["sft"], r["grpo_fsdp"], r["grpo"], r["serve"]
+            log(f"  (b) rank {r['rank']} ({r['backend']}, {r['device']}): SFT losses {s['losses']}, grad norms "
+                f"{s['grad_norms']}, {sum(s['step_s']) / PAR_MICRO:.3f} s a micro-step, peak {s['peak_gib']:.2f} GiB, "
+                f"collective bytes {s['traffic']}, {s['split_leaves']} leaves split and {s['replicated_leaves']} "
+                f"whole | {card}")
+            for name, x in (("GRPO step over (1, 2, 1)", f), ("GRPO step over (2, 1, 1)", g)):
+                log(f"  (b) rank {r['rank']} {name}: {x['s']:.3f} s (by stage "
+                    f"{ {k: round(y, 3) for k, y in x['stages'].items()} }), peak {x['peak_gib']:.2f} GiB, collective "
+                    f"bytes {x['traffic']} | {card}")
+            log(f"  (b) rank {r['rank']} engine and wave peak {v['peak_gib']:.2f} GiB | {card}")
+            log(f"  (b) rank {r['rank']} launches: SFT {s['launches']} (variants {s['variants']}); GRPO over (1, 2, 1) "
+                f"{f['launches']}; GRPO over (2, 1, 1) {g['launches']} (variants {g['variants']}); engine tick and "
+                f"pair wave {v['launches']}")
+        s0 = b[0]["sft"]
+        log(f"  (b) SFT against the single-process unsharded run at the same depth: losses {s0['losses']} vs "
+            f"{b[0]['sft_ref_losses']}, grad norms {s0['grad_norms']} vs {b[0]['sft_ref_grad_norms']}; after "
+            f"{PAR_MICRO // TRAIN_ACCUM} updates {s0['leaves_bit_equal']} of {s0['leaves']} gathered leaves bit for "
+            f"bit, worst leaf max |diff| / max |value| {s0['worst_leaf_rel']:.3e} (tol 2^-7)")
+        log(f"  (b) GRPO over (1, 2, 1): metrics {b[0]['grpo_fsdp']['metrics']}, rows {b[0]['grpo_fsdp']['rows']}, "
+            f"replicated leaves equal across ranks {b[0]['grpo_fsdp']['leaves_equal']}")
+        log(f"  (b) replicas equal in bits: {[r['sft']['replicas_equal'] for r in b]}, "
+            f"histories equal: {[r['sft']['history_equal'] for r in b]}; GRPO metrics {b[0]['grpo']['metrics']}, "
+            f"rows {b[0]['grpo']['rows']}, leaves equal across ranks {b[0]['grpo']['leaves_equal']}; engine tokens "
+            f"{b[0]['serve']['engine_tokens']}, stats {b[0]['serve']['stats']}, wave {b[0]['serve']['wave_lengths']}, "
+            f"equal across ranks {b[0]['serve']['tokens_equal']}")
+        for r in b:
+            s, f, g, v = r["sft"], r["grpo_fsdp"], r["grpo"], r["serve"]
+            assert s["replicas_equal"] and s["history_equal"] and f["leaves_equal"] and g["leaves_equal"] and \
+                v["tokens_equal"], r
+            assert s["launches"]["flash_segment_attention"] == s["launches"]["flash_segment_attention_bwd"] == \
+                PAR_BLOCKS * PAR_MICRO, s["launches"]
+            assert s["launches"]["flash_causal_attention"] == s["launches"]["flash_causal_attention_bwd"] == \
+                PAR_LAYERS * PAR_MICRO, s["launches"]
+            assert all(x["fma"] == 0 for x in list(s["variants"].values()) + list(f["variants"].values())
+                       + list(g["variants"].values()))
+            for x in (f, g):
+                assert x["launches"]["flash_causal_attention_bwd"] == PAR_LAYERS and \
+                    x["launches"]["flash_decode_attention"], x["launches"]
+            assert v["launches"]["flash_decode_attention"] > 0 and v["launches"]["flash_causal_attention"] > 0
+        for k in ("grpo_fsdp", "grpo"):
+            assert b[0][k]["metrics"] == b[1][k]["metrics"], k
+            assert all(isinstance(v, float) and v == v for v in b[0][k]["metrics"].values()), b[0][k]["metrics"]
+        assert b[0]["sft"]["losses"] == b[1]["sft"]["losses"]
+        assert s0["worst_leaf_rel"] <= tol, s0["worst_leaf_rel"]
+        assert all(abs(x - y) <= tol * abs(y) for x, y in zip(s0["losses"] + s0["grad_norms"],
+                                                              b[0]["sft_ref_losses"] + b[0]["sft_ref_grad_norms"])), s0
+    names = list(parallel_counters())
+    total = {n: a["sft"]["launches"][n] + a["grpo"]["launches"][n]
+             + sum(r[k]["launches"][n] for r in b for k in ("sft", "grpo_fsdp", "grpo", "serve"))
+             for n in names}
+    return {n: {"launches_parallel": total[n]} for n in names}
 
 
 def profile_training(card, parent=None):
@@ -3034,6 +3440,11 @@ def main(argv=()) -> int:
     log(f"[grpo] Qwen2.5-VL-3B bf16, GRPOTrainer with G = 4: two full fine-tune steps (cut, uncut), a LoRA step, a "
         f"LoRA step through a ServingEngine; budgets {GRPO_NEW_1} / {GRPO_NEW_2}")
     grpo = run_grpo(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[parallel] the training paths over a mesh: (a) nccl, one rank, Qwen2.5-VL-3B at full depth; (b) gloo, two "
+        f"ranks sharing cuda:0, {PAR_LAYERS} layers and {PAR_BLOCKS} ViT blocks at full width")
+    parallel = run_parallel(card)
     log("[decode-variants] K4 / P1 / P2 checked at the reference's shapes and at their edges, then the entry "
         "points' runs")
     checks = check_decode_variants()
@@ -3057,7 +3468,7 @@ def main(argv=()) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             **({"note": BWD_NOTE} if replaces is None else {}),
             "launches": launches[name], **pipelined.get(name, {}), **serving.get(name, {}), **training.get(name, {}),
-            **grpo.get(name, {}), **internvl.get(name, {}),
+            **grpo.get(name, {}), **parallel.get(name, {}), **internvl.get(name, {}),
             "max_abs_err": max(c["max_abs_err"] for c in cases + checks),
             **{key: cases[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
                                               "library_device_ms", "share_of_bound")},

@@ -55,6 +55,8 @@ from zoomearth_tpu_torch.train.checkpoints import CheckpointManager
 from zoomearth_tpu_torch.train.data import LRSGROSample
 from zoomearth_tpu_torch.utils import mathcheck as TMATH
 
+import torch_parallel_worker as W  # noqa: E402  (tests/ is on sys.path under pytest)
+
 torch.set_num_threads(1)
 CFG, JCFG = VLMConfig.tiny(), JVLMConfig.tiny()
 ATOL = 5e-5
@@ -595,16 +597,16 @@ _CLI_BASE = ["--model_name_or_path", "m", "--data_file_paths", "d.jsonl", "--ima
 
 
 @pytest.mark.parametrize("extra,env", [(["--num_processes", "2"], None),
-                                       (["--coordinator_address", "localhost:1234"], None), ([], "2")])
+                                       (["--coordinator_address", "localhost:1234", "--num_processes", "2",
+                                         "--process_id", "0"], None), ([], "2")])
 def test_cli_refuses_multi_process_launches(monkeypatch, extra, env):
-    def no_load(*a, **k):
-        raise AssertionError("the model was loaded before the refusal")
-
-    monkeypatch.setattr(CLI, "load_model_and_processor", no_load)
-    if env is not None:
-        monkeypatch.setenv("WORLD_SIZE", env)
-    with pytest.raises(SystemExit, match="one device"):
-        CLI.main(_CLI_BASE + extra)
+    """A multi-process launch (--num_processes with torchrun's RANK and MASTER_ADDR, the
+    JAX CLI's three flags, or WORLD_SIZE) joins the process group as the JAX CLI does:
+    it reaches the rendezvous with the arguments it gave, over gloo for --device cpu,
+    before anything is loaded (the two-process run is tests/test_torch_parallel_procs.py)."""
+    backend, init_method, world, rank = W.reach_rendezvous(monkeypatch, CLI, _CLI_BASE + extra, env)
+    address = "localhost:1234" if "--coordinator_address" in extra else "127.0.0.1:29512"
+    assert (backend, init_method, world, rank) == ("gloo", f"tcp://{address}", 2, 0 if "--process_id" in extra else 1)
 
 
 def test_cli_trains_two_steps_and_resumes_bit_for_bit(jparams, tmp_path, monkeypatch):

@@ -596,7 +596,8 @@ def test_port_imports_no_jax():
         "       'cli.train_sft', 'rewards.detection', 'rewards.generic', 'rewards.internvl', 'rewards.llm_judge',\n"
         "       'rewards.registry', 'rewards.zoomearth', 'utils.mathcheck', 'train.grpo', 'train.lora',\n"
         "       'cli.train_grpo', 'image.anyres', 'models.internvit', 'models.internvl', 'train.rec',\n"
-        "       'train.datagen', 'cli.generate', 'eval.benchmarks', 'cli.run_benchmarks', 'utils.profiling'}\n"
+        "       'train.datagen', 'cli.generate', 'eval.benchmarks', 'cli.run_benchmarks', 'utils.profiling',\n"
+        "       'parallel.mesh', 'parallel.multihost', 'parallel.collectives', 'parallel.launch', 'parallel.dryrun'}\n"
         "assert {'zoomearth_tpu_torch.' + m for m in new} <= set(mods), mods\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'zoomearth_tpu'))\n"
@@ -605,7 +606,7 @@ def test_port_imports_no_jax():
     )
     pkg = os.path.join(REPO, "zoomearth_tpu_torch")
     files = [os.path.join(d, f) for d, _, names in os.walk(pkg) for f in names if f.endswith(".py")]
-    files.append(os.path.join(REPO, "chip_smoke.py"))
+    files += [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "torch_parallel_worker.py")]
     importers = sorted(os.path.relpath(f, REPO) for f in files
                        if re.search(r"^\s*(from|import) (zoomearth_tpu|jax)[. \n]", open(f).read(), re.M))
     assert importers == [], importers

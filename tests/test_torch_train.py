@@ -46,6 +46,8 @@ from zoomearth_tpu_torch.train import sft_loop as TL
 from zoomearth_tpu_torch.train.checkpoints import CheckpointManager
 from zoomearth_tpu_torch.train.data import SFTSample
 
+import torch_parallel_worker as W  # noqa: E402  (tests/ is on sys.path under pytest)
+
 torch.set_num_threads(1)
 CFG, JCFG = VLMConfig.tiny(), JVLMConfig.tiny()
 ATOL = 5e-5
@@ -369,16 +371,28 @@ _CLI_BASE = ["--model_name", "m", "--dataset_name_train", "d.jsonl", "--img_fold
 
 @pytest.mark.parametrize("extra,env", [(["--fsdp", "2"], None), (["--tensor", "4"], None),
                                        (["--num_processes", "2"], None),
-                                       (["--coordinator_address", "localhost:1234"], None), ([], "2")])
+                                       (["--coordinator_address", "localhost:1234", "--num_processes", "2",
+                                         "--process_id", "0"], None), ([], "2")])
 def test_cli_refuses_mesh_flags_and_multi_process_launches(monkeypatch, extra, env):
-    def no_load(*a, **k):
-        raise AssertionError("the model was loaded before the refusal")
-
-    monkeypatch.setattr(CLI, "load_model_and_processor", no_load)
-    if env is not None:
-        monkeypatch.setenv("WORLD_SIZE", env)
-    with pytest.raises(SystemExit, match="one device"):
-        CLI.main(_CLI_BASE + extra)
+    """--tensor above 1 is refused, naming its ROADMAP item; --fsdp 2 in a world of one
+    process fails on the mesh's size, as the JAX package's make_mesh does; a
+    multi-process launch (--num_processes with torchrun's RANK and MASTER_ADDR, the
+    JAX CLI's three flags, or WORLD_SIZE) reaches the rendezvous with the arguments it
+    gave, over gloo for --device cpu. Nothing is loaded before."""
+    if extra[:1] in (["--fsdp"], ["--tensor"]):
+        monkeypatch.setattr(CLI, "load_model_and_processor", lambda *a, **k: pytest.fail("loaded"))
+        for k in ("COORDINATOR_ADDRESS", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "RANK"):
+            monkeypatch.delenv(k, raising=False)
+        if extra[0] == "--tensor":
+            with pytest.raises(SystemExit, match=r"--tensor 4: training over the tensor axis is ROADMAP"):
+                CLI.main(_CLI_BASE + extra)
+        else:
+            with pytest.raises(ValueError, match=r"1 ranks not divisible by fsdp\*tensor=2"):
+                CLI.main(_CLI_BASE + extra)
+        return
+    backend, init_method, world, rank = W.reach_rendezvous(monkeypatch, CLI, _CLI_BASE + extra, env)
+    address = "localhost:1234" if "--coordinator_address" in extra else "127.0.0.1:29512"
+    assert (backend, init_method, world, rank) == ("gloo", f"tcp://{address}", 2, 0 if "--process_id" in extra else 1)
 
 
 def test_cli_trains_on_the_cpu(tmp_path, monkeypatch):

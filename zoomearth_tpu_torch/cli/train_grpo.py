@@ -5,11 +5,15 @@ python -m zoomearth_tpu_torch.cli.train_grpo --model_name_or_path MODEL_DIR \
     --data_file_paths rl.jsonl --image_folders ./image [--output_dir ./grpo_out] [--device cuda]
 
 Flag names follow the reference TrlParser args (grpo_jsonl.py:66-116, train_grpo.sh:39-60),
-plus --device; `data_file_paths` / `image_folders` are `:`-separated like the
-reference's. Trains on one device: the CUDA device unless --device names another
-(without a CUDA device and without --device cpu it raises). A multi-process launch
-(--coordinator_address, --num_processes or WORLD_SIZE above 1) is refused with an
-error until the port has its parallel layer (ROADMAP item 16); it is never ignored.
+plus --device and --backend; `data_file_paths` / `image_folders` are
+`:`-separated like the reference's. Each process trains on one device: the CUDA device
+of its local rank unless --device names another (without a CUDA device and without
+--device cpu it raises). A multi-process launch (--coordinator_address,
+--num_processes, --process_id, or torchrun's environment) joins the process group, as
+the JAX CLI does; the port's processes then train one policy over a data mesh of the
+world (GRPOTrainer(mesh=)), each rolling out its share of the step's prompts
+(per_device_train_batch_size of them), and rank 0 alone writes. The JAX CLI builds no
+mesh, so its processes would each train alone into one output_dir.
 """
 
 from __future__ import annotations
@@ -19,12 +23,14 @@ import json
 import os
 import random
 
+from ..parallel.multihost import gather_params
 from ..rewards.registry import get_reward_funcs
 from ..train.checkpoints import CheckpointManager
 from ..train.data import batched, load_lrs_gro_jsonl
 from ..train.grpo import GRPOConfig, GRPOTrainer
 from .common import add_device_arg, load_model_and_processor
 from .config import parse_with_yaml
+from .train_sft import add_launch_args, join_mesh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -33,7 +39,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_file_paths", required=True, help="`:`-separated jsonl paths")
     p.add_argument("--image_folders", required=True, help="`:`-separated image folders")
     p.add_argument("--output_dir", default="./grpo_out")
-    p.add_argument("--per_device_train_batch_size", type=int, default=4)
+    p.add_argument("--per_device_train_batch_size", type=int, default=4,
+                   help="prompts each data rank rolls out a step; a multi-process launch trains one policy over a "
+                        "data mesh of the world, so a step takes this times the world's size (the reference's "
+                        "torchrun semantics; the JAX CLI builds no mesh and its processes each train alone)")
     p.add_argument("--num_generations", type=int, default=4)
     p.add_argument("--max_completion_length", type=int, default=2048)
     p.add_argument("--learning_rate", type=float, default=1e-7)
@@ -63,33 +72,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_completions", action="store_true",
                    help="append per-step rollout samples to <output_dir>/completions.jsonl")
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--coordinator_address", default=None, help="multi-process launch (not yet supported)")
-    p.add_argument("--num_processes", type=int, default=None, help="multi-process launch (only 1 until the "
-                   "parallel layer)")
-    p.add_argument("--process_id", type=int, default=None)
+    add_launch_args(p, mesh_axes=False)
     add_device_arg(p)
     return p
 
 
-def refuse_parallel(args) -> None:
-    """Raise on any request for more than one process."""
-    asked = []
-    if (args.num_processes or 1) > 1:
-        asked.append(f"--num_processes {args.num_processes}")
-    if args.coordinator_address:
-        asked.append(f"--coordinator_address {args.coordinator_address}")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        asked.append(f"WORLD_SIZE={os.environ['WORLD_SIZE']}")
-    if asked:
-        raise SystemExit(f"train_grpo: {', '.join(asked)}: the PyTorch port trains on one device until its "
-                         "parallel layer lands (ROADMAP item 16); drop these flags")
-
-
 def main(argv=None):
     args = parse_with_yaml(build_parser(), argv)
-    refuse_parallel(args)
+    device, mesh = join_mesh(args, "train_grpo")
+    writer = mesh is None or mesh.rank == 0
     # outside torch.inference_mode(): the loaded tensors become trainable leaves
-    params, cfg, processor = load_model_and_processor(args.model_name_or_path, device=args.device)
+    params, cfg, processor = load_model_and_processor(args.model_name_or_path, device=str(device))
     samples = load_lrs_gro_jsonl(args.data_file_paths.split(":"), args.image_folders.split(":"))
     if args.max_samples:
         samples = samples[: args.max_samples]
@@ -114,21 +107,22 @@ def main(argv=None):
     )
     trainer = GRPOTrainer(
         params, cfg, grpo_cfg, processor,
-        get_reward_funcs(args.reward_funcs), reward_names=args.reward_funcs, device=args.device,
+        get_reward_funcs(args.reward_funcs), reward_names=args.reward_funcs, device=device, mesh=mesh,
     )
     ckpt = CheckpointManager(args.output_dir)
     start_step = 0
     if args.resume_from_checkpoint:
         latest = ckpt.latest()
         if latest is not None:
-            restored, opt_state, meta = ckpt.restore(latest, trainer.params)
+            restored, opt_state, meta = ckpt.restore(latest, trainer.params, mesh=mesh, specs=trainer.specs)
             trainer.load_state(restored, opt_state)
             start_step = meta["step"]
 
     os.makedirs(args.output_dir, exist_ok=True)
     from ..utils.metrics_sinks import MetricsLogger
 
-    logger = MetricsLogger(args.output_dir, report_to=tuple(set(args.report_to) | {"jsonl"}))
+    logger = MetricsLogger(args.output_dir, report_to=tuple(set(args.report_to) | {"jsonl"})) if writer else None
+    prompts = args.per_device_train_batch_size * (mesh.shape["data"] if mesh is not None else 1)
     global_step = 0
     try:
         for epoch in range(args.num_train_epochs):
@@ -136,18 +130,24 @@ def main(argv=None):
             # RepeatRandomSampler shuffles prompt order, grpo_trainer.py:897-911)
             epoch_samples = list(samples)
             random.Random(args.seed + epoch).shuffle(epoch_samples)
-            for batch in batched(epoch_samples, args.per_device_train_batch_size, drop_last=True):
+            for batch in batched(epoch_samples, prompts, drop_last=True):
                 global_step += 1
                 if global_step <= start_step:
                     continue
                 m = trainer.step(batch, seed=args.seed + global_step)
-                if global_step % args.logging_steps == 0:
+                if global_step % args.logging_steps == 0 and writer:
                     print(json.dumps({"step": global_step, "epoch": epoch, **m}))
                     logger.log({"epoch": epoch, **m}, global_step)
                 if global_step % args.save_steps == 0:
-                    ckpt.save(global_step, trainer.params, trainer.state_dict(), extra={"epoch": epoch})
+                    full = (trainer.params if mesh is None else
+                            gather_params(trainer.params, trainer.specs, mesh, root=0, device="cpu"))
+                    opt_state = trainer.state_dict(root=0)
+                    if writer:
+                        ckpt.save(global_step, full, opt_state, extra={"epoch": epoch})
+                    del full, opt_state
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
 
 if __name__ == "__main__":

@@ -4,19 +4,25 @@
 python -m zoomearth_tpu_torch.cli.train_sft --model_name MODEL_DIR \
     --dataset_name_train sft.jsonl --img_folder ./image [--output_dir ./sft_out] [--device cuda]
 
-Flag names follow the reference argparse (SFT.py:228-257), plus --device. Trains on
-one device: the CUDA device unless --device names another (without a CUDA device and
-without --device cpu it raises). The mesh flags (--fsdp, --tensor) and a
-multi-process launch (--num_processes or WORLD_SIZE above 1, --coordinator_address)
-are refused with an error until the port has its parallel layer (ROADMAP item 16);
-they are never ignored.
+Flag names follow the reference argparse (SFT.py:228-257), plus --device and
+--backend. Each process trains on one device: the CUDA device of its local rank
+unless --device names another (without a CUDA device and without --device cpu it
+raises). A multi-process launch joins the process group first (parallel/multihost.py):
+--num_processes, --coordinator_address and --process_id, as the JAX CLI takes them, or
+torchrun's RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT; the processes then train one
+model over a (data, fsdp) mesh of the world (--fsdp; data takes the rest), and rank 0
+alone writes. --fsdp beyond the world fails on the mesh's size; --tensor above 1 is
+refused (the tensor axis is a later ROADMAP item).
+
+    torchrun --nproc_per_node 2 -m zoomearth_tpu_torch.cli.train_sft ... --fsdp 2 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 
+from ..parallel.mesh import TENSOR_AXIS_ITEM, make_mesh
+from ..parallel.multihost import initialize, rank_device
 from ..train.data import load_sft_dataset
 from ..train.sft import SFTConfig
 from ..train.sft_loop import SFTLoopConfig, train_sft
@@ -44,40 +50,45 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume_from_checkpoint", action="store_true")
     p.add_argument("--report_to", nargs="+", default=["jsonl"],
                    help="metric sinks: jsonl, tensorboard, wandb (reference SFT.py:333-339)")
-    p.add_argument("--fsdp", type=int, default=1, help="fsdp mesh axis size (only 1 until the parallel layer)")
-    p.add_argument("--tensor", type=int, default=1, help="tensor mesh axis size (only 1 until the parallel layer)")
-    p.add_argument("--coordinator_address", default=None, help="multi-process launch (not yet supported)")
-    p.add_argument("--num_processes", type=int, default=None, help="multi-process launch (only 1 until the "
-                   "parallel layer)")
-    p.add_argument("--process_id", type=int, default=None)
+    add_launch_args(p)
     add_device_arg(p)
     return p
 
 
-def refuse_parallel(args) -> None:
-    """Raise on any request for more than one device or process."""
-    asked = []
-    if args.fsdp != 1:
-        asked.append(f"--fsdp {args.fsdp}")
-    if args.tensor != 1:
-        asked.append(f"--tensor {args.tensor}")
-    if (args.num_processes or 1) > 1:
-        asked.append(f"--num_processes {args.num_processes}")
-    if args.coordinator_address:
-        asked.append(f"--coordinator_address {args.coordinator_address}")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        asked.append(f"WORLD_SIZE={os.environ['WORLD_SIZE']}")
-    if asked:
-        raise SystemExit(f"train_sft: {', '.join(asked)}: the PyTorch port trains on one device until its parallel "
-                         "layer lands (ROADMAP item 16); drop these flags")
+def add_launch_args(p, *, mesh_axes: bool = True) -> None:
+    """The multi-process flags both training CLIs take, and the mesh's axis sizes
+    (train_sft's, as the JAX CLIs have them)."""
+    if mesh_axes:
+        p.add_argument("--fsdp", type=int, default=1, help="fsdp mesh axis size")
+        p.add_argument("--tensor", type=int, default=1, help=f"tensor mesh axis size (only 1: {TENSOR_AXIS_ITEM})")
+    # multi-process launch (torchrun --master_addr/--nnodes/--node_rank analog,
+    # reference run_scripts/train_grpo.sh:34-36); torchrun's environment works too
+    p.add_argument("--coordinator_address", default=None, help="host:port of rank 0's rendezvous")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--backend", default=None, help="nccl or gloo (default: nccl on CUDA, gloo on the CPU)")
+
+
+def join_mesh(args, prog: str):
+    """Join the process group where the launch asks for one, then the mesh:
+    (device, mesh or None). --tensor above 1 is refused before anything starts."""
+    if getattr(args, "tensor", 1) != 1:
+        raise SystemExit(f"{prog}: --tensor {args.tensor}: training over the tensor axis is {TENSOR_AXIS_ITEM}; "
+                         "drop the flag")
+    joined = initialize(args.coordinator_address, args.num_processes, args.process_id, backend=args.backend,
+                        device=args.device)
+    device = rank_device(args.device)
+    fsdp = getattr(args, "fsdp", 1)
+    mesh = make_mesh(data=-1, fsdp=fsdp, tensor=1) if joined or fsdp != 1 else None
+    return device, mesh
 
 
 def main(argv=None):
     args = parse_with_yaml(build_parser(), argv)
-    refuse_parallel(args)
+    device, mesh = join_mesh(args, "train_sft")
     # outside torch.inference_mode(): the loaded tensors become trainable leaves
     params, cfg, processor = load_model_and_processor(args.model_name, max_pixels=args.max_pixels,
-                                                      device=args.device)
+                                                      device=str(device))
     # jsonl file OR an HF dataset directory (the reference's load_from_disk format,
     # SFT.py:181), auto-detected
     dataset = load_sft_dataset(args.dataset_name_train, args.img_folder)
@@ -93,7 +104,7 @@ def main(argv=None):
         resume_from_checkpoint=args.resume_from_checkpoint,
         report_to=tuple(set(args.report_to) | {"jsonl"}),
     )
-    train_sft(params, cfg, sft_cfg, loop_cfg, dataset, processor, device=args.device)
+    train_sft(params, cfg, sft_cfg, loop_cfg, dataset, processor, mesh=mesh, device=device)
 
 
 if __name__ == "__main__":

@@ -93,11 +93,14 @@ def vlm_forward(
     return logits_from_hidden(params["text"], cfg.text, hidden), cache
 
 
-def masked_ce_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100):
+def masked_ce_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100,
+                   count: Optional[torch.Tensor] = None):
     """Next-token cross entropy with -100 masking (port of the reference's
     masked_ce_loss): logits[:, :-1] predict labels[:, 1:]; the loss is the mean over
     the valid tokens (at least one in the divisor). logits (B, S, V) fp32, labels
-    (B, S). Returns (mean loss, number of valid tokens)."""
+    (B, S). Returns (mean loss, number of valid tokens). `count`, where given, is the
+    divisor instead of the valid tokens here (a data rank's rows divided by the whole
+    batch's count: the sum over the ranks is then the whole batch's mean)."""
     shift_logits = logits[:, :-1]
     shift_labels = labels[:, 1:].long()
     valid = shift_labels != ignore_index
@@ -105,4 +108,4 @@ def masked_ce_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int
     logp = torch.log_softmax(shift_logits, dim=-1)
     tok_logp = logp.gather(-1, safe_labels[..., None])[..., 0]
     n = valid.sum()
-    return -(tok_logp * valid).sum() / n.clamp(min=1), n
+    return -(tok_logp * valid).sum() / (n if count is None else count).clamp(min=1), n

@@ -1,0 +1,240 @@
+"""Device mesh construction + sharding rules for the data/fsdp/tensor axes (port of
+parallel/mesh.py).
+
+The JAX package puts every device of a slice in one `jax.sharding.Mesh` and lets XLA
+insert the collectives. Here a mesh is a layout of the world's ranks, one device each,
+on the same three axes, with one torch.distributed process group per axis
+(`torch.distributed.device_mesh.init_device_mesh`):
+
+- ``data``   — batch (DP; reference torchrun --nproc_per_node, train_grpo.sh:33-38)
+- ``fsdp``   — parameter/optimizer sharding (ZeRO-3): each rank keeps a slice of every
+               leaf the rules shard; the training step gathers them for the forward
+               (parallel/collectives.py)
+- ``tensor`` — megatron-style intra-layer sharding: the rules give its specs, as the
+               JAX package's do; training with tensor > 1 is a later ROADMAP item
+
+A spec is the port's counterpart of a `PartitionSpec`: a tuple with one entry per
+leading dimension, each an axis name, a tuple of axis names, or None (not split);
+`()` is replicated. Ranks lie on the mesh in row-major order, rank = (d * fsdp + f) *
+tensor + t, the layout `init_device_mesh` gives.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+AXES = ("data", "fsdp", "tensor")
+TENSOR_AXIS_ITEM = "ROADMAP §1 item 7 (the tensor axis)"
+
+
+class Mesh:
+    """A (data, fsdp, tensor) layout of `size` ranks. With a `device_mesh` (this
+    process joined the world and the mesh spans it) `group(axis)` is that axis's
+    process group; without one the mesh is a layout only (the sharding rules read it,
+    and a collective over an axis larger than 1 raises)."""
+
+    def __init__(self, data: int, fsdp: int, tensor: int, *, rank: int = 0, device_mesh=None):
+        self.shape: Dict[str, int] = {"data": int(data), "fsdp": int(fsdp), "tensor": int(tensor)}
+        self.size = int(data) * int(fsdp) * int(tensor)
+        self.rank = int(rank)
+        self.device_mesh = device_mesh
+        t = self.rank % tensor
+        f = (self.rank // tensor) % fsdp
+        d = self.rank // (tensor * fsdp)
+        self.coordinate: Dict[str, int] = {"data": d, "fsdp": f, "tensor": t}
+        if device_mesh is not None:
+            coord = tuple(device_mesh.get_coordinate())
+            if coord != (d, f, t):
+                raise RuntimeError(f"rank {rank}: the device mesh puts it at {coord}, the layout at {(d, f, t)}")
+
+    def group(self, axis: str):
+        """The process group of this rank's `axis`, None where that axis has size 1
+        (a collective over it is the identity)."""
+        if self.shape[axis] == 1:
+            return None
+        if self.device_mesh is None:
+            raise RuntimeError(f"a collective over the {axis} axis of a mesh this process did not join "
+                               f"({self.shape})")
+        return self.device_mesh.get_group(axis)
+
+    def world_group(self):
+        """The group of every rank of the mesh (None for a mesh of one rank)."""
+        if self.size == 1:
+            return None
+        if self.device_mesh is None:
+            raise RuntimeError(f"a collective over a mesh this process did not join ({self.shape})")
+        import torch.distributed as dist
+
+        return dist.group.WORLD
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, rank={self.rank})"
+
+
+def make_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1, world_size: Optional[int] = None) -> Mesh:
+    """Build a (data, fsdp, tensor) mesh over the world's ranks. data=-1 absorbs the
+    remaining ranks. With torch.distributed initialized the mesh spans its world and
+    gets its process groups; `world_size` instead gives a layout of that many ranks
+    that this process does not join (the sharding rules of a mesh it will not run)."""
+    import torch.distributed as dist
+
+    joined = world_size is None and dist.is_available() and dist.is_initialized()
+    n = dist.get_world_size() if joined else (1 if world_size is None else int(world_size))
+    if data == -1:
+        if n % (fsdp * tensor) != 0:
+            raise ValueError(f"{n} ranks not divisible by fsdp*tensor={fsdp * tensor}")
+        data = n // (fsdp * tensor)
+    if data * fsdp * tensor != n:
+        raise ValueError(f"mesh {data}x{fsdp}x{tensor} != {n} ranks")
+    if not joined:
+        return Mesh(data, fsdp, tensor)
+    from torch.distributed.device_mesh import init_device_mesh
+
+    # the mesh's groups only carry tensors; its device type picks nothing: NCCL's
+    # tensors live on the card, gloo's may live on either side
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    dm = init_device_mesh(device_type, (data, fsdp, tensor), mesh_dim_names=AXES)
+    return Mesh(data, fsdp, tensor, rank=dist.get_rank(), device_mesh=dm)
+
+
+# ---------------------------------------------------------------------------
+# Param sharding rules (path-regex -> spec)
+# ---------------------------------------------------------------------------
+
+Spec = Tuple
+
+# Megatron-style layout: column-parallel (out dim on tensor) for qkv/gate/up,
+# row-parallel (in dim on tensor) for o/down; the other matmul dim shards on fsdp
+# (ZeRO-3 style). Norm scales and small biases stay replicated on fsdp but biases of
+# column-parallel layers follow their matrix's tensor split. The JAX package's rules,
+# regex for regex.
+DEFAULT_RULES: Tuple[Tuple[str, Spec], ...] = (
+    # text decoder
+    (r"text/layers/\d+/attn/w[qkv]$", ("fsdp", "tensor")),
+    (r"text/layers/\d+/attn/b[qkv]$", ("tensor",)),
+    (r"text/layers/\d+/attn/wo$", ("tensor", "fsdp")),
+    (r"text/layers/\d+/mlp/w[gu]$", ("fsdp", "tensor")),
+    (r"text/layers/\d+/mlp/wd$", ("tensor", "fsdp")),
+    (r"text/(embed|lm_head)/weight$", ("fsdp", None)),
+    # vision tower
+    (r"vision/blocks/\d+/attn/wqkv$", ("fsdp", "tensor")),
+    (r"vision/blocks/\d+/attn/bqkv$", ("tensor",)),
+    (r"vision/blocks/\d+/attn/wo$", ("tensor", "fsdp")),
+    (r"vision/blocks/\d+/mlp/w[gu]$", ("fsdp", "tensor")),
+    (r"vision/blocks/\d+/mlp/wd$", ("tensor", "fsdp")),
+    (r"vision/merger/w0$", ("fsdp", "tensor")),
+    (r"vision/merger/w1$", ("tensor", "fsdp")),
+    (r"vision/patch_embed/kernel$", (None, "fsdp")),
+    # everything else (norm scales, small biases): replicated
+    (r".*", ()),
+)
+
+
+def map_with_path(fn, tree, path: str = ""):
+    """fn(path, leaf) over a parameter tree (dicts and lists; a LoRA leaf's dict is
+    walked into), paths in the JAX tree's "a/b/0/c" form."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, f"{path}/{k}" if path else str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_with_path(fn, v, f"{path}/{i}" if path else str(i)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def map_with_spec(fn, tree, specs):
+    """fn(leaf, spec) over a parameter tree and its spec tree (param_shardings'
+    output): the walk follows the parameter tree, so a spec's own tuple is never
+    taken for a branch."""
+    if isinstance(tree, dict):
+        return {k: map_with_spec(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_with_spec(fn, v, s) for v, s in zip(tree, specs)]
+    return fn(tree, specs)
+
+
+def spec_leaves(tree, specs) -> list:
+    """The specs of a tree's leaves, in tree_leaves order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in spec_leaves(tree[k], specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [s for v, sp in zip(tree, specs) for s in spec_leaves(v, sp)]
+    return [specs]
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _spec_fits(spec: Spec, shape, mesh: Mesh) -> bool:
+    """A spec only applies if every sharded dim divides evenly by its axis size."""
+    for dim, entry in enumerate(spec):
+        axes = _axes(entry)
+        if not axes:
+            continue
+        size = int(np.prod([mesh.shape[a] for a in axes]))
+        if dim >= len(shape) or shape[dim] % size != 0:
+            return False
+    return True
+
+
+def param_shardings(params, mesh: Mesh, rules: Sequence[Tuple[str, Spec]] = DEFAULT_RULES):
+    """Param tree -> matching spec tree (first rule whose regex matches the path AND
+    whose spec divides the shape; falls back to replicated). Leaves need only a
+    `shape` (tensors, numpy arrays, jax.ShapeDtypeStruct)."""
+
+    def assign(path, leaf):
+        for pattern, spec in rules:
+            if re.search(pattern, path) and _spec_fits(spec, tuple(leaf.shape), mesh):
+                return tuple(spec)
+        return ()
+
+    return map_with_path(assign, params)
+
+
+def split(entry, mesh: Mesh) -> Tuple[int, int]:
+    """(pieces, this rank's piece) of a dimension whose spec entry is `entry`: the
+    axes' sizes multiplied, this rank's coordinates on them in row-major order."""
+    pieces, index = 1, 0
+    for a in _axes(entry):
+        pieces *= mesh.shape[a]
+        index = index * mesh.shape[a] + mesh.coordinate[a]
+    return pieces, index
+
+
+def is_sharded(spec: Spec, mesh: Mesh) -> bool:
+    return any(split(entry, mesh)[0] > 1 for entry in spec)
+
+
+def local_slice(x, spec: Spec, mesh: Mesh):
+    """This rank's slice of a full value under `spec` (a tensor or a numpy array; the
+    value itself where nothing is split). A tensor's slice is a copy, so the full
+    tensor can be freed."""
+    if not is_sharded(spec, mesh):
+        return x
+    shape = tuple(x.shape)
+    index = []
+    for dim, entry in enumerate(spec):
+        pieces, i = split(entry, mesh)
+        if shape[dim] % pieces:
+            raise ValueError(f"dimension {dim} of a {shape} value does not split {pieces} ways")
+        n = shape[dim] // pieces
+        index.append(slice(i * n, (i + 1) * n))
+    out = x[tuple(index)]
+    return out.clone() if isinstance(out, torch.Tensor) else np.ascontiguousarray(out)
+
+
+def shard_params(params, mesh: Mesh, rules: Sequence[Tuple[str, Spec]] = DEFAULT_RULES):
+    """Each rank's slices of a full parameter tree per the rules (a replicated leaf
+    stays the same tensor)."""
+    specs = param_shardings(params, mesh, rules)
+    return map_with_spec(lambda t, s: local_slice(t, s, mesh), params, specs)
+
+
+def data_sharding(mesh: Mesh, *leading_batch_axes: int) -> Spec:
+    """Spec for batch arrays: dim 0 on 'data', rest replicated."""
+    return ("data",)

@@ -9,6 +9,11 @@ checkpoint-{step}/ with the parameter tree (params.pt), the optimizer's state
 latest() finds the newest complete checkpoint; restore() loads a checkpoint onto the
 templates' devices and dtypes. The trees may hold dict leaves (a LoRA tree's {"w", "a",
 "b", "s"}); the optimizer state is SFTOptimizer's state_dict, SFT's or GRPO's.
+
+On a mesh the files hold full values, as orbax's global arrays do in the JAX package:
+the loop gathers the tree and the optimizer's state onto rank 0, which alone writes,
+and restore(mesh=, specs=) keeps each rank's slices of what it reads. A checkpoint
+written on a mesh restores on one device and the other way round.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..models.params import map_tree, tree_leaves
+from ..parallel.mesh import local_slice, map_with_spec
 
 
 class CheckpointManager:
@@ -59,16 +65,20 @@ class CheckpointManager:
                 steps.append(int(m.group(1)))
         return max(steps) if steps else None
 
-    def restore(self, step: int, params_template, load_opt_state: bool = True) -> Tuple[Any, Any, Dict]:
+    def restore(self, step: int, params_template, load_opt_state: bool = True, *, mesh=None,
+                specs=None) -> Tuple[Any, Any, Dict]:
         """Load checkpoint-{step}: (params, opt_state, meta). Each parameter leaf goes
         onto its template leaf's device and dtype (the saved tree must have the
-        template's structure and shapes). The optimizer state, where asked for and
-        saved, comes onto the device of the template's first leaf
-        (SFTOptimizer.load_state_dict casts its moments to each parameter's dtype);
-        else None."""
+        template's structure and shapes; on a mesh, `specs` from param_shardings, the
+        template holds this rank's shards and each saved leaf is sliced to them). The
+        optimizer state, where asked for and saved, comes onto the device of the
+        template's first leaf, full (SFTOptimizer.load_state_dict keeps a rank's
+        slices and casts its moments to each parameter's dtype); else None."""
         ckpt_dir = self._dir(step)
         device = tree_leaves(params_template)[0].device
         saved = torch.load(os.path.join(ckpt_dir, "params.pt"), map_location=device, weights_only=True)
+        if mesh is not None:
+            saved = map_with_spec(lambda t, s: local_slice(t, s, mesh), saved, specs)
         params = _onto(saved, params_template, ckpt_dir)
         opt_state = None
         opt_path = os.path.join(ckpt_dir, "opt_state.pt")

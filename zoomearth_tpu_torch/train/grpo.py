@@ -59,12 +59,16 @@ from ..runtime.generate import (
     prepare_batch,
     prepare_continuation,
 )
+from ..parallel.collectives import all_reduce, gather_for_compute, gather_objects, reduce_gradients, sum_over
+from ..parallel.mesh import TENSOR_AXIS_ITEM, Mesh, param_shardings, shard_params
+from ..parallel.multihost import gather_params
 from .data import LRSGROSample
 from .lora import apply_lora, frozen_leaves, strip_lora
 from .sft import SFTConfig, SFTOptimizer
 from .sft_loop import make_trainable
 
 OPTAX_ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default, which the JAX package's GRPO applies
+ROW_SEED_STRIDE = 1_000_003  # data rank d samples its rows from seed + d * this
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,9 +154,11 @@ def _chunk_logps(text_params, cfg: VLMConfig, hidden: torch.Tensor, targets: tor
 
 
 def per_token_logps(params, cfg: VLMConfig, input_ids, position_ids, pixel_values, vision_meta, *,
-                    chunk: int = 256) -> torch.Tensor:
+                    chunk: int = 256, image_offset: int = 0) -> torch.Tensor:
     """log p(token_t | tokens_<t) for every position, (B, S) fp32; the first position
-    gets 0. vision_meta holds device tensors (meta_to_device).
+    gets 0. vision_meta holds device tensors (meta_to_device). image_offset: where
+    these rows' vision embeddings start among those of every packed image (a data
+    rank's rows of a batch whose images all go through the ViT).
 
     The hidden states are computed once; the head, log_softmax and gather run over
     chunks of `chunk` positions, so the (B, S, V) fp32 logits never exist at once.
@@ -161,7 +167,10 @@ def per_token_logps(params, cfg: VLMConfig, input_ids, position_ids, pixel_value
     x = embed_tokens(params, input_ids)
     if pixel_values is not None:
         vis = compute_vision_embeds(params, cfg, pixel_values, vision_meta)
-        x = merge_vision_embeddings(x, vis, input_ids == cfg.tokens.image_pad)
+        if image_offset:
+            vis = vis[image_offset:]
+        if vis.shape[0]:
+            x = merge_vision_embeddings(x, vis, input_ids == cfg.tokens.image_pad)
     hidden, _ = decoder_forward(params["text"], cfg.text, x, position_ids)
     B, S, _ = hidden.shape
     # the token at t + 1 is predicted from the hidden state at t
@@ -179,12 +188,17 @@ def per_token_logps(params, cfg: VLMConfig, input_ids, position_ids, pixel_value
 
 
 def grpo_loss(params, cfg: VLMConfig, batch: Dict, *, beta: float, epsilon_low: float, epsilon_high: float,
-              chunk: int = 256):
+              chunk: int = 256, rows: Optional[int] = None):
     """Clipped-ratio GRPO loss (grpo_trainer.py:770-828). batch holds tensors
     (`batch_to_device`); old_logps / ref_logps may be None. Returns (loss, metrics)
-    as 0-d tensors."""
+    as 0-d tensors.
+
+    rows: the whole batch's row count where `batch` is one data rank's rows. The
+    loss, kl and completion_length are then this rank's share of the whole batch's
+    means (their sums over the ranks are the means), and clip_ratio is split into
+    its numerator (`clip_ratio`) and denominator (`clip_den`), each to be summed."""
     logps = per_token_logps(params, cfg, batch["input_ids"], batch["position_ids"], batch.get("pixel_values"),
-                            batch.get("vision_meta"), chunk=chunk)
+                            batch.get("vision_meta"), chunk=chunk, image_offset=batch.get("image_offset", 0))
     mask = batch["completion_mask"].float()
     adv = batch["advantages"][:, None]
     old = batch["old_logps"] if batch.get("old_logps") is not None else logps.detach()
@@ -195,15 +209,22 @@ def grpo_loss(params, cfg: VLMConfig, batch: Dict, *, beta: float, epsilon_low: 
     per_token = -torch.minimum(loss1, loss2)
     metrics = {}
     denom = mask.sum(1).clamp(min=1)
+
+    def mean(per_row):
+        return per_row.mean() if rows is None else per_row.sum() / rows
+
     if beta > 0 and batch.get("ref_logps") is not None:
         ref = batch["ref_logps"]
         kl = torch.exp(ref - logps) - (ref - logps) - 1
         per_token = per_token + beta * kl
-        metrics["kl"] = ((kl * mask).sum(1) / denom).mean().detach()
-    loss = ((per_token * mask).sum(1) / denom).mean()
+        metrics["kl"] = mean((kl * mask).sum(1) / denom).detach()
+    loss = mean((per_token * mask).sum(1) / denom)
     clipped = (loss1 < loss2).float()
-    metrics["clip_ratio"] = ((clipped * mask).sum() / mask.sum().clamp(min=1)).detach()
-    metrics["completion_length"] = mask.sum(1).mean()
+    if rows is None:
+        metrics["clip_ratio"] = ((clipped * mask).sum() / mask.sum().clamp(min=1)).detach()
+    else:
+        metrics["clip_ratio"], metrics["clip_den"] = (clipped * mask).sum().detach(), mask.sum()
+    metrics["completion_length"] = mean(mask.sum(1))
     return loss, metrics
 
 
@@ -226,7 +247,8 @@ def batch_to_device(rb: RolloutBatch, device) -> Dict:
 
 
 class GRPOTrainer:
-    """Single-device GRPO engine: rollouts, rewards, advantages, the policy step."""
+    """GRPO engine: rollouts, rewards, advantages, the policy step; on one device, or
+    on a (data, fsdp) mesh of processes (`mesh`)."""
 
     def __init__(
         self,
@@ -246,10 +268,28 @@ class GRPOTrainer:
         prompt_fn: Optional[Callable[[str], str]] = None,
         device=None,
         time_stages: bool = False,
+        mesh: Optional[Mesh] = None,
     ):
         """params: a tree on `device` (None: cuda; raises without a CUDA device), made
         outside torch.inference_mode(); its floating leaves become trainable leaves
         and are updated in place.
+
+        mesh: a (data, fsdp) mesh of the world's ranks; every rank builds the trainer
+        from the same full tree and steps on the same samples. The tree (with its LoRA
+        adapters, drawn alike on every rank) is sharded by param_shardings, and
+        `params` holds this rank's shards (`specs` their spec tree). A step's N rows
+        split as the data axis splits a batch, contiguous blocks of N / data (a
+        group of G rows may straddle two ranks): each data rank rolls out its own
+        rows on the gathered full weights (gather_params: the Generator's or the
+        engine's weight push, handed the shards back once the rollout ends, so the
+        policy's forward and backward hold one gathered tree; an engine that was
+        running before the rollout keeps the full tree it serves on), sampling from
+        seed + d * ROW_SEED_STRIDE, and the
+        rollouts of every rank are gathered so that every rank stitches the same
+        whole batch. Rewards are computed for the rank's rows and gathered, so the
+        grouped advantages and the logged rewards are the whole batch's; the loss
+        divides by the whole batch's row count and its metrics are summed over the
+        mesh, as the JAX package's grpo_loss means them over the global batch.
 
         rollout_engine: optional serve.engine.ServingEngine used as the rollout actor
         instead of the in-process Generator (the reference's decoupled vLLM trainer,
@@ -266,7 +306,10 @@ class GRPOTrainer:
             device = torch.device("cuda", torch.cuda.current_device())
         if any(t.device != device for t in tree_leaves(params)):
             raise ValueError(f"GRPOTrainer: the parameters must be on {device}")
+        if mesh is not None and mesh.shape["tensor"] > 1:
+            raise ValueError(f"GRPOTrainer: training over the tensor axis is {TENSOR_AXIS_ITEM}")
         self.device = device
+        self.mesh = mesh
         if grpo_cfg.use_lora:
             if grpo_cfg.sync_ref_model:
                 # Under LoRA the KL reference IS the frozen base (strip_lora of the live
@@ -278,6 +321,10 @@ class GRPOTrainer:
                 )
             params = apply_lora(params, torch.Generator(device=device).manual_seed(0),
                                 r=grpo_cfg.lora_r, alpha=grpo_cfg.lora_alpha)
+        self.specs = None
+        if mesh is not None:
+            self.specs = param_shardings(params, mesh)
+            params = shard_params(params, mesh)
         make_trainable(params)
         self.params = params
         self.cfg = cfg
@@ -304,6 +351,7 @@ class GRPOTrainer:
             self.ref_params = strip_lora(params)
         else:
             self.ref_params = map_tree(lambda t: t.detach().clone(), params)
+        self.ref_specs = None if mesh is None else (strip_lora(self.specs) if grpo_cfg.use_lora else self.specs)
         frozen = list(frozen_leaves(params)) if grpo_cfg.use_lora else []
         if grpo_cfg.freeze_vision_modules:
             frozen += tree_leaves(params["vision"])
@@ -311,7 +359,7 @@ class GRPOTrainer:
         self.optimizer = SFTOptimizer(
             params,
             SFTConfig(learning_rate=lr, weight_decay=OPTAX_ADAMW_WEIGHT_DECAY, max_grad_norm=grpo_cfg.max_grad_norm),
-            schedule=lambda count: lr, frozen=frozen,
+            schedule=lambda count: lr, frozen=frozen, mesh=mesh, specs=self.specs,
         )
         # on_grads(grads): sees each step's gradients (one per leaf, in the
         # optimizer's order) before the optimizer takes them
@@ -341,13 +389,48 @@ class GRPOTrainer:
         self._t_mark = now
 
     # ------------------------------------------------------------------
+    # The mesh
+    # ------------------------------------------------------------------
+
+    def full_params(self, params=None, specs=None):
+        """The full tree of `params` (default: the policy): on a mesh, gathered from
+        the shards (a collective: every rank calls it; a leaf no axis splits stays the
+        same tensor); else the tree itself."""
+        params, specs = (self.params, self.specs) if params is None else (params, specs)
+        return params if self.mesh is None else gather_params(params, specs, self.mesh)
+
+    def _rows(self, n: int):
+        """(first, end) of this rank's rows among a step's n: contiguous blocks of
+        n / data, as P("data") splits them."""
+        if self.mesh is None:
+            return 0, n
+        d, D = self.mesh.coordinate["data"], self.mesh.shape["data"]
+        if n % D:
+            raise ValueError(f"GRPOTrainer: {n} rollout rows do not split over {D} data ranks")
+        return d * n // D, (d + 1) * n // D
+
+    def _gather_rows(self, local: np.ndarray) -> np.ndarray:
+        """Every data rank's rows of an array, in row order."""
+        if self.mesh is None:
+            return local
+        return np.concatenate(gather_objects(local, self.mesh.group("data")))
+
+    def _gather_rollouts(self, out1, out2, lo):
+        """Every row's completions from the ranks that rolled them out: the first rank
+        of each data index's fsdp group, so every rank takes the same tokens."""
+        everyone = gather_objects((out1, {lo + i: t for i, t in out2.items()}), self.mesh.world_group())
+        step = self.mesh.shape["fsdp"] * self.mesh.shape["tensor"]
+        picked = everyone[::step]
+        return [t for o1, _ in picked for t in o1], {i: t for _, o2 in picked for i, t in o2.items()}
+
+    # ------------------------------------------------------------------
     # Rollout
     # ------------------------------------------------------------------
 
     def rollout(self, samples: Sequence[LRSGROSample], seed: int = 0) -> RolloutBatch:
-        """G-repeated two-stage rollouts + rewards + advantages for one step."""
+        """G-repeated two-stage rollouts + rewards + advantages for one step (on a
+        mesh: this rank's rows rolled out, every row's stitched)."""
         G = self.grpo.num_generations
-        cfg = self.cfg
         tk = self.processor.tokenizer
         rep: List[LRSGROSample] = [s for s in samples for _ in range(G)]
         self._mark()
@@ -374,55 +457,73 @@ class GRPOTrainer:
         ]
         enc1 = [self.processor.encode(t, [im] if im is not None else []) for t, im in zip(prompts_text, stage1_images)]
         prompt1_lens = [len(ids) for ids, _ in enc1]
+        N = len(rep)
+        lo, hi = self._rows(N)
+        mine = slice(lo, hi)
+        row_seed = seed + ROW_SEED_STRIDE * (self.mesh.coordinate["data"] if self.mesh is not None else 0)
         if self.rollout_engine is not None:
-            (out1_tokens, completions1, completions2, scales, s2_idx,
-             s2_prefix_tokens, s2_chunks, s2_chunk_imgs, out2_tokens_by_row) = (
-                self._engine_rollout(rep, full_images, stage1_images, enc1, seed)
-            )
+            out1_tokens, out2_tokens_by_row, pieces = self._engine_rollout(
+                rep[mine], full_images[mine], stage1_images[mine], enc1[mine], row_seed)
             self._mark("engine_rollout")
-            return self._stitch_rollout(
-                rep, enc1, prompt1_lens, out1_tokens, completions1, completions2,
-                scales, s2_idx, s2_prefix_tokens, s2_chunks, s2_chunk_imgs,
-                [], [], out2_tokens_by_row, chunked=True,
-            )
+        else:
+            out1_tokens, out2_tokens_by_row, pieces = self._generator_rollout(
+                rep[mine], full_images[mine], stage1_images[mine], prompts_text[mine], enc1[mine], row_seed)
+        chunked = self.rollout_engine is not None or self.grpo.reuse_cache
+        pieces = {lo + i: p for i, p in pieces.items()}
+        if self.mesh is not None:
+            out1_tokens, out2_tokens_by_row = self._gather_rollouts(out1_tokens, out2_tokens_by_row, lo)
+            if self.mesh.coordinate["fsdp"] or self.mesh.coordinate["tensor"]:
+                pieces = {}  # this rank's rows were taken from its group's first rank: rebuilt below from them
+
+        completions1 = [tk.decode(t).strip() for t in out1_tokens]
+        completions2 = [""] * N
+        for i in range(N):
+            if rep[i].bbox and full_images[i] is not None:
+                if i not in pieces:
+                    pieces[i] = self._stage2_piece(out1_tokens[i], completions1[i], full_images[i],
+                                                   stage1_images[i], prompts_text[i], chunked)
+                completions2[i] = tk.decode(out2_tokens_by_row[i]).strip()
+        return self._stitch_rollout(rep, enc1, prompt1_lens, out1_tokens, completions1, completions2, pieces,
+                                    out2_tokens_by_row, chunked=chunked)
+
+    def _stage2_piece(self, out1, completion1: str, full, stage1_image, prompt_text: str, chunked: bool) -> Dict:
+        """A stage-2 row's host inputs from its stage-1 completion: the crop's scale,
+        and either the KV-reuse continuation (kept stage-1 tokens, chunk ids, the
+        preprocessed crop) or the re-tokenized stitched prompt with its two images."""
+        crop, scale = self._crop(completion1, full, stage1_image)
+        if chunked:
+            kept, _, chunk, crop_prepped = self._build_stage2_chunk(out1, crop)
+            return {"scale": scale, "kept": kept, "chunk": chunk, "imgs": crop_prepped}
+        s2_text = prompt_text + completion1.split("<answer>")[0] + PT.VISION_TOKENS
+        ids2, prepped2 = self.processor.encode(s2_text, [stage1_image, crop])
+        return {"scale": scale, "ids": ids2, "imgs": prepped2}
+
+    def _generator_rollout(self, rep, full_images, stage1_images, prompts_text, enc1, seed):
+        """Both stages of `rep`'s rows through the in-process Generator: (stage-1
+        tokens by row, stage-2 tokens by row index, stage-2 host inputs by row index)."""
+        cfg = self.cfg
+        tk = self.processor.tokenizer
         batch1 = prepare_batch(
             cfg, [ids for ids, _ in enc1], [imgs for _, imgs in enc1],
             length_buckets=self.length_buckets, patch_buckets=self.patch_buckets,
         )
         gen1 = GenerationConfig(max_new_tokens=self.grpo.max_completion_length,
                                 temperature=self.grpo.rollout_temperature)
-        self.generator.params = self.params  # live weight handoff
+        self.generator.params = self.full_params()  # the weight handoff: the live leaves, or gathered ones
         if self.grpo.reuse_cache:
             out1_tokens, stage1_cache = self.generator.generate(batch1, gen1, seed=seed, return_cache=True)
         else:
             out1_tokens = self.generator.generate(batch1, gen1, seed=seed)
             stage1_cache = None
-        completions1 = [tk.decode(t).strip() for t in out1_tokens]
         self._mark("stage1_rollout")
 
         # ---- stage 2 (batched) for samples whose DATASET bbox is non-empty ----
-        completions2 = [""] * len(rep)
-        scales = [1.0] * len(rep)
-        s2_idx: List[int] = []
-        s2_token_lists, s2_images = [], []  # re-tokenized path
-        s2_prefix_tokens: List[List[int]] = []  # reuse_cache path: kept + chunk ids
-        s2_chunks: List[List[int]] = []
-        s2_chunk_imgs: List[List] = []
-        for i, (s, c1) in enumerate(zip(rep, completions1)):
-            if not s.bbox or full_images[i] is None:
-                continue
-            crop, scales[i] = self._crop(c1, full_images[i], stage1_images[i])
-            s2_idx.append(i)
-            if self.grpo.reuse_cache:
-                kept, _, chunk, crop_prepped = self._build_stage2_chunk(out1_tokens[i], crop)
-                s2_prefix_tokens.append(kept)
-                s2_chunks.append(chunk)
-                s2_chunk_imgs.append(crop_prepped)
-            else:
-                s2_text = prompts_text[i] + c1.split("<answer>")[0] + PT.VISION_TOKENS
-                ids2, prepped2 = self.processor.encode(s2_text, [stage1_images[i], crop])
-                s2_token_lists.append(ids2)
-                s2_images.append(prepped2)
+        pieces: Dict[int, Dict] = {}
+        for i, s in enumerate(rep):
+            if s.bbox and full_images[i] is not None:
+                pieces[i] = self._stage2_piece(out1_tokens[i], tk.decode(out1_tokens[i]).strip(), full_images[i],
+                                               stage1_images[i], prompts_text[i], self.grpo.reuse_cache)
+        s2_idx = sorted(pieces)
         gen2 = GenerationConfig(max_new_tokens=self.grpo.stage2_max_completion_length,
                                 temperature=self.grpo.rollout_temperature)
         out2_tokens_by_row: Dict[int, List[int]] = {}
@@ -432,11 +533,11 @@ class GRPOTrainer:
             full_imgs: List[List] = [[] for _ in rep]
             keep_len = [int(batch1.lengths[i]) for i in range(len(rep))]
             starts = [int(batch1.next_pos[i]) for i in range(len(rep))]
-            for j, i in enumerate(s2_idx):
-                full_chunks[i] = s2_chunks[j]
-                full_imgs[i] = s2_chunk_imgs[j]
-                keep_len[i] = int(batch1.lengths[i]) + len(s2_prefix_tokens[j])
-                starts[i] = int(batch1.next_pos[i]) + len(s2_prefix_tokens[j])
+            for i in s2_idx:
+                full_chunks[i] = pieces[i]["chunk"]
+                full_imgs[i] = pieces[i]["imgs"]
+                keep_len[i] = int(batch1.lengths[i]) + len(pieces[i]["kept"])
+                starts[i] = int(batch1.next_pos[i]) + len(pieces[i]["kept"])
             bc = prepare_continuation(cfg, full_chunks, full_imgs, starts,
                                       length_buckets=self.length_buckets, patch_buckets=self.patch_buckets)
             inert = np.ones((len(rep),), bool)
@@ -445,22 +546,17 @@ class GRPOTrainer:
                                                         seed=seed + 1, inert_mask=inert)
             for i in s2_idx:
                 out2_tokens_by_row[i] = out2_all[i]
-                completions2[i] = tk.decode(out2_all[i]).strip()
         elif s2_idx:
-            batch2 = prepare_batch(cfg, s2_token_lists, s2_images,
+            batch2 = prepare_batch(cfg, [pieces[i]["ids"] for i in s2_idx], [pieces[i]["imgs"] for i in s2_idx],
                                    length_buckets=self.length_buckets, patch_buckets=self.patch_buckets)
             out2_tokens = self.generator.generate(batch2, gen2, seed=seed + 1)
             for j, i in enumerate(s2_idx):
                 out2_tokens_by_row[i] = out2_tokens[j]
-                completions2[i] = tk.decode(out2_tokens[j]).strip()
         del stage1_cache
+        if self.mesh is not None:
+            self.generator.params = self.params  # free the gathered tree before the policy gathers its own
         self._mark("stage2_rollout")
-
-        return self._stitch_rollout(
-            rep, enc1, prompt1_lens, out1_tokens, completions1, completions2,
-            scales, s2_idx, s2_prefix_tokens, s2_chunks, s2_chunk_imgs,
-            s2_token_lists, s2_images, out2_tokens_by_row, chunked=self.grpo.reuse_cache,
-        )
+        return out1_tokens, out2_tokens_by_row, pieces
 
     def _crop(self, completion1: str, full, stage1_image):
         """The stage-2 crop of a stage-1 completion: its first predicted box (the
@@ -493,12 +589,12 @@ class GRPOTrainer:
         request, stage 2 = Continuation on the held KV. Completions are read in
         submission order; each row's crop and chunk are built while other rows keep
         decoding, and released slots backfill queued rows, so N may exceed
-        engine.max_slots."""
+        engine.max_slots. Returns _generator_rollout's triple."""
         from ..serve.engine import Continuation, Request
 
         eng = self.rollout_engine
         tk = self.processor.tokenizer
-        eng.params = self.params  # weight push == pointer handoff
+        eng.params = self.full_params()  # the weight push: a pointer handoff, or gathered leaves on a mesh
         # seed the engine's sampler: reproducible given the same seed AND the same
         # scheduling (admission batching changes the order of the draws)
         eng.reseed(seed)
@@ -523,36 +619,23 @@ class GRPOTrainer:
                     max_tokens=self.grpo.max_completion_length, temperature=temp, hold_slot=True,
                 ))
             out1_tokens: List[List[int]] = [[] for _ in range(N)]
-            completions1 = [""] * N
-            completions2 = [""] * N
-            scales = [1.0] * N
-            s2_idx: List[int] = []
-            s2_prefix_tokens: List[List[int]] = []
-            s2_chunks: List[List[int]] = []
-            s2_chunk_imgs: List[List] = []
+            pieces: Dict[int, Dict] = {}
             for i in range(N):
                 c1 = eng.get_completion(rid(i, "s1"), timeout=3600)
                 out1_tokens[i] = list(c1.token_ids)
-                completions1[i] = tk.decode(c1.token_ids).strip()
                 if not rep[i].bbox or full_images[i] is None:
                     eng.release_slot(rid(i, "s1"))
                     continue
-                crop, scales[i] = self._crop(completions1[i], full_images[i], stage1_images[i])
-                kept, _, chunk, crop_prepped = self._build_stage2_chunk(out1_tokens[i], crop)
-                s2_idx.append(i)
-                s2_prefix_tokens.append(kept)
-                s2_chunks.append(chunk)
-                s2_chunk_imgs.append(crop_prepped)
+                pieces[i] = self._stage2_piece(out1_tokens[i], tk.decode(c1.token_ids).strip(), full_images[i],
+                                               stage1_images[i], "", chunked=True)
                 eng.submit_continuation(Continuation(
                     parent_request_id=rid(i, "s1"), request_id=rid(i, "s2"),
-                    chunk_ids=chunk, images=crop_prepped, kept_tokens=len(kept),
+                    chunk_ids=pieces[i]["chunk"], images=pieces[i]["imgs"], kept_tokens=len(pieces[i]["kept"]),
                     max_tokens=self.grpo.stage2_max_completion_length, temperature=temp,
                 ))
             out2_tokens_by_row: Dict[int, List[int]] = {}
-            for i in s2_idx:
-                c2 = eng.get_completion(rid(i, "s2"), timeout=3600)
-                out2_tokens_by_row[i] = list(c2.token_ids)
-                completions2[i] = tk.decode(c2.token_ids).strip()
+            for i in pieces:
+                out2_tokens_by_row[i] = list(eng.get_completion(rid(i, "s2"), timeout=3600).token_ids)
         finally:
             # a mid-rollout exception must not poison a PERSISTENT engine: cancel
             # everything this call submitted (cancel_prefix waits for in-flight rows,
@@ -560,33 +643,34 @@ class GRPOTrainer:
             eng.cancel_prefix(f"grpo{nonce}-")
             if not was_running:
                 eng.stop()
-        return (out1_tokens, completions1, completions2, scales, s2_idx,
-                s2_prefix_tokens, s2_chunks, s2_chunk_imgs, out2_tokens_by_row)
+                if self.mesh is not None:
+                    eng.params = self.params  # free the gathered tree (a running engine keeps serving on it)
+        return out1_tokens, out2_tokens_by_row, pieces
 
     def _stitch_rollout(
-        self, rep, enc1, prompt1_lens, out1_tokens, completions1, completions2,
-        scales, s2_idx, s2_prefix_tokens, s2_chunks, s2_chunk_imgs,
-        s2_token_lists, s2_images, out2_tokens_by_row, *, chunked,
+        self, rep, enc1, prompt1_lens, out1_tokens, completions1, completions2, pieces, out2_tokens_by_row, *,
+        chunked,
     ) -> RolloutBatch:
         """Stitch training sequences + rewards + grouped advantages + old/ref logps.
 
-        chunked=True: stage-2 rows were generated as KV-reuse continuations (prompt +
-        kept stage-1 prefix + crop chunk); False: full re-tokenized stage-2 prompts."""
+        pieces: each stage-2 row's _stage2_piece. chunked=True: stage-2 rows were
+        generated as KV-reuse continuations (prompt + kept stage-1 prefix + crop chunk);
+        False: full re-tokenized stage-2 prompts."""
         cfg = self.cfg
         G = self.grpo.num_generations
+        scales = [pieces[i]["scale"] if i in pieces else 1.0 for i in range(len(rep))]
         train_ids_list: List[List[int]] = []
         train_imgs: List[List] = []
         for i in range(len(rep)):
             prompt_ids = [int(t) for t in enc1[i][0]]
             if completions2[i] != "":
-                j = s2_idx.index(i)
+                p = pieces[i]
                 if chunked:
-                    ids = prompt_ids + s2_prefix_tokens[j] + s2_chunks[j]
-                    ids += out2_tokens_by_row[i] + [cfg.tokens.endoftext]
-                    train_imgs.append(enc1[i][1] + s2_chunk_imgs[j])
+                    ids = prompt_ids + p["kept"] + p["chunk"] + out2_tokens_by_row[i] + [cfg.tokens.endoftext]
+                    train_imgs.append(enc1[i][1] + p["imgs"])
                 else:
-                    ids = list(s2_token_lists[j]) + out2_tokens_by_row[i] + [cfg.tokens.endoftext]
-                    train_imgs.append(s2_images[j])
+                    ids = list(p["ids"]) + out2_tokens_by_row[i] + [cfg.tokens.endoftext]
+                    train_imgs.append(p["imgs"])
             else:
                 ids = prompt_ids + out1_tokens[i] + [cfg.tokens.endoftext]
                 train_imgs.append(enc1[i][1])
@@ -629,20 +713,24 @@ class GRPOTrainer:
             pv = None
             vision_meta = None
 
-        # ---- rewards + grouped advantages ----
+        # ---- rewards (this rank's rows, gathered) + grouped advantages ----
+        lo, hi = self._rows(N)
+        mine = rep[lo:hi]
         reward_kwargs: Dict[str, list] = {
-            "question": [s.question for s in rep],
-            "ground_truth": [s.ground_truth for s in rep],
-            "bbox": [s.bbox for s in rep],
-            "scale": scales,
-            "image_path": [s.image_path for s in rep],
-            "category": [s.category for s in rep],
-            "type": [s.type for s in rep],
+            "question": [s.question for s in mine],
+            "ground_truth": [s.ground_truth for s in mine],
+            "bbox": [s.bbox for s in mine],
+            "scale": scales[lo:hi],
+            "image_path": [s.image_path for s in mine],
+            "category": [s.category for s in mine],
+            "type": [s.type for s in mine],
         }
         F = len(self.reward_funcs)
-        rewards_per_func = np.zeros((N, F), np.float32)
+        rewards_per_func = np.zeros((hi - lo, F), np.float32)
         for fi, fn in enumerate(self.reward_funcs):
-            rewards_per_func[:, fi] = np.asarray(fn(completions1, completions2, **reward_kwargs), np.float32)
+            rewards_per_func[:, fi] = np.asarray(fn(completions1[lo:hi], completions2[lo:hi], **reward_kwargs),
+                                                 np.float32)
+        rewards_per_func = self._gather_rows(rewards_per_func)
         rewards = self._weighted_rewards(rewards_per_func)
         grouped = rewards.reshape(-1, G)
         advantages = (rewards - np.repeat(grouped.mean(1), G)).astype(np.float32)
@@ -658,21 +746,39 @@ class GRPOTrainer:
             completions1=completions1, completions2=completions2,
             rewards_per_func=rewards_per_func,
         )
-        # ---- old / ref logps ----
+        # ---- old / ref logps (this rank's rows, gathered) ----
         if self.grpo.num_iterations > 1 or self.grpo.beta > 0:
-            batch = batch_to_device(rb, self.device)
+            batch = self._train_batch(rb)
             if self.grpo.num_iterations > 1:
-                rb.old_logps = self._logps(self.params, batch)
+                rb.old_logps = self._logps(self.params, self.specs, batch)
             if self.grpo.beta > 0:
-                rb.ref_logps = self._logps(self.ref_params, batch)
+                rb.ref_logps = self._logps(self.ref_params, self.ref_specs, batch)
             self._mark("ref_logps")
         return rb
 
+    def _train_batch(self, rb: RolloutBatch) -> Dict:
+        """This rank's rows of a stitched batch as tensors on the device (every row on
+        one device), with every packed image and its rows' `image_offset`."""
+        lo, hi = self._rows(rb.input_ids.shape[0])
+        if self.mesh is None:
+            return batch_to_device(rb, self.device)
+
+        def rows(a, axis=0):
+            return None if a is None else np.take(a, np.arange(lo, hi), axis=axis)
+
+        mine = dataclasses.replace(
+            rb, input_ids=rows(rb.input_ids), completion_mask=rows(rb.completion_mask),
+            position_ids=rows(rb.position_ids, 1), advantages=rows(rb.advantages), old_logps=rows(rb.old_logps),
+            ref_logps=rows(rb.ref_logps))
+        batch = batch_to_device(mine, self.device)
+        batch["image_offset"] = int((rb.input_ids[:lo] == self.cfg.tokens.image_pad).sum())
+        return batch
+
     @torch.no_grad()
-    def _logps(self, params, batch) -> np.ndarray:
-        lp = per_token_logps(params, self.cfg, batch["input_ids"], batch["position_ids"],
-                             batch["pixel_values"], batch["vision_meta"])
-        return lp.cpu().numpy()
+    def _logps(self, params, specs, batch) -> np.ndarray:
+        lp = per_token_logps(self.full_params(params, specs), self.cfg, batch["input_ids"], batch["position_ids"],
+                             batch["pixel_values"], batch["vision_meta"], image_offset=batch.get("image_offset", 0))
+        return self._gather_rows(lp.cpu().numpy())
 
     # ------------------------------------------------------------------
     # Optimizer step
@@ -688,10 +794,23 @@ class GRPOTrainer:
         self._step_count += 1
         self._mark()
 
-        batch = batch_to_device(rb, self.device)
-        loss, aux = grpo_loss(self.params, self.cfg, batch, beta=self.grpo.beta,
-                              epsilon_low=self.grpo.epsilon_low, epsilon_high=self.grpo.epsilon_high)
-        grads = torch.autograd.grad(loss, self.optimizer.params, materialize_grads=True)
+        batch = self._train_batch(rb)
+        if self.mesh is None:
+            loss, aux = grpo_loss(self.params, self.cfg, batch, beta=self.grpo.beta,
+                                  epsilon_low=self.grpo.epsilon_low, epsilon_high=self.grpo.epsilon_high)
+            grads = torch.autograd.grad(loss, self.optimizer.params, materialize_grads=True)
+        else:
+            full = gather_for_compute(self.params, self.specs, self.mesh)
+            loss, aux = grpo_loss(full, self.cfg, batch, beta=self.grpo.beta, epsilon_low=self.grpo.epsilon_low,
+                                  epsilon_high=self.grpo.epsilon_high, rows=rb.input_ids.shape[0])
+            grads = torch.autograd.grad(loss, self.optimizer.params, materialize_grads=True)
+            del full
+            grads = reduce_gradients(grads, self.optimizer.specs, self.mesh)
+            loss = all_reduce(loss.detach(), self.mesh.group("data"))
+            names = sorted(aux)
+            sums = sum_over([float(aux[k]) for k in names], self.mesh.group("data"), self.device)
+            aux = dict(zip(names, sums))
+            aux["clip_ratio"] = aux["clip_ratio"] / max(aux.pop("clip_den"), 1.0)
         self._mark("loss_backward")
         if self.on_grads is not None:
             self.on_grads(grads)
@@ -721,8 +840,8 @@ class GRPOTrainer:
         for fi, name in enumerate(self.reward_names):
             metrics[f"rewards/{name}"] = float(rb.rewards_per_func[:, fi].mean())
         self.metrics_history.append(metrics)
-        if self.grpo.log_completions:
-            self._log_completions(rb)
+        if self.grpo.log_completions and (self.mesh is None or self.mesh.rank == 0):
+            self._log_completions(rb)  # every rank holds the same rows: one writes them
         return metrics
 
     @torch.no_grad()
@@ -733,17 +852,19 @@ class GRPOTrainer:
         for r, p in zip(tree_leaves(self.ref_params), tree_leaves(self.params)):
             r.copy_((a * p.float() + (1 - a) * r.float()).to(r.dtype))
 
-    def state_dict(self) -> dict:
-        """The optimizer's state (what a checkpoint's opt_state holds)."""
-        return self.optimizer.state_dict()
+    def state_dict(self, root: Optional[int] = None) -> Optional[dict]:
+        """The optimizer's state (what a checkpoint's opt_state holds; on a mesh, full
+        tensors: SFTOptimizer.state_dict)."""
+        return self.optimizer.state_dict(root)
 
     @torch.no_grad()
     def load_state(self, params, opt_state: Optional[dict]) -> None:
         """Resume: copy a restored parameter tree (CheckpointManager.restore with this
-        trainer's params as the template) into the live leaves in place, so the
-        Generator, an engine and the optimizer keep their tensors, then load the
-        optimizer's state where given. The reference policy is not touched: as in the
-        JAX package's CLI, it stays the one this trainer was built with."""
+        trainer's params as the template; on a mesh, with its mesh and specs, so this
+        rank's shards) into the live leaves in place, so the Generator, an engine and
+        the optimizer keep their tensors, then load the optimizer's state where given.
+        The reference policy is not touched: as in the JAX package's CLI, it stays the
+        one this trainer was built with."""
         for dst, src in zip(tree_leaves(self.params), tree_leaves(params)):
             dst.copy_(src)
         if opt_state is not None:

@@ -18,12 +18,20 @@ optax chain step for step:
   learning rate of update n being schedule(n), so the first update moves nothing
   (schedule(0) = 0) but the moments.
 
-There is no mesh here: the reference's sharded step is ROADMAP item 16.
+On a (data, fsdp, tensor) mesh (parallel/), `make_sharded_train_step` is the JAX
+package's sharded step with the math of one device: the batch splits on `data` only
+(`batch_shardings`), each leaf the rules split on `fsdp` is a shard that the forward
+gathers (parallel/collectives.py), the loss is a rank's sum over the WHOLE batch's
+supervised-token count (one all-reduce of the count), the gradients sum over `data`,
+the clip's global norm is over the full gradients (shards' squares summed over
+`fsdp`, a replicated leaf counted once), and AdamW steps shards: optimizer state
+inherits each parameter's sharding, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -32,7 +40,10 @@ import torch
 from ..config import VLMConfig
 from ..models.params import tree_leaves
 from ..models.vit import meta_to_device
-from ..models.vlm import masked_ce_loss, vlm_forward
+from ..models.vlm import compute_vision_embeds, masked_ce_loss, vlm_forward
+from ..parallel.collectives import all_reduce, gather_for_compute, reduce_gradients
+from ..parallel.mesh import Mesh, is_sharded, local_slice, param_shardings, spec_leaves
+from ..parallel.multihost import gather_params, global_put
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +90,22 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t, dtype=torch.float32) for t in tensors]))
 
 
+def mesh_global_norm(grads, specs: Sequence, mesh: Optional[Mesh]) -> torch.Tensor:
+    """global_norm of the full gradients from shard gradients (one spec per leaf):
+    the shards' squares summed over the fsdp axis, a leaf every rank holds whole
+    counted once. Where no leaf is split it is global_norm itself, bit for bit."""
+    if mesh is None or not any(is_sharded(s, mesh) for s in specs):
+        return global_norm(grads)
+    split_sq = [torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g, s in zip(grads, specs)
+                if is_sharded(s, mesh)]
+    whole_sq = [torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g, s in zip(grads, specs)
+                if not is_sharded(s, mesh)]
+    total = all_reduce(torch.stack(split_sq).sum(), mesh.group("fsdp"))
+    if whole_sq:
+        total = total + torch.stack(whole_sq).sum()
+    return torch.sqrt(total)
+
+
 class SFTOptimizer:
     """The reference's optimizer over the leaves of a parameter tree: gradient
     averaging over `gradient_accumulation_steps` micro-steps, clipping by the global
@@ -92,11 +119,21 @@ class SFTOptimizer:
     `frozen` names leaves that AdamW never steps (GRPO's frozen vision tower, LoRA's
     base weights): their gradients still count in the global norm, as the JAX
     package's masked updates do, but neither the update nor the weight decay moves
-    them."""
+    them.
+
+    On a mesh (`mesh`, with `specs` the tree's spec tree from param_shardings) the
+    leaves are this rank's shards: the step takes shard gradients, already summed
+    over the data axis, and clips by the norm of the full gradients
+    (mesh_global_norm); `state_dict()` gathers the moments and a partial
+    accumulation into full tensors (a collective: every rank calls it) and
+    `load_state_dict()` takes such a full state and keeps this rank's slices, so a
+    checkpoint holds today's format whatever the mesh."""
 
     def __init__(self, params, cfg: SFTConfig, *, schedule: Optional[Callable[[int], float]] = None,
-                 frozen: Sequence[torch.Tensor] = ()):
+                 frozen: Sequence[torch.Tensor] = (), mesh: Optional[Mesh] = None, specs=None):
         self.params: List[torch.Tensor] = tree_leaves(params)
+        self.mesh = mesh
+        self.specs = spec_leaves(params, specs) if mesh is not None else [()] * len(self.params)
         self.cfg = cfg
         self.schedule = schedule or make_schedule(cfg)
         self.k = max(1, cfg.gradient_accumulation_steps)
@@ -123,7 +160,7 @@ class SFTOptimizer:
             if self.mini_step < self.k:
                 return False
             grads, self.acc, self.mini_step = self.acc, None, 0
-        norm = global_norm(grads)
+        norm = self.norm(grads)
         clip = self.cfg.max_grad_norm
         for p, g, moving in zip(self.params, grads, self.moving):
             if moving:
@@ -136,14 +173,45 @@ class SFTOptimizer:
         self.updates += 1
         return True
 
-    def state_dict(self) -> dict:
-        return {"adamw": self.adamw.state_dict(), "updates": self.updates, "mini_step": self.mini_step,
-                "acc": self.acc}
+    def norm(self, grads) -> torch.Tensor:
+        """The global norm of the full gradients (0-d fp32 tensor)."""
+        return mesh_global_norm(grads, self.specs, self.mesh)
+
+    def _moving_specs(self) -> list:
+        return [s for s, m in zip(self.specs, self.moving) if m]
+
+    def state_dict(self, root: Optional[int] = None) -> Optional[dict]:
+        """The state a resume needs. On a mesh that splits a leaf: full tensors,
+        gathered onto the host (root=r: only rank r keeps them and the other ranks
+        get None)."""
+        state = {"adamw": self.adamw.state_dict(), "updates": self.updates, "mini_step": self.mini_step,
+                 "acc": self.acc}
+        if self.mesh is None or not any(is_sharded(s, self.mesh) for s in self.specs):
+            return state
+        keep = root is None or self.mesh.rank == root
+        specs = self._moving_specs()
+        adamw = dict(state["adamw"], state={})
+        for j, st in sorted(state["adamw"]["state"].items()):
+            keys = [k for k in ("exp_avg", "exp_avg_sq") if k in st]
+            full = gather_params([st[k] for k in keys], [specs[j]] * len(keys), self.mesh, root=root, device="cpu")
+            adamw["state"][j] = dict(st, **dict(zip(keys, full))) if keep else None
+        acc = None if self.acc is None else gather_params(self.acc, self.specs, self.mesh, root=root, device="cpu")
+        return dict(state, adamw=adamw, acc=acc) if keep else None
 
     def load_state_dict(self, state: dict) -> None:
-        self.adamw.load_state_dict(state["adamw"])
+        """Take a state_dict (full tensors where the mesh splits a leaf: this rank's
+        slices are kept)."""
+        adamw = state["adamw"]
+        if self.mesh is not None:
+            specs = self._moving_specs()
+            adamw = dict(adamw, state={j: {k: (local_slice(v, specs[int(j)], self.mesh)
+                                               if k in ("exp_avg", "exp_avg_sq") else v) for k, v in st.items()}
+                                       for j, st in adamw["state"].items()})
+        self.adamw.load_state_dict(adamw)
         self.updates, self.mini_step = int(state["updates"]), int(state["mini_step"])
         acc = state.get("acc")
+        if acc is not None and self.mesh is not None:
+            acc = [local_slice(a, s, self.mesh) for a, s in zip(acc, self.specs)]
         self.acc = None if acc is None else [a.to(device=p.device, dtype=p.dtype) for a, p in zip(acc, self.params)]
 
 
@@ -187,3 +255,98 @@ def train_step(params, optimizer: SFTOptimizer, batch, *, cfg: VLMConfig,
         on_grads(grads)
     optimizer.step(grads)
     return {"loss": loss.detach(), "grad_norm": gnorm, "tokens": n_tok}
+
+
+# ---------------------------------------------------------------------------
+# The sharded step (port of train/sft.py's batch_shardings / make_sharded_train_step)
+# ---------------------------------------------------------------------------
+
+def batch_shardings(mesh: Mesh, has_vision: bool, patch_shardable: bool = True) -> dict:
+    """Specs for one training batch, the JAX package's: batch dim on 'data'; packed
+    patches on 'data' too when patch_shardable. The sharded step takes whole patches
+    (patch_shardable=False: every rank collates the whole batch, and the ViT packs
+    every image of it in one sequence); True is the JAX layout, which XLA gathers."""
+    s = {
+        "input_ids": ("data", None),
+        "labels": ("data", None),
+        "position_ids": (None, "data", None),
+    }
+    if has_vision:
+        s["pixel_values"] = ("data" if patch_shardable else None, None)
+        s["vision_meta"] = {k: () for k in ("perm", "inv_perm_merged", "seg_window", "seg_full", "pos_ids")}
+    return s
+
+
+def shard_batch(batch: dict, mesh: Mesh, specs: dict, image_pad: int) -> dict:
+    """This rank's part of a global collated batch (numpy; every rank collates the
+    same one): global_put under `specs`, plus `image_offset`, the image tokens of the
+    rows before this rank's, where its vision embeddings start in the batch's."""
+    specs = {k: v for k, v in specs.items() if k in batch}
+    if specs.get("pixel_values", (None,))[0] is not None:
+        raise ValueError("the sharded step takes whole patches: batch_shardings(mesh, has_vision, "
+                         "patch_shardable=False)")
+    out = global_put({k: batch[k] for k in specs}, specs, mesh)
+    out.update({k: v for k, v in batch.items() if k not in specs})
+    if batch.get("pixel_values") is not None:
+        ids = np.asarray(batch["input_ids"])
+        rows = ids.shape[0] // mesh.shape["data"]
+        out["image_offset"] = int((ids[: mesh.coordinate["data"] * rows] == image_pad).sum())
+    return out
+
+
+def sharded_sft_loss(params, cfg: VLMConfig, batch: dict, mesh: Mesh):
+    """This rank's part of the whole batch's masked CE: the sum over its rows divided
+    by the supervised tokens of every row (so the data ranks' losses sum to the
+    batch's mean). `params` is the full tree (gather_for_compute). The ViT runs over
+    the whole batch's packed images and this rank's rows read their embeddings from
+    `image_offset` on. Returns (loss, whole batch's token count)."""
+    vis = None
+    if batch.get("pixel_values") is not None:
+        vis = compute_vision_embeds(params, cfg, batch["pixel_values"], batch["vision_meta"])
+        if mesh.shape["data"] > 1:
+            offset = int(batch["image_offset"])
+            vis = vis[offset:] if offset < vis.shape[0] else None
+    logits, _ = vlm_forward(params, cfg, batch["input_ids"], batch["position_ids"], vision_embeds=vis,
+                            attn_valid=batch.get("attn_valid"))
+    labels = batch["labels"]
+    count = all_reduce((labels[:, 1:] != -100).sum(), mesh.group("data"))
+    loss, _ = masked_ce_loss(logits, labels, count=count)
+    return loss, count
+
+
+def sharded_train_step(shards, optimizer: SFTOptimizer, batch, *, cfg: VLMConfig, mesh: Mesh, specs,
+                       on_grads: Optional[Callable[[tuple], None]] = None) -> dict:
+    """One micro-step on the mesh: train_step's contract over this rank's shards and
+    its part of the batch (shard_batch, then batch_to_device). The returned loss,
+    grad_norm and tokens are the whole batch's, the same on every rank."""
+    full = gather_for_compute(shards, specs, mesh)
+    loss, n_tok = sharded_sft_loss(full, cfg, batch, mesh)
+    grads = torch.autograd.grad(loss, optimizer.params, materialize_grads=True)
+    del full
+    grads = reduce_gradients(grads, optimizer.specs, mesh)
+    gnorm = optimizer.norm(grads)
+    if on_grads is not None:
+        on_grads(grads)
+    optimizer.step(grads)
+    return {"loss": all_reduce(loss.detach(), mesh.group("data")), "grad_norm": gnorm, "tokens": n_tok}
+
+
+def make_sharded_train_step(mesh: Mesh, cfg: VLMConfig, sft_cfg: SFTConfig, params_tree):
+    """Build (step, param_specs, init_opt) for the mesh, the JAX package's
+    make_sharded_train_step without its optax transform (the port's optimizer holds
+    its state): param_specs is param_shardings of the tree; init_opt(shards) makes
+    the shard leaves trainable and returns their SFTOptimizer, whose state inherits
+    each parameter's sharding; step(shards, optimizer, batch) takes this rank's
+    part of a batch put with batch_shardings(mesh, has_vision, patch_shardable=False)
+    (shard_batch) and returns the whole batch's metrics."""
+    p_shard = param_shardings(params_tree, mesh)
+
+    def init_opt(shards):
+        from .sft_loop import make_trainable
+
+        make_trainable(shards)
+        return SFTOptimizer(shards, sft_cfg, mesh=mesh, specs=p_shard)
+
+    return partial(sharded_train_step, cfg=cfg, mesh=mesh, specs=p_shard), p_shard, init_opt
+
+

@@ -1,11 +1,12 @@
-"""Full SFT training loop on one device: collate -> train step -> metrics ->
-checkpoint/resume (port of train/sft_loop.py).
+"""Full SFT training loop: collate -> train step -> metrics -> checkpoint/resume
+(port of train/sft_loop.py).
 
 The reference's sample semantics (its accelerate loop, SFT.py:259-390): the
 <location>/<bbox>-tag SFT template (SFT.py:134-145, distinct from the RL/eval
 template), 1- or 2-image samples depending on `cut`, label masking by the text_pair
-convention. One device, given explicitly (`cuda` unless the caller names another,
-through cli/common.py::resolve_device); the reference's mesh is ROADMAP item 16.
+convention. One device per process, given explicitly (`cuda` unless the caller names
+another, through cli/common.py::resolve_device); with `mesh=` the processes of a
+(data, fsdp) mesh train one model through train/sft.py's sharded step.
 """
 
 from __future__ import annotations
@@ -27,9 +28,20 @@ from ..models.params import tree_leaves
 from ..models.rope import mrope_position_ids_batch
 from ..models.vit import vision_metadata
 from ..runtime.generate import DEFAULT_LENGTH_BUCKETS, DEFAULT_PATCH_BUCKETS, bucket
+from ..parallel.collectives import max_over
+from ..parallel.mesh import TENSOR_AXIS_ITEM, Mesh, param_shardings, shard_params
+from ..parallel.multihost import gather_params
 from .checkpoints import CheckpointManager
 from .data import SFTSample, batched
-from .sft import SFTConfig, batch_to_device, make_optimizer, train_step
+from .sft import (
+    SFTConfig,
+    SFTOptimizer,
+    batch_shardings,
+    batch_to_device,
+    shard_batch,
+    sharded_train_step,
+    train_step,
+)
 
 # The SFT task template — reference SFT.py:134-145 verbatim.
 SFT_TASK_INSTRUCTION = """
@@ -143,7 +155,7 @@ class SFTLoopConfig:
 
     output_dir: str = "./sft_out"
     num_train_epochs: int = 3
-    batch_size: int = 8  # samples per micro-step on the one device
+    batch_size: int = 8  # samples per micro-step (on a mesh: the whole batch, split over `data`)
     save_steps: int = 100
     log_steps: int = 10
     max_pixels: int = 64 * 64 * 28 * 28
@@ -179,6 +191,7 @@ def train_sft(
     dataset: List[SFTSample],
     processor: Processor,
     *,
+    mesh: Optional[Mesh] = None,
     device=None,
     image_loader=None,
     max_steps: Optional[int] = None,
@@ -191,6 +204,15 @@ def train_sft(
     also holds the micro-step's seconds in train_step, the device synchronized
     before and after (`step_s`), and its padded tokens and patches.
 
+    mesh: a (data, fsdp) mesh of the world's ranks (parallel/mesh.make_mesh); every
+    rank calls train_sft with the same full parameters and dataset. The parameters
+    are sharded at entry and the returned tree is this rank's shards
+    (parallel/multihost.gather_params gives the full one); every rank collates the
+    same global batch of `batch_size` samples and keeps its data slice; only rank 0
+    writes metrics, checkpoints (full values) and runs the callbacks; `history` is
+    the same on every rank (the whole batch's loss, grad norm and tokens; the
+    slowest rank's seconds).
+
     callbacks: train.callbacks-style objects; `on_save(step, ckpt_dir, params)` fires
     after each checkpoint save (reference PushToHubRevisionCallback semantics,
     utils/callbacks.py:28-85: HF export + benchmark job triggering).
@@ -201,6 +223,16 @@ def train_sft(
         device = torch.device("cuda", torch.cuda.current_device())
     if any(t.device != device for t in tree_leaves(params)):
         raise ValueError(f"train_sft: the parameters must be on {device}")
+    specs = None
+    if mesh is not None:
+        if mesh.shape["tensor"] > 1:
+            raise ValueError(f"train_sft: training over the tensor axis is {TENSOR_AXIS_ITEM}")
+        if loop_cfg.batch_size % mesh.shape["data"]:
+            raise ValueError(f"train_sft: a batch of {loop_cfg.batch_size} does not split over {mesh.shape['data']} "
+                             "data ranks")
+        specs = param_shardings(params, mesh)
+        params = shard_params(params, mesh)
+    writer = mesh is None or mesh.rank == 0
     if sft_cfg.total_steps is None:
         # reference num_training_steps = epochs * len(dataloader) (SFT.py:201-206)
         steps_per_epoch = len(dataset) // loop_cfg.batch_size
@@ -212,17 +244,18 @@ def train_sft(
     if loop_cfg.resume_from_checkpoint:
         latest = ckpt.latest()
         if latest is not None:
-            params, opt_state, meta = ckpt.restore(latest, params)
+            params, opt_state, meta = ckpt.restore(latest, params, mesh=mesh, specs=specs)
             start_step = meta["step"]
     make_trainable(params)
-    optimizer = make_optimizer(params, sft_cfg)
+    optimizer = SFTOptimizer(params, sft_cfg, mesh=mesh, specs=specs)
     if opt_state is not None:
         optimizer.load_state_dict(opt_state)
 
     os.makedirs(loop_cfg.output_dir, exist_ok=True)
     from ..utils.metrics_sinks import MetricsLogger
 
-    logger = MetricsLogger(loop_cfg.output_dir, report_to=tuple(loop_cfg.report_to))
+    logger = MetricsLogger(loop_cfg.output_dir, report_to=tuple(loop_cfg.report_to)) if writer else None
+    shardings = batch_shardings(mesh, True, patch_shardable=False) if mesh is not None else None
     history = []
     rng = np.random.default_rng(loop_cfg.seed)
     global_step = 0
@@ -234,38 +267,52 @@ def train_sft(
                 global_step += 1
                 if global_step <= start_step:
                     continue  # deterministic dataloader fast-forward (SFT.py:312-324)
-                batch = batch_to_device(collate_sft(batch_samples, processor, image_loader=image_loader), device)
+                collated = collate_sft(batch_samples, processor, image_loader=image_loader)
+                step_grads = None if on_grads is None else functools.partial(on_grads, global_step)
                 logged = global_step % loop_cfg.log_steps == 0 or max_steps
                 if logged:
                     _synchronize(device)
                 t0 = time.perf_counter()
-                metrics = train_step(params, optimizer, batch, cfg=cfg,
-                                     on_grads=None if on_grads is None else functools.partial(on_grads, global_step))
+                if mesh is None:
+                    metrics = train_step(params, optimizer, batch_to_device(collated, device), cfg=cfg,
+                                         on_grads=step_grads)
+                else:
+                    local = shard_batch(collated, mesh, shardings, cfg.tokens.image_pad)
+                    metrics = sharded_train_step(params, optimizer, batch_to_device(local, device), cfg=cfg,
+                                                 mesh=mesh, specs=specs, on_grads=step_grads)
                 if logged:
                     _synchronize(device)
+                    step_s, elapsed = time.perf_counter() - t0, time.time() - t_start
+                    if mesh is not None:
+                        step_s, elapsed = max_over([step_s, elapsed], mesh.world_group(), device)
                     rec = {
                         "step": global_step,
                         "epoch": epoch,
                         "loss": float(metrics["loss"]),
                         "grad_norm": float(metrics["grad_norm"]),
                         "tokens": int(metrics["tokens"]),
-                        "step_s": time.perf_counter() - t0,
-                        "input_tokens": batch["input_ids"].numel(),
-                        "patches": batch["pixel_values"].shape[0],
-                        "elapsed_s": round(time.time() - t_start, 1),
+                        "step_s": step_s,
+                        "input_tokens": collated["input_ids"].size,
+                        "patches": collated["pixel_values"].shape[0],
+                        "elapsed_s": round(elapsed, 1),
                     }
                     history.append(rec)
-                    logger.log({k: v for k, v in rec.items() if k != "step"}, global_step)
+                    if writer:
+                        logger.log({k: v for k, v in rec.items() if k != "step"}, global_step)
                 if global_step % loop_cfg.save_steps == 0:
-                    ckpt.save(global_step, params, optimizer.state_dict(),
-                              extra={"epoch": epoch, "loss": float(metrics["loss"])})
-                    if callbacks:
+                    full = params if mesh is None else gather_params(params, specs, mesh, root=0, device="cpu")
+                    opt_state = optimizer.state_dict(root=0)
+                    if writer:
+                        ckpt.save(global_step, full, opt_state, extra={"epoch": epoch, "loss": float(metrics["loss"])})
+                    if callbacks and writer:
                         from .callbacks import run_callbacks
 
                         run_callbacks(callbacks, global_step,
-                                      os.path.join(loop_cfg.output_dir, f"checkpoint-{global_step}"), params)
+                                      os.path.join(loop_cfg.output_dir, f"checkpoint-{global_step}"), full)
+                    del full, opt_state
                 if max_steps and global_step - start_step >= max_steps:
                     return params, history
         return params, history
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
