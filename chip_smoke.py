@@ -5,6 +5,9 @@
     python3 chip_smoke.py --profile   # device and build, then where the 3B slice's time goes
     python3 chip_smoke.py --profile-sft [--parent=DIR]   # where a warm 3B SFT micro-step's time goes (and
                                                          # with DIR's backward kernels: an older tree's csrc)
+    python3 chip_smoke.py --tensor-grads=L,B [L,B ...]   # one SFT micro-step's gradients at the 3B widths, L
+                                                         # layers and B ViT blocks, fp32 and bf16, one rank
+                                                         # against two tensor ranks (1, 1, 2) sharing the card
 
 Phases, each fatal on failure (nothing is caught). Every decode loop runs as it runs for a
 user: captured (runtime.graphs), the counterpart of the reference's compiled decode programs.
@@ -143,7 +146,7 @@ identical (`eager_and_captured`; the engine's chunks through whole engine runs i
    full segments) and K2-bwd at the policy pass (B = 4, S = T = 1024), and [parity]
    holds one tiny fp32 GRPO policy step's loss, metrics and every gradient leaf on the
    card against the CPU.
-10. parallel — the training paths over a (data, fsdp) mesh (parallel/), each group of
+10. parallel — the training paths over a (data, fsdp, tensor) mesh (parallel/), each group of
    ranks a set of subprocesses under a wall limit (parallel/launch.py: the whole group
    is killed when one rank fails, and the smoke fails), the parent holding almost
    nothing meanwhile. (a) One rank over nccl, mesh (1, 1, 1), Qwen2.5-VL-3B at full
@@ -164,10 +167,23 @@ identical (`eager_and_captured`; the engine's chunks through whole engine runs i
    leaves equal in bits on both ranks; then
    over (2, 1, 1) one LoRA GRPO cut step (G = 4, rows 2 / 2), every leaf equal in bits
    on both ranks, and the engine tick and pair wave of the dryrun
-   over the gathered weights, their greedy tokens equal on both ranks. Printed: seconds
-   per micro-step and per step beside [training]'s and [grpo]'s, each rank's peak, the
-   bytes each rank handed to collectives (parallel/collectives.traffic) and the
-   launches of K1, K2 and K3 per rank.
+   over the gathered weights, their greedy tokens equal on both ranks. (c) Two ranks
+   sharing cuda:0 over gloo on the tensor axis, mesh (1, 1, 2), the 3B widths at full
+   depth (each rank holds half of every split leaf): 4 SFT micro-steps, each rank on its
+   8 ViT heads and its 8 / 1 decoder heads and half of every MLP width, held to rank
+   0's unsharded run as (b) is (the leaves that start at 0, the biases, printed apart:
+   after two updates they hold AdamW's +-lr steps, whose signs bf16 sums flip), replicas
+   and histories equal in bits, and before it one fp32 micro-step at 4 layers and 8 ViT
+   blocks whose every gathered gradient leaf must be within 1e-4 of the one-rank run's
+   (bf16's own distance from fp32 is 1-6 %, so a wrong sum hides there); K1 and K1-bwd must
+   run at 8 heads and K2 and K2-bwd at 8 / 1 heads once per block and layer per
+   micro-step (the ViT's and the decoder's dispatchers shadowed to count calls by
+   heads, captured calls skipped), all "mma"; then one LoRA GRPO cut step over (1, 1, 2)
+   at G = 2, the mixed blocks: its backward K1-bwd at 8 heads (the ViT split) and
+   K2-bwd at 16 / 2 (LoRA's decoder whole), replicated leaves equal in bits. Printed:
+   seconds per micro-step and per step beside [training]'s and [grpo]'s, each rank's
+   peak, the bytes each rank handed to collectives (parallel/collectives.traffic) and
+   the launches of K1, K2 and K3 per rank.
 11. decode-variants — the decode-attention entry points beside the serving path, at
    the reference's shapes. First the checks: K4 (paged decode) against its plain
    version and K3 at (B=32|64, T=4096, 30 % live, pages 64|256); P1 (stream probe)
@@ -529,6 +545,11 @@ def check_kernels(card):
     log("[kernels] GRPO: K1's and K2's backward kernels at the policy pass's shapes")
     for name, cases in check_grpo_kernels(card, randn).items():
         rows[name][2].extend(cases)
+    log("[kernels] a tensor rank's heads ([parallel] (c), mesh (1, 1, 2)): K1 at 8 heads and K2 at 8 / 1, with lse, "
+        "and their backward kernels")
+    forwards, backwards = check_training_kernels(card, randn, heads=(8, 8, 1))
+    for name, cases in {**forwards, **{n: b[2] for n, b in backwards.items()}}.items():
+        rows[name][2].extend(cases)
     log("[kernels] untimed checks where the kernels have edges")
     return rows, {"flash_segment_attention": check_k1_edges(randn),
                   "flash_causal_attention": check_k2_edges(randn, int8, scales) + check_k2_int8_chunk(randn, cache8),
@@ -749,7 +770,7 @@ BWD_NOTE = ("no TPU counterpart: the reference's Pallas kernel has no VJP (jax.g
             "NotImplementedError), so the JAX package trains through XLA's autodiff of the plain attention")
 
 
-def check_training_kernels(card, randn):
+def check_training_kernels(card, randn, heads=(16, 16, 2)):
     """K1 and K2 as training runs them, timed in turns like every other case: the
     forwards at the SFT path's shapes with lse off and on (the lse held on its own, at
     TOL_LSE), and the backward kernels against their plain backward (dq, dk and dv each
@@ -757,15 +778,20 @@ def check_training_kernels(card, randn):
     through scaled_dot_product_attention with the mask built beforehand, its forward
     included: the backward needs it). The kernel's backward takes the kernel forward's
     out and lse, the plain backward the plain forward's, so a wrong lse shows here; the
-    edge checks give both the kernel's. Returns ({kernel name: [forward cases]} for K1
-    and K2, {backward kernel name: (source, None, [case])})."""
+    edge checks give both the kernel's. heads = (K1's H, K2's H, K2's Hkv): the model's
+    (16, 16, 2), or a tensor rank's of (1, 1, 2), (8, 8, 1) ([parallel] (c)), where only
+    the forms that path runs are timed (lse on; K2-bwd's dk/dv split plan at Hkv = 1 is
+    not the model's). Every variant must be the tensor-core one. Returns ({kernel name:
+    [forward cases]} for K1 and K2, {backward kernel name: (source, None, [case])})."""
     import torch
 
     from zoomearth_tpu_torch.ops import flash_attention as K1
     from zoomearth_tpu_torch.ops import flash_causal as K2
 
     dev = torch.device("cuda")
-    S, H, D = SFT_PATCHES, 16, 80
+    whole = heads == (16, 16, 2)
+    rank = "" if whole else ", a tensor rank's heads of (1, 1, 2)"
+    S, H, D = SFT_PATCHES, heads[0], 80
     seg = torch.cat([torch.full((n,), i, dtype=torch.int32) for i, n in enumerate(SFT_RUNS)]
                     + [torch.full((S - sum(SFT_RUNS),), K1.PAD_SEG, dtype=torch.int32)]).to(dev)
     qkv = randn(S, 3, H, D)
@@ -775,19 +801,21 @@ def check_training_kernels(card, randn):
     def heads_first(*ts):
         return [t[None].transpose(1, 2) for t in ts]
 
-    label = f"K1 segment SFT sample S={S} H={H} D={D} (5476 + 1296 patches + pad)"
+    label = f"K1 segment SFT sample S={S} H={H} D={D} (5476 + 1296 patches + pad){rank}"
+    before = dict(K1.segment_attention_cuda.variants)
     fwd1 = [case(label + ", lse off", lambda: K1.segment_attention_cuda(q, k, v, seg),
                  lambda: K1.flash_segment_attention_plain(q, k, v, seg), card, K1.work(seg, H, D, 2),
-                 lambda: sdpa(*heads_first(q, k, v), seg_mask)[0].transpose(0, 1)),
-            case(label + ", lse on", lambda: K1.segment_attention_cuda(q, k, v, seg, return_lse=True),
-                 lambda: K1.flash_segment_attention_plain(q, k, v, seg, return_lse=True), card,
-                 (K1.work(seg, H, D, 2)[0], K1.work(seg, H, D, 2)[1] + 4 * S * H), tol=lse_tol)]
+                 lambda: sdpa(*heads_first(q, k, v), seg_mask)[0].transpose(0, 1))] if whole else []
+    fwd1.append(case(label + ", lse on", lambda: K1.segment_attention_cuda(q, k, v, seg, return_lse=True),
+                     lambda: K1.flash_segment_attention_plain(q, k, v, seg, return_lse=True), card,
+                     (K1.work(seg, H, D, 2)[0], K1.work(seg, H, D, 2)[1] + 4 * S * H), tol=lse_tol))
+    fwd1[-1]["variant"] = ran_variant(K1.segment_attention_cuda, before)
     out, lse = K1.segment_attention_cuda(q, k, v, seg, return_lse=True)
     plain_out, plain_lse = K1.flash_segment_attention_plain(q, k, v, seg, return_lse=True)
     dout = randn(S, H, D)
     lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
     before = dict(K1.segment_attention_bwd_cuda.variants)
-    bwd1 = case(f"K1-bwd segment SFT sample S={S} H={H} D={D}, the plain backward from the plain forward",
+    bwd1 = case(f"K1-bwd segment SFT sample S={S} H={H} D={D}{rank}, the plain backward from the plain forward",
                 lambda: K1.segment_attention_bwd_cuda(q, k, v, seg, out, dout, lse),
                 lambda: K1.flash_segment_attention_bwd_plain(q, k, v, seg, plain_out, dout, plain_lse), card,
                 K1.work_bwd(seg, H, D, 2),
@@ -797,29 +825,31 @@ def check_training_kernels(card, randn):
     bwd1["variant"] = ran_variant(K1.segment_attention_bwd_cuda, before)
     del seg_mask, out, lse, plain_out, plain_lse, dout
 
-    B, S, H, Hkv, D = 1, SFT_TOKENS, 16, 2, 128
+    B, S, H, Hkv, D = 1, SFT_TOKENS, heads[1], heads[2], 128
     q2 = randn(B, S, H, D)
     kp, vp = randn(B, S, Hkv, D), randn(B, S, Hkv, D)  # the decoder's projections, passed transposed
     k2, v2 = kp.transpose(1, 2), vp.transpose(1, 2)
     pos = torch.arange(S, device=dev)[None]
     kvl = torch.tensor([S], device=dev)
     mask = (torch.arange(S, device=dev)[None, :] <= pos[0][:, None])[None, None]
-    label = f"K2 no-cache SFT sample B={B} S=T={S} H={H} Hkv={Hkv} D={D}, transposed k/v views"
+    label = f"K2 no-cache SFT sample B={B} S=T={S} H={H} Hkv={Hkv} D={D}, transposed k/v views{rank}"
+    before = dict(K2.causal_attention_cuda.variants)
     fwd2 = [case(label + ", lse off", lambda: K2.causal_attention_cuda(q2, k2, v2, pos, kvl),
                  lambda: K2.flash_causal_attention_plain(q2, k2, v2, pos, kvl), card,
                  K2.work(pos, kvl, H, Hkv, D, S, 2),
-                 lambda: sdpa(q2.transpose(1, 2), k2, v2, mask).transpose(1, 2)),
-            case(label + ", lse on", lambda: K2.causal_attention_cuda(q2, k2, v2, pos, kvl, return_lse=True),
-                 lambda: K2.flash_causal_attention_plain(q2, k2, v2, pos, kvl, return_lse=True), card,
-                 (K2.work(pos, kvl, H, Hkv, D, S, 2)[0], K2.work(pos, kvl, H, Hkv, D, S, 2)[1] + 4 * B * S * H),
-                 tol=lse_tol)]
+                 lambda: sdpa(q2.transpose(1, 2), k2, v2, mask).transpose(1, 2))] if whole else []
+    fwd2.append(case(label + ", lse on", lambda: K2.causal_attention_cuda(q2, k2, v2, pos, kvl, return_lse=True),
+                     lambda: K2.flash_causal_attention_plain(q2, k2, v2, pos, kvl, return_lse=True), card,
+                     (K2.work(pos, kvl, H, Hkv, D, S, 2)[0], K2.work(pos, kvl, H, Hkv, D, S, 2)[1] + 4 * B * S * H),
+                     tol=lse_tol))
+    fwd2[-1]["variant"] = ran_variant(K2.causal_attention_cuda, before)
     out, lse = K2.causal_attention_cuda(q2, k2, v2, pos, kvl, return_lse=True)
     plain_out, plain_lse = K2.flash_causal_attention_plain(q2, k2, v2, pos, kvl, return_lse=True)
     dout = randn(B, S, H, D)
     lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q2, kp, vp))
     before = dict(K2.causal_attention_bwd_cuda.variants)
-    bwd2 = case(f"K2-bwd no-cache SFT sample B={B} S=T={S} H={H} Hkv={Hkv} D={D}, the plain backward from the plain "
-                "forward",
+    bwd2 = case(f"K2-bwd no-cache SFT sample B={B} S=T={S} H={H} Hkv={Hkv} D={D}{rank}, the plain backward from the "
+                "plain forward",
                 lambda: K2.causal_attention_bwd_cuda(q2, k2, v2, pos, kvl, out, dout, lse),
                 lambda: K2.flash_causal_attention_bwd_plain(q2, k2, v2, pos, kvl, plain_out, dout, plain_lse), card,
                 K2.work_bwd(pos, kvl, H, Hkv, D, S, 2),
@@ -909,8 +939,8 @@ def check_grpo_kernels(card, randn):
 
 
 def ran_variant(wrapper, before):
-    """The one variant a backward wrapper launched since `before` (its counts then), logged;
-    at the SFT path's bf16 shapes it must be the tensor-core one."""
+    """The one variant a wrapper launched since `before` (its counts then), logged; at the
+    SFT path's bf16 shapes it must be the tensor-core one."""
     ran = {name: n - before[name] for name, n in wrapper.variants.items()}
     log(f"  {wrapper.__name__}: launches by variant {ran} (bf16: the tensor-core kernels)")
     if ran["fma"] or not ran["mma"]:
@@ -1479,7 +1509,12 @@ PAR_MICRO = 4  # SFT micro-steps of (a) and (b): 2 updates, since the schedule's
 # (b)'s GRPO step over (1, 2, 1): both ranks take every row, and with G = 4 both ran out of the card's memory at
 # 37.6-39.5 GiB allocated each (27 / 24); G = 2 gives each rank the rows a (2, 1, 1) rank takes
 PAR_FSDP_GENERATIONS = 2
-PAR_TIMEOUT_A, PAR_TIMEOUT_B = 420, 480  # wall limits of the two groups of ranks, seconds
+# [parallel] part (c)'s depth: each rank of (1, 1, 2) holds half of every split leaf (~2.0 B parameters of 3.75 B with
+# the embedding), so the full 36 layers and 32 ViT blocks
+PAR_C_LAYERS, PAR_C_BLOCKS = 36, 32
+PAR_C_FP32_DEPTH = (4, 8)  # (c)'s fp32 check: 4 layers, 8 ViT blocks (the full-attention block 7 among them)
+PAR_C_FP32_TOL = 1e-4  # of each gradient leaf's largest value (the card's worst, 3.6e-06 at 4 / 8 and 5.7e-06 at 18 / 16)
+PAR_TIMEOUT_A, PAR_TIMEOUT_B, PAR_TIMEOUT_C = 420, 480, 480  # wall limits of the three groups of ranks, seconds
 GRPO_LORA_LABEL = "LoRA r 8 alpha 16, cut step"
 
 
@@ -1740,6 +1775,279 @@ def parallel_gloo(rank, world, addr, out_dir, layers, blocks):
         json.dump(res, f)
 
 
+def head_shadows():
+    """Shadow the forward dispatchers of K1 (the ViT's) and K2 (the decoder's) to count
+    their calls by head counts, forward and backward (a hook on the output sees the
+    gradient the backward kernel takes), skipping calls made while a CUDA graph
+    captures. Returns (counts: Counter of (kernel, heads) -> calls, restore)."""
+    import collections
+
+    import torch
+
+    from zoomearth_tpu_torch.models import decoder as DEC
+    from zoomearth_tpu_torch.models import vit as VIT
+
+    counts = collections.Counter()
+    seg, causal = VIT.flash_segment_attention, DEC.flash_causal_attention
+
+    def note(name, heads, out):
+        if torch.cuda.is_current_stream_capturing():
+            return
+        counts[(name, heads)] += 1
+        if out.requires_grad:
+            out.register_hook(lambda g: counts.__setitem__((f"{name}_bwd", heads), counts[(f"{name}_bwd", heads)] + 1))
+
+    def seg_shadow(q, k, v, s):
+        out = seg(q, k, v, s)
+        note("flash_segment_attention", f"{q.shape[1]}", out)
+        return out
+
+    def causal_shadow(q, k, v, *args):
+        out = causal(q, k, v, *args)
+        note("flash_causal_attention", f"{q.shape[2]}/{k.shape[1]}", out)
+        return out
+
+    VIT.flash_segment_attention, DEC.flash_causal_attention = seg_shadow, causal_shadow
+
+    def restore():
+        VIT.flash_segment_attention, DEC.flash_causal_attention = seg, causal
+
+    return counts, restore
+
+
+def parallel_tensor(rank, world, addr, out_dir, layers, blocks):
+    """[parallel] part (c), two ranks on cuda:0 over gloo on a (1, 1, 2) mesh, the 3B
+    widths at `layers` decoder layers and `blocks` ViT blocks: the fp32 check of the split
+    (split_distances at PAR_C_FP32_DEPTH), then in bf16 rank 0 runs the
+    single-process unsharded reference, then PAR_MICRO SFT micro-steps over the tensor
+    axis (each rank its 8 heads and half the MLP widths, K1 and K2 on the local heads)
+    held to it, then one LoRA GRPO cut step over (1, 1, 2) (the decoder's blocks whole,
+    the ViT's and the merger split)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    parallel_setup(rank, world, addr, "gloo")
+    from zoomearth_tpu_torch.models.params import init_vlm_params, tree_leaves
+    from zoomearth_tpu_torch.parallel.collectives import gather_objects
+    from zoomearth_tpu_torch.parallel.mesh import is_sharded, make_mesh, param_shardings, spec_leaves
+    from zoomearth_tpu_torch.parallel.multihost import gather_params
+    from zoomearth_tpu_torch.train import grpo as TG
+    from zoomearth_tpu_torch.train import sft as TS
+    from zoomearth_tpu_torch.train import sft_loop as TL
+
+    res = {"rank": rank, "backend": "gloo", "device": f"cuda:{torch.cuda.current_device()}"}
+    cfg, processor, samples, loader, _ = training_setup()
+    cfg = cut_depth(cfg, layers, blocks)
+
+    def new_params(c):
+        return init_vlm_params(c, torch.Generator(device="cuda").manual_seed(0), device="cuda", dtype=torch.bfloat16)
+
+    sft_cfg = TS.SFTConfig(learning_rate=1e-4, warmup_steps=1, total_steps=8, weight_decay=0.01,
+                           gradient_accumulation_steps=TRAIN_ACCUM)
+    loop = TL.SFTLoopConfig(output_dir=os.path.join(out_dir, "c_sft"), num_train_epochs=1, batch_size=1,
+                            save_steps=100, log_steps=1, seed=42)
+    mesh = make_mesh(1, 1, 2)
+
+    # fp32 at full width and PAR_C_FP32_DEPTH, where rounding cannot hide a wrong sum: every gradient leaf of the
+    # first micro-step and every leaf's change after the two updates, biases included, against the one-rank run's
+    d = split_distances(rank, mesh, cut_depth(cfg, *PAR_C_FP32_DEPTH), torch.float32, PAR_MICRO, out_dir, processor,
+                        samples, loader)
+    if rank == 0:
+        res["fp32"] = {"leaves": len(d["grads"]), "worst_grad_rel": max(d["grads"]),
+                       "worst_grad_leaf": d["paths"][d["grads"].index(max(d["grads"]))],
+                       "worst_change_rel": max(d["changes"]),
+                       "worst_change_leaf": d["paths"][d["changes"].index(max(d["changes"]))],
+                       "worst_change_max": max(d["changes_max"]),
+                       "worst_change_max_leaf": d["paths"][d["changes_max"].index(max(d["changes_max"]))],
+                       "depth": list(PAR_C_FP32_DEPTH)}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ref_leaves = None
+    if rank == 0:
+        ref = new_params(cfg)
+        zero_start = [bool((t == 0).all()) for t in tree_leaves(ref)]
+        ref, ref_hist = TL.train_sft(ref, cfg, sft_cfg, loop, samples, processor, device="cuda:0",
+                                     image_loader=loader, max_steps=PAR_MICRO)
+        res["sft_ref_losses"] = [r["loss"] for r in ref_hist]
+        res["sft_ref_grad_norms"] = [r["grad_norm"] for r in ref_hist]
+        ref_leaves = [t.detach().cpu() for t in tree_leaves(ref)]
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    heads, restore = head_shadows()
+    zero_counts()
+    shards, hist = TL.train_sft(new_params(cfg), cfg, sft_cfg, loop, samples, processor, mesh=mesh, device="cuda:0",
+                                image_loader=loader, max_steps=PAR_MICRO)
+    launches, variants, traffic, peak = read_counts()
+    restore()
+    with torch.device("meta"):
+        spec_tree = param_shardings(init_vlm_params(cfg, generator=torch.Generator(), device="meta"), mesh)
+    specs = spec_leaves(shards, spec_tree)
+    whole = [t for t, s in zip(tree_leaves(shards), specs) if not is_sharded(s, mesh)]
+    prints = gather_objects(fingerprints(whole), mesh.world_group())
+    res["sft"] = {"losses": [r["loss"] for r in hist], "grad_norms": [r["grad_norm"] for r in hist],
+                  "step_s": [r["step_s"] for r in hist], "launches": launches, "variants": variants,
+                  "traffic": traffic, "peak_gib": peak, "replicated_leaves": len(whole),
+                  "split_leaves": len(specs) - len(whole), "replicas_equal": prints[0] == prints[1],
+                  "history_equal": gather_objects(hist, mesh.world_group())[0] == hist,
+                  "heads": {f"{k}@{h}": n for (k, h), n in heads.items()}}
+    full = gather_params(shards, spec_tree, mesh, root=0)
+    if rank == 0:
+        # a leaf that starts at 0 (every bias) holds only AdamW's steps after the second update, each element about
+        # +-lr by the sign of a running mean that bf16 sums flip where it is near 0: held apart, printed
+        same, worst, worst0 = 0, 0.0, 0.0
+        for a, b, z in zip(tree_leaves(full), ref_leaves, zero_start):
+            b = b.to(a.device)
+            same += int(torch.equal(a, b))
+            rel = ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30)).item()
+            worst0, worst = (max(worst0, rel), worst) if z else (worst0, max(worst, rel))
+        res["sft"].update(leaves=len(ref_leaves), leaves_bit_equal=same, worst_leaf_rel=worst,
+                          zero_start_leaves=sum(zero_start), worst_zero_start_rel=worst0)
+    del shards, full, ref_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, processor, tiles, prompt_fn, rewards, names, cut, uncut, _ = grpo_setup()
+    cfg = cut_depth(cfg, layers, blocks)
+    lora = TG.GRPOConfig(num_generations=PAR_FSDP_GENERATIONS, max_completion_length=GRPO_NEW_1,
+                         stage2_max_completion_length=GRPO_NEW_2, rollout_temperature=0.7, learning_rate=1e-7,
+                         beta=0.04, epsilon_low=0.2, epsilon_high=0.2, reuse_cache=True, use_lora=True, lora_r=8,
+                         lora_alpha=16.0)
+    trainer = TG.GRPOTrainer(new_params(cfg), cfg, lora, processor, rewards, reward_names=names,
+                             image_loader=lambda s: tiles[s.image_name], prompt_fn=prompt_fn, device="cuda",
+                             time_stages=True, mesh=mesh)
+    heads, restore = head_shadows()
+    zero_counts()
+    t0 = time.perf_counter()
+    m = trainer.step([cut], seed=3)
+    wall = time.perf_counter() - t0
+    launches, variants, traffic, peak = read_counts()
+    restore()
+    held = [t for t, s in zip(tree_leaves(trainer.params), spec_leaves(trainer.params, trainer.specs))
+            if not is_sharded(s, mesh)]
+    prints = gather_objects(fingerprints(held), mesh.world_group())
+    res["grpo"] = {"mesh": mesh.shape, "metrics": m, "s": wall, "stages": dict(trainer.stage_seconds),
+                   "launches": launches, "variants": variants, "traffic": traffic, "peak_gib": peak,
+                   "rows": int(trainer._buffered.input_ids.shape[0]), "leaves_equal": prints[0] == prints[1],
+                   "heads": {f"{k}@{h}": n for (k, h), n in heads.items()}}
+    del trainer
+    with open(os.path.join(out_dir, f"c_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def split_distances(rank, mesh, cfg, dtype, steps, out_dir, processor, samples, loader):
+    """The tensor split against one rank at `cfg` in `dtype`: `steps` SFT micro-steps on
+    rank 0 alone, then the same over `mesh`. On rank 0, for each leaf (its path in
+    "paths"), max |mesh - one rank| / max |one rank| of the first micro-step's gradient
+    ("grads"), and of the change from the starting value after the last micro-step
+    ("changes_max") with its L2 form, |mesh - one rank|_2 / |one rank|_2 ("changes"; both
+    0 before the first update moves a leaf); None on the other ranks. AdamW's step is
+    ill-conditioned where a leaf's gradients are near 0 in every update, so the largest
+    single difference in a change can reach 1 % where the gradients agree to 4e-06; the L2
+    form weighs each element by what it moves."""
+    import torch
+    import torch.distributed as dist
+
+    from zoomearth_tpu_torch.models.params import init_vlm_params, tree_leaves
+    from zoomearth_tpu_torch.parallel.mesh import map_with_path, param_shardings, spec_leaves
+    from zoomearth_tpu_torch.parallel.multihost import gather_params
+    from zoomearth_tpu_torch.train import sft as TS
+    from zoomearth_tpu_torch.train import sft_loop as TL
+
+    sft_cfg = TS.SFTConfig(learning_rate=1e-4, warmup_steps=1, total_steps=8, weight_decay=0.01,
+                           gradient_accumulation_steps=TRAIN_ACCUM)
+    loop = TL.SFTLoopConfig(output_dir=os.path.join(out_dir, "split_sft"), num_train_epochs=1, batch_size=1,
+                            save_steps=100, log_steps=1, seed=42)
+    with torch.device("meta"):
+        meta = init_vlm_params(cfg, generator=torch.Generator(), device="meta")
+    specs = spec_leaves(meta, param_shardings(meta, mesh))
+
+    def params():
+        return init_vlm_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda", dtype=dtype)
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+    def rel_l2(a, b):
+        return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+    one, got = {}, {}
+    if rank == 0:
+        p = params()
+        one["start"] = [t.float().cpu() for t in tree_leaves(p)]
+
+        def keep_one(step, g):
+            if step == 1:
+                one["grads"] = [x.float().cpu() for x in g]
+
+        p, _ = TL.train_sft(p, cfg, sft_cfg, loop, samples, processor, device="cuda:0", image_loader=loader,
+                            max_steps=steps, on_grads=keep_one)
+        one["changes"] = [t.float().cpu() - s for t, s in zip(tree_leaves(p), one["start"])]
+        del p
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    def keep(step, g):
+        if step == 1:
+            full = gather_params(list(g), specs, mesh, root=0, device="cpu")
+            if rank == 0:
+                got["grads"] = [rel(a.float().cpu(), b) for a, b in zip(full, one["grads"])]
+
+    shards, _ = TL.train_sft(params(), cfg, sft_cfg, loop, samples, processor, mesh=mesh, device="cuda:0",
+                             image_loader=loader, max_steps=steps, on_grads=keep)
+    full = gather_params(tree_leaves(shards), specs, mesh, root=0, device="cpu")
+    del shards
+    torch.cuda.empty_cache()
+    if rank != 0:
+        return None
+    changes = [(a.float().cpu() - s, c) for a, s, c in zip(full, one["start"], one["changes"])]
+    got["changes"] = [rel_l2(a, c) for a, c in changes]
+    got["changes_max"] = [rel(a, c) for a, c in changes]
+    got["paths"] = spec_leaves(meta, map_with_path(lambda q, _: q, meta))
+    return got
+
+
+def tensor_grads_rank(rank, world, addr, out, layers, blocks):
+    """`--tensor-grads`: split_distances over (1, 1, 2) at the 3B widths and the given
+    depth for one micro-step, in fp32 and in bf16; rank 0 writes them to `out`."""
+    import torch
+
+    parallel_setup(rank, world, addr, "gloo")
+    from zoomearth_tpu_torch.parallel.mesh import make_mesh
+
+    cfg, processor, samples, loader, _ = training_setup()
+    cfg = cut_depth(cfg, layers, blocks)
+    got = {name: split_distances(rank, make_mesh(1, 1, 2), cfg, getattr(torch, name), 1, os.path.dirname(out),
+                                 processor, samples, loader) for name in ("float32", "bfloat16")}
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(got, f)
+
+
+def run_tensor_grads(card, depths):
+    """`--tensor-grads=L,B ...`: tensor_grads_rank at each depth, the gradient distances
+    printed (worst with its leaf, median, leaves over 2^-7)."""
+    import numpy as np
+
+    from zoomearth_tpu_torch.parallel.launch import run_ranks
+
+    for layers, blocks in depths:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_grads_") as tmp:
+            out = os.path.join(tmp, "grads.json")
+            run_ranks(f"{os.path.join(REPO, 'chip_smoke.py')}:tensor_grads_rank", 2,
+                      {"out": out, "layers": layers, "blocks": blocks}, timeout_s=PAR_TIMEOUT_C, cwd=REPO)
+            got = json.load(open(out))
+        for name, d in got.items():
+            v = np.asarray(d["grads"])
+            log(f"  {layers} layers / {blocks} ViT blocks, {name}, (1, 1, 2) against one rank: worst {v.max():.3e} "
+                f"({d['paths'][int(v.argmax())]}), median {np.median(v):.3e}, leaves over 2^-7 "
+                f"{int((v > 2 ** -7).sum())} of {len(v)} | {card}")
+
+
 def run_parallel(card):
     """[parallel] (the module docstring, phase 10): the two groups of ranks, their
     lines and checks. Returns {kernel name: {"launches_parallel": n}}."""
@@ -1841,11 +2149,82 @@ def run_parallel(card):
         assert s0["worst_leaf_rel"] <= tol, s0["worst_leaf_rel"]
         assert all(abs(x - y) <= tol * abs(y) for x, y in zip(s0["losses"] + s0["grad_norms"],
                                                               b[0]["sft_ref_losses"] + b[0]["sft_ref_grad_norms"])), s0
+        c = run_tensor_part(card, tmp, tol)
     names = list(parallel_counters())
     total = {n: a["sft"]["launches"][n] + a["grpo"]["launches"][n]
              + sum(r[k]["launches"][n] for r in b for k in ("sft", "grpo_fsdp", "grpo", "serve"))
+             + sum(r[k]["launches"][n] for r in c for k in ("sft", "grpo"))
              for n in names}
     return {n: {"launches_parallel": total[n]} for n in names}
+
+
+def run_tensor_part(card, tmp, tol):
+    """[parallel] part (c): the group of two tensor ranks, its lines and checks."""
+    from zoomearth_tpu_torch.parallel.launch import run_ranks
+
+    L, V, M = PAR_C_LAYERS, PAR_C_BLOCKS, PAR_MICRO
+    log(f"  (c) gloo, two ranks sharing cuda:0 on the tensor axis, mesh (1, 1, 2), Qwen2.5-VL-3B widths at {L} decoder "
+        f"layers and {V} ViT blocks: {M} SFT micro-steps (each rank its 8 heads and half the MLP widths) against the "
+        f"unsharded run, then one LoRA GRPO cut step (G = {PAR_FSDP_GENERATIONS}; the decoder's blocks whole)")
+    t0 = time.time()
+    run_ranks(f"{os.path.join(REPO, 'chip_smoke.py')}:parallel_tensor", 2,
+              {"out_dir": tmp, "layers": L, "blocks": V}, timeout_s=PAR_TIMEOUT_C, cwd=REPO)
+    c = [json.load(open(os.path.join(tmp, f"c_rank{r}.json"))) for r in range(2)]
+    log(f"  (c) took {time.time() - t0:.1f} s of command")
+    for r in c:
+        s, g = r["sft"], r["grpo"]
+        log(f"  (c) rank {r['rank']} ({r['backend']}, {r['device']}): SFT losses {s['losses']}, grad norms "
+            f"{s['grad_norms']}, {sum(s['step_s']) / M:.3f} s a micro-step, peak {s['peak_gib']:.2f} GiB, collective "
+            f"bytes {s['traffic']}, {s['split_leaves']} leaves split and {s['replicated_leaves']} whole | {card}")
+        log(f"  (c) rank {r['rank']} GRPO LoRA step over (1, 1, 2): {g['s']:.3f} s (by stage "
+            f"{ {k: round(y, 3) for k, y in g['stages'].items()} }), {g['rows']} rows, peak {g['peak_gib']:.2f} GiB, "
+            f"collective bytes {g['traffic']} | {card}")
+        log(f"  (c) rank {r['rank']} launches: SFT {s['launches']} (variants {s['variants']}), by kernel@heads "
+            f"{s['heads']}; GRPO {g['launches']} (variants {g['variants']}), by kernel@heads {g['heads']}")
+    s0, f32 = c[0]["sft"], c[0]["fp32"]
+    log(f"  (c) fp32 at {f32['depth'][0]} layers / {f32['depth'][1]} ViT blocks, full width, over (1, 1, 2) against "
+        f"one rank, {f32['leaves']} leaves gathered: the first micro-step's gradients, worst max |diff| / max |value| "
+        f"{f32['worst_grad_rel']:.3e} ({f32['worst_grad_leaf']}; tol {PAR_C_FP32_TOL:g}); each leaf's change after "
+        f"{M // TRAIN_ACCUM} updates, biases included, worst |diff|_2 / |change|_2 {f32['worst_change_rel']:.3e} "
+        f"({f32['worst_change_leaf']}; tol 2^-7), worst max |diff| / max |change| {f32['worst_change_max']:.3e} "
+        f"({f32['worst_change_max_leaf']}; AdamW's step is ill-conditioned where a gradient is near 0 in both updates)")
+    log(f"  (c) SFT against the single-process unsharded run at the same depth: losses {s0['losses']} vs "
+        f"{c[0]['sft_ref_losses']}, grad norms {s0['grad_norms']} vs {c[0]['sft_ref_grad_norms']}; after "
+        f"{M // TRAIN_ACCUM} updates {s0['leaves_bit_equal']} of {s0['leaves']} gathered leaves bit for bit, worst "
+        f"leaf max |diff| / max |value| {s0['worst_leaf_rel']:.3e} (tol 2^-7; no power at lr 1e-4: one update moves "
+        f"an element by about lr, 1e-3 of a leaf's largest value) over the {s0['leaves'] - s0['zero_start_leaves']} "
+        f"leaves that start nonzero, {s0['worst_zero_start_rel']:.3e} over the {s0['zero_start_leaves']} that start at "
+        f"0 (the biases: their values are AdamW's +-lr steps, whose signs bf16 sums flip where a running mean is near "
+        f"0; the fp32 changes above hold them); replicas equal in bits "
+        f"{[r['sft']['replicas_equal'] for r in c]}, histories equal {[r['sft']['history_equal'] for r in c]}; GRPO "
+        f"metrics {c[0]['grpo']['metrics']}, replicated leaves equal across ranks "
+        f"{[r['grpo']['leaves_equal'] for r in c]}")
+    split_heads = {"flash_segment_attention@8": V * M, "flash_segment_attention_bwd@8": V * M,
+                   "flash_causal_attention@8/1": L * M, "flash_causal_attention_bwd@8/1": L * M}
+    for r in c:
+        s, g = r["sft"], r["grpo"]
+        assert s["replicas_equal"] and s["history_equal"] and g["leaves_equal"], r
+        assert s["launches"]["flash_segment_attention"] == s["launches"]["flash_segment_attention_bwd"] == V * M, \
+            s["launches"]
+        assert s["launches"]["flash_causal_attention"] == s["launches"]["flash_causal_attention_bwd"] == L * M, \
+            s["launches"]
+        assert s["heads"] == split_heads, s["heads"]
+        assert all(x["fma"] == 0 for x in list(s["variants"].values()) + list(g["variants"].values())), r
+        # the policy's backward: the ViT on its 8 local heads, the LoRA decoder whole at 16 / 2
+        assert g["heads"].get("flash_segment_attention_bwd@8") == V and \
+            g["heads"].get("flash_causal_attention_bwd@16/2") == L, g["heads"]
+        assert not [k for k in g["heads"] if "_bwd@" in k and k not in ("flash_segment_attention_bwd@8",
+                                                                       "flash_causal_attention_bwd@16/2")], g["heads"]
+        assert g["launches"]["flash_causal_attention_bwd"] == L and g["launches"]["flash_decode_attention"], g
+        assert s["traffic"].get("all_reduce", 0) > 0 and g["traffic"].get("all_gather", 0) > 0, r
+    assert c[0]["grpo"]["metrics"] == c[1]["grpo"]["metrics"]
+    assert all(isinstance(v, float) and v == v for v in c[0]["grpo"]["metrics"].values()), c[0]["grpo"]["metrics"]
+    assert c[0]["sft"]["losses"] == c[1]["sft"]["losses"]
+    assert f32["worst_grad_rel"] <= PAR_C_FP32_TOL and f32["worst_change_rel"] <= tol, f32
+    assert s0["worst_leaf_rel"] <= tol, s0["worst_leaf_rel"]
+    assert all(abs(x - y) <= tol * abs(y) for x, y in zip(s0["losses"] + s0["grad_norms"],
+                                                          c[0]["sft_ref_losses"] + c[0]["sft_ref_grad_norms"])), s0
+    return c
 
 
 def profile_training(card, parent=None):
@@ -3404,6 +3783,13 @@ def main(argv=()) -> int:
         log("[profile] Qwen2.5-VL-3B bf16, one batch of 8 after a warm-up batch")
         profile_slice(card)
         return 0
+    grads = next((a.split("=", 1)[1] for a in argv if a.startswith("--tensor-grads=")), None)
+    if grads is not None:
+        depths = [tuple(int(x) for x in d.split(",")) for d in [grads] + [a for a in argv if "," in a and "=" not in a]]
+        log("[tensor-grads] one SFT micro-step's gradients, fp32 and bf16, one rank against (1, 1, 2), max |diff| / "
+            "max |value| a leaf")
+        run_tensor_grads(card, depths)
+        return 0
     if "--profile-sft" in argv:
         parent = next((a.split("=", 1)[1] for a in argv if a.startswith("--parent=")), None)
         log("[profile-sft] Qwen2.5-VL-3B bf16, one warm SFT micro-step by kernel"
@@ -3443,7 +3829,8 @@ def main(argv=()) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[parallel] the training paths over a mesh: (a) nccl, one rank, Qwen2.5-VL-3B at full depth; (b) gloo, two "
-        f"ranks sharing cuda:0, {PAR_LAYERS} layers and {PAR_BLOCKS} ViT blocks at full width")
+        f"ranks sharing cuda:0, {PAR_LAYERS} layers and {PAR_BLOCKS} ViT blocks at full width; (c) gloo, two tensor "
+        f"ranks sharing cuda:0, {PAR_C_LAYERS} layers and {PAR_C_BLOCKS} ViT blocks")
     parallel = run_parallel(card)
     log("[decode-variants] K4 / P1 / P2 checked at the reference's shapes and at their edges, then the entry "
         "points' runs")

@@ -606,7 +606,8 @@ def test_port_imports_no_jax():
     )
     pkg = os.path.join(REPO, "zoomearth_tpu_torch")
     files = [os.path.join(d, f) for d, _, names in os.walk(pkg) for f in names if f.endswith(".py")]
-    files += [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "torch_parallel_worker.py")]
+    files += [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "torch_parallel_worker.py"),
+              os.path.join(REPO, "tests", "torch_tensor_worker.py")]
     importers = sorted(os.path.relpath(f, REPO) for f in files
                        if re.search(r"^\s*(from|import) (zoomearth_tpu|jax)[. \n]", open(f).read(), re.M))
     assert importers == [], importers

@@ -136,9 +136,17 @@ def test_local_slices_put_back_the_full_value(shape):
             index = []
             for dim, entry in enumerate(spec):
                 k, j = TM.split(entry, m)
-                index.append(slice(j * full.shape[dim] // k, (j + 1) * full.shape[dim] // k))
-            assert torch.equal(full[tuple(index)], p)
-            cover[tuple(index)] += 1
+                size = full.shape[dim]
+                if "tensor" in TM._axes(entry) and isinstance(spec, TM.QKVSpec):
+                    # the fused [3][H][D] q|k|v: this rank's heads of q, k and v (the head-aligned layout)
+                    third = size // 3
+                    index.append(torch.cat([torch.arange(g * third + j * third // k, g * third + (j + 1) * third // k)
+                                            for g in range(3)]))
+                else:
+                    index.append(torch.arange(j * size // k, (j + 1) * size // k))
+            index = torch.meshgrid(*index, indexing="ij")
+            assert torch.equal(full[index], p)
+            cover[index] += 1
         reps = n // int(np.prod([TM.split(e, meshes[0])[0] for e in spec]))
         assert torch.all(cover == reps)
     batch = {"input_ids": np.arange(8 * 3).reshape(8, 3), "position_ids": np.arange(3 * 8 * 3).reshape(3, 8, 3)}
@@ -221,11 +229,16 @@ def test_dryrun_takes_the_card_unless_the_cpu_is_named():
 
 
 def test_tensor_axis_is_refused_with_the_roadmap_item():
+    """A tensor axis that does not divide the head counts is refused on the host with
+    the counts named: tensor 4 over a world of 4 at the tiny config, whose decoder has
+    2 key/value heads."""
     params = params_from_numpy(jax.tree.map(np.asarray, jax_init(jax.random.key(0), JCFG)))
-    mesh = TM.make_mesh(tensor=2, world_size=2)
-    with pytest.raises(ValueError, match="tensor axis is ROADMAP"):
+    mesh = TM.make_mesh(tensor=4, world_size=4)
+    counts = (r"a tensor axis of 4 does not divide the head counts \(decoder num_attention_heads 4, decoder "
+              r"num_key_value_heads 2, ViT num_heads 4\)")
+    with pytest.raises(ValueError, match=counts):
         TL.train_sft(params, CFG, TS.SFTConfig(), TL.SFTLoopConfig(), [], W.processor(), mesh=mesh, device="cpu")
-    with pytest.raises(ValueError, match="tensor axis is ROADMAP"):
+    with pytest.raises(ValueError, match=counts):
         TG.GRPOTrainer(params, CFG, TG.GRPOConfig(), W.processor(), [], device="cpu", mesh=mesh)
 
 

@@ -377,11 +377,12 @@ def test_both_clis_train_as_two_processes_and_one_writes(workdir):
 
 
 def test_dryrun_multichip_4_prints_its_four_surfaces(capsys):
-    """python -m zoomearth_tpu_torch.parallel.dryrun 4 --device cpu: a (2, 2, 1) mesh,
-    one SFT step, one GRPO step, the engine tick and the pair wave over the gathered
-    weights, whose greedy tokens equal a single-process run's."""
+    """python -m zoomearth_tpu_torch.parallel.dryrun 4 --device cpu: the JAX package's
+    factorization, a (1, 2, 2) mesh, one SFT step, one GRPO step, the engine tick and
+    the pair wave over the gathered weights, whose greedy tokens equal a
+    single-process run's."""
     lines = dryrun_multichip(4, device="cpu")
-    assert lines[0] == "mesh: {'data': 2, 'fsdp': 2, 'tensor': 1}"
+    assert lines[0] == "mesh: {'data': 1, 'fsdp': 2, 'tensor': 2}"
     heads = ["one SFT step OK", "one GRPO step OK", "engine prefill/decode tick OK", "pair-pipelined wave tick OK",
              "engine and pair-wave tokens equal a single-process run"]
     assert [h for h in heads for ln in lines[1:] if h in ln] == heads

@@ -36,7 +36,7 @@ from zoomearth_tpu.train.data import SFTSample as JSFTSample
 from zoomearth_tpu_torch.agent.processor import Processor
 from zoomearth_tpu_torch.cli import train_sft as CLI
 from zoomearth_tpu_torch.config import VLMConfig
-from zoomearth_tpu_torch.models.params import (export_hf_state_dict, load_hf_checkpoint, map_tree,
+from zoomearth_tpu_torch.models.params import (export_hf_state_dict, hf_config_dict, load_hf_checkpoint, map_tree,
                                                params_from_numpy, save_hf_checkpoint, tree_leaves)
 from zoomearth_tpu_torch.models.vlm import masked_ce_loss
 from zoomearth_tpu_torch.tokenizer import FakeTokenizer
@@ -373,8 +373,9 @@ _CLI_BASE = ["--model_name", "m", "--dataset_name_train", "d.jsonl", "--img_fold
                                        (["--num_processes", "2"], None),
                                        (["--coordinator_address", "localhost:1234", "--num_processes", "2",
                                          "--process_id", "0"], None), ([], "2")])
-def test_cli_refuses_mesh_flags_and_multi_process_launches(monkeypatch, extra, env):
-    """--tensor above 1 is refused, naming its ROADMAP item; --fsdp 2 in a world of one
+def test_cli_refuses_mesh_flags_and_multi_process_launches(monkeypatch, tmp_path, extra, env):
+    """--tensor 4 is refused, naming the head counts of the model's config.json (the
+    tiny config's 2 key/value heads do not split 4 ways); --fsdp 2 in a world of one
     process fails on the mesh's size, as the JAX package's make_mesh does; a
     multi-process launch (--num_processes with torchrun's RANK and MASTER_ADDR, the
     JAX CLI's three flags, or WORLD_SIZE) reaches the rendezvous with the arguments it
@@ -384,8 +385,13 @@ def test_cli_refuses_mesh_flags_and_multi_process_launches(monkeypatch, extra, e
         for k in ("COORDINATOR_ADDRESS", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "RANK"):
             monkeypatch.delenv(k, raising=False)
         if extra[0] == "--tensor":
-            with pytest.raises(SystemExit, match=r"--tensor 4: training over the tensor axis is ROADMAP"):
-                CLI.main(_CLI_BASE + extra)
+            model = tmp_path / "m"
+            model.mkdir()
+            (model / "config.json").write_text(json.dumps(hf_config_dict(CFG)))
+            argv = [str(model) if a == "m" else a for a in _CLI_BASE]
+            with pytest.raises(SystemExit, match=r"--tensor 4: a tensor axis of 4 does not divide the head counts "
+                                                 r"\(decoder num_attention_heads 4, decoder num_key_value_heads 2"):
+                CLI.main(argv + extra)
         else:
             with pytest.raises(ValueError, match=r"1 ranks not divisible by fsdp\*tensor=2"):
                 CLI.main(_CLI_BASE + extra)

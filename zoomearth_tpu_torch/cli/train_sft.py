@@ -10,18 +10,21 @@ unless --device names another (without a CUDA device and without --device cpu it
 raises). A multi-process launch joins the process group first (parallel/multihost.py):
 --num_processes, --coordinator_address and --process_id, as the JAX CLI takes them, or
 torchrun's RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT; the processes then train one
-model over a (data, fsdp) mesh of the world (--fsdp; data takes the rest), and rank 0
-alone writes. --fsdp beyond the world fails on the mesh's size; --tensor above 1 is
-refused (the tensor axis is a later ROADMAP item).
+model over a (data, fsdp, tensor) mesh of the world (--fsdp, --tensor; data takes the
+rest), and rank 0 alone writes. A --tensor that does not divide the model's head
+counts (its config.json's) is refused before anything is loaded; --fsdp and --tensor
+beyond the world fail on the mesh's size.
 
-    torchrun --nproc_per_node 2 -m zoomearth_tpu_torch.cli.train_sft ... --fsdp 2 --device cpu
+    torchrun --nproc_per_node 2 -m zoomearth_tpu_torch.cli.train_sft ... --tensor 2 --device cpu
+    torchrun --nproc_per_node 2 -m zoomearth_tpu_torch.cli.train_sft ... --tensor 2 --backend gloo --device cuda:0
 """
 
 from __future__ import annotations
 
 import argparse
 
-from ..parallel.mesh import TENSOR_AXIS_ITEM, make_mesh
+from ..config import VLMConfig
+from ..parallel.mesh import check_tensor_heads, make_mesh
 from ..parallel.multihost import initialize, rank_device
 from ..train.data import load_sft_dataset
 from ..train.sft import SFTConfig
@@ -60,7 +63,8 @@ def add_launch_args(p, *, mesh_axes: bool = True) -> None:
     (train_sft's, as the JAX CLIs have them)."""
     if mesh_axes:
         p.add_argument("--fsdp", type=int, default=1, help="fsdp mesh axis size")
-        p.add_argument("--tensor", type=int, default=1, help=f"tensor mesh axis size (only 1: {TENSOR_AXIS_ITEM})")
+        p.add_argument("--tensor", type=int, default=1,
+                       help="tensor mesh axis size (must divide the decoder's and the ViT's head counts)")
     # multi-process launch (torchrun --master_addr/--nnodes/--node_rank analog,
     # reference run_scripts/train_grpo.sh:34-36); torchrun's environment works too
     p.add_argument("--coordinator_address", default=None, help="host:port of rank 0's rendezvous")
@@ -71,15 +75,19 @@ def add_launch_args(p, *, mesh_axes: bool = True) -> None:
 
 def join_mesh(args, prog: str):
     """Join the process group where the launch asks for one, then the mesh:
-    (device, mesh or None). --tensor above 1 is refused before anything starts."""
-    if getattr(args, "tensor", 1) != 1:
-        raise SystemExit(f"{prog}: --tensor {args.tensor}: training over the tensor axis is {TENSOR_AXIS_ITEM}; "
-                         "drop the flag")
+    (device, mesh or None). A --tensor above 1 that does not divide the head counts of
+    the model's config is refused before anything starts."""
+    tensor = getattr(args, "tensor", 1)
+    if tensor != 1:
+        try:
+            check_tensor_heads(VLMConfig.from_hf_dir(args.model_name), tensor)
+        except ValueError as e:
+            raise SystemExit(f"{prog}: --tensor {tensor}: {e}") from None
     joined = initialize(args.coordinator_address, args.num_processes, args.process_id, backend=args.backend,
                         device=args.device)
     device = rank_device(args.device)
     fsdp = getattr(args, "fsdp", 1)
-    mesh = make_mesh(data=-1, fsdp=fsdp, tensor=1) if joined or fsdp != 1 else None
+    mesh = make_mesh(data=-1, fsdp=fsdp, tensor=tensor) if joined or fsdp != 1 or tensor != 1 else None
     return device, mesh
 
 

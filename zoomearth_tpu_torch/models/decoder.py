@@ -177,7 +177,8 @@ def _slice_write(cache: torch.Tensor, start: torch.Tensor, values: torch.Tensor)
 
 
 def _project_qkv(p, cfg: TextConfig, x, cos, sin):
-    """x (B, S, E) -> rotated q (B, S, H, D), rotated k and v (B, S, Hkv, D)."""
+    """x (B, S, E) -> rotated q (B, S, H, D), rotated k and v (B, S, Hkv, D). The
+    separate layout's head counts are its matrices' (a tensor rank's own heads)."""
     B, S, _ = x.shape
     H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     if "wqkv" in p:  # fused layout: one matmul, then split
@@ -186,9 +187,9 @@ def _project_qkv(p, cfg: TextConfig, x, cos, sin):
         k = qkv[..., H * D : (H + Hkv) * D].reshape(B, S, Hkv, D)
         v = qkv[..., (H + Hkv) * D :].reshape(B, S, Hkv, D)
     else:
-        q = (qdot(x, p["wq"]) + p["bq"]).reshape(B, S, H, D)
-        k = (qdot(x, p["wk"]) + p["bk"]).reshape(B, S, Hkv, D)
-        v = (qdot(x, p["wv"]) + p["bv"]).reshape(B, S, Hkv, D)
+        q = (qdot(x, p["wq"]) + p["bq"]).reshape(B, S, -1, D)
+        k = (qdot(x, p["wk"]) + p["bk"]).reshape(B, S, -1, D)
+        v = (qdot(x, p["wv"]) + p["bv"]).reshape(B, S, -1, D)
     return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
 
 
@@ -244,9 +245,15 @@ def _attn_layer(
     write_pos=None,  # (B, S) explicit kv write slots; >= T drops
     attend_len: Optional[int] = None,  # decode attends only cache[:, :, :attend_len]
     index=None,  # write_index(write_pos, T), shared by every layer of the forward
+    tp=None,  # parallel.collectives.TensorParallel at this layer's attn (no-cache path only)
 ):
     B, S, _ = x.shape
-    H, D = cfg.num_attention_heads, cfg.head_dim
+    split = False
+    if tp is not None:
+        _separate_layout(tp, p, "wqkv")
+        p, split = tp.block(p, cols=("wq", "wk", "wv"), rows=("wo",))
+        if split:
+            x = tp.f(x)
     q, k, v = _project_qkv(p, cfg, x, cos, sin)
 
     if cache_kv is None:
@@ -260,15 +267,32 @@ def _attn_layer(
         _require_no_grad(q)
         _cache_write(cache_kv, k, v, cache_len, write_pos, index)
         out = flash_causal_attention(q, cache_kv[0], cache_kv[1], positions, cache_len + S, cache_kv[2], cache_kv[3])
-    return qdot(out.reshape(B, S, H * D), p["wo"])
+    out = qdot(out.reshape(B, S, -1), p["wo"])
+    return tp.g(out) if split else out
 
 
-def _mlp(p, x):
+def _separate_layout(tp, p, fused: str) -> None:
+    """A tensor-parallel forward takes the separate layout the rules split; the fused
+    inference layout (ops.quant.fuse_decoder_matmuls) is refused."""
+    if fused in p:
+        raise ValueError(f"{tp.path}: a tensor-parallel forward takes the separate layout, not the fused {fused!r}")
+
+
+def _mlp(p, x, tp=None):
+    """SwiGLU; with `tp` on this rank's slice of the width when the block's matrices
+    are split (then all-reduced over tensor)."""
+    split = False
+    if tp is not None:
+        _separate_layout(tp, p, "wgu")
+        p, split = tp.block(p, cols=("wg", "wu"), rows=("wd",))
+        if split:
+            x = tp.f(x)
     if "wgu" in p:  # fused layout: one gate|up matmul, then split
         gu = qdot(x, p["wgu"])
         F_ = gu.shape[-1] // 2
         return qdot(F.silu(gu[..., :F_]) * gu[..., F_:], p["wd"])
-    return qdot(F.silu(qdot(x, p["wg"])) * qdot(x, p["wu"]), p["wd"])
+    out = qdot(F.silu(qdot(x, p["wg"])) * qdot(x, p["wu"]), p["wd"])
+    return tp.g(out) if split else out
 
 
 def decoder_forward(
@@ -283,6 +307,7 @@ def decoder_forward(
     write_pos: Optional[torch.Tensor] = None,
     attend_len: Optional[int] = None,
     index=None,  # write_index(write_pos, T) when the caller has it (S > 1)
+    tp=None,  # parallel.collectives.TensorParallel at params (a tensor mesh's training forward)
 ):
     """Run the decoder stack. Returns (hidden_states, cache) — the same cache object,
     written in place, with length advanced in place by S when update_cache_len.
@@ -290,7 +315,13 @@ def decoder_forward(
     - No cache: attn_positions defaults to iota and attn_valid must be a right-padded
       prefix mask (slot order == position order).
     - Cache prefill/decode: attn_positions are cache slot indices (cache_len + iota).
-    M-RoPE position_ids drive the rotary; attn_positions drive causal masking."""
+    M-RoPE position_ids drive the rotary; attn_positions drive causal masking.
+
+    tp: the no-cache path over a tensor mesh: each layer's attention and MLP run on
+    this rank's heads and width where the rules split them (K2 on the local heads),
+    whole otherwise (TensorParallel.block)."""
+    if tp is not None and cache is not None:
+        raise ValueError("decoder: a tensor-parallel forward is the no-cache training path; decode on the gathered tree")
     B, S, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     if attn_positions is None:
@@ -308,10 +339,11 @@ def decoder_forward(
             cache.layer(i) if cache is not None else None,
             cache.length if cache is not None else None,
             write_pos=write_pos, attend_len=attend_len, index=index,
+            tp=None if tp is None else tp.at("layers", i, "attn"),
         )
         x = x + attn_out
         h = rms_norm(x, layer["post_ln"]["scale"], cfg.rms_norm_eps)
-        x = x + _mlp(layer["mlp"], h)
+        x = x + _mlp(layer["mlp"], h, None if tp is None else tp.at("layers", i, "mlp"))
     x = rms_norm(x, params["final_ln"]["scale"], cfg.rms_norm_eps)
     if cache is not None and update_cache_len:
         cache.length.add_(S)

@@ -236,7 +236,19 @@ def _vit_norm(p, cfg: VisionConfig, x):
     return rms_norm(x, p["scale"], cfg.rms_norm_eps)
 
 
-def _vit_mlp(p, cfg: VisionConfig, h):
+def _vit_mlp(p, cfg: VisionConfig, h, tp=None):
+    """The block's MLP; with `tp` on this rank's slice of the width where the rules
+    split its matrices (the replicated column biases sliced, the row bias added after
+    the all-reduce)."""
+    if tp is not None:
+        p, split = tp.block(p, cols=("wg", "wu", "w1"), rows=("wd", "w2"), col_biases=("bg", "bu", "b1"))
+        if split:
+            h = tp.f(h)
+            if cfg.mlp_type == "gelu_fc":
+                z = h @ p["w1"] + p["b1"]
+                z = z * torch.sigmoid(1.702 * z) if cfg.hidden_act == "quick_gelu" else F.gelu(z, approximate="none")
+                return tp.g(z @ p["w2"]) + p["b2"]
+            return tp.g((F.silu(h @ p["wg"] + p["bg"]) * (h @ p["wu"] + p["bu"])) @ p["wd"]) + p["bd"]
     if cfg.mlp_type == "gelu_fc":
         z = h @ p["w1"] + p["b1"]
         if cfg.hidden_act == "quick_gelu":
@@ -249,20 +261,31 @@ def _vit_mlp(p, cfg: VisionConfig, h):
     return (g * u) @ p["wd"] + p["bd"]
 
 
-def _vit_block(params, cfg: VisionConfig, x, seg, cos, sin, attn_fn=flash_segment_attention):
-    """One ViT block: norm -> segment attention (2D RoPE) -> norm -> MLP."""
+def _vit_block(params, cfg: VisionConfig, x, seg, cos, sin, attn_fn=flash_segment_attention, tp=None):
+    """One ViT block: norm -> segment attention (2D RoPE) -> norm -> MLP. With `tp` the
+    attention runs on this rank's heads where the rules split wqkv and wo (the
+    head-aligned pieces of parallel/mesh.py), the output bias added after the
+    all-reduce."""
     S = x.shape[0]
     h = _vit_norm(params["norm1"], cfg, x)
-    qkv = h @ params["attn"]["wqkv"] + params["attn"]["bqkv"]
-    qkv = qkv.reshape(S, 3, cfg.num_heads, cfg.head_dim)
+    p, split = params["attn"], False
+    if tp is not None:
+        p, split = tp.at("attn").block(p, cols=("wqkv",), rows=("wo",))
+        if split:
+            h = tp.f(h)
+    qkv = h @ p["wqkv"] + p["bqkv"]
+    qkv = qkv.reshape(S, 3, -1, cfg.head_dim)
     q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
     attn = attn_fn(q, k, v, seg)
-    attn = attn.reshape(S, cfg.hidden_size) @ params["attn"]["wo"] + params["attn"]["bo"]
+    if split:
+        attn = tp.g(attn.reshape(S, -1) @ p["wo"]) + p["bo"]
+    else:
+        attn = attn.reshape(S, cfg.hidden_size) @ p["wo"] + p["bo"]
     x = x + attn
     h = _vit_norm(params["norm2"], cfg, x)
-    return x + _vit_mlp(params["mlp"], cfg, h)
+    return x + _vit_mlp(params["mlp"], cfg, h, None if tp is None else tp.at("mlp"))
 
 
 def vit_forward(
@@ -276,6 +299,7 @@ def vit_forward(
     pos_ids: torch.Tensor,  # (S, 2)
     win_mode: int = 0,
     win_plan=None,  # (win_gidx, win_valid, win_sidx); required iff win_mode == 1
+    tp=None,  # parallel.collectives.TensorParallel at params (a tensor mesh's training forward)
 ) -> torch.Tensor:
     """Packed ViT forward -> (S/m², out_hidden_size) merged vision embeddings in image
     order: real merged tokens first, bucket pad rows at the tail.
@@ -309,11 +333,17 @@ def vit_forward(
             seg, attn_fn = seg_full, flash_segment_attention
         else:
             seg, attn_fn = seg_window, win_attn
-        x = _vit_block(params["blocks"][i], cfg, x, seg, cos, sin, attn_fn)
+        x = _vit_block(params["blocks"][i], cfg, x, seg, cos, sin, attn_fn, None if tp is None else tp.at("blocks", i))
     # Patch merger: norm, merge each group of merge_unit consecutive patches (window
-    # order), 2-layer MLP.
-    x = _vit_norm(params["merger"]["ln_q"], cfg, x)
+    # order), 2-layer MLP (w0 column-split and w1 row-split over a tensor mesh).
+    m = params["merger"]
+    x = _vit_norm(m["ln_q"], cfg, x)
     x = x.reshape(-1, cfg.merge_unit * cfg.hidden_size)
-    x = F.gelu(x @ params["merger"]["w0"] + params["merger"]["b0"], approximate="none")
-    x = x @ params["merger"]["w1"] + params["merger"]["b1"]
+    if tp is not None:
+        m, split = tp.at("merger").block(m, cols=("w0",), rows=("w1",), col_biases=("b0",))
+        if split:
+            x = F.gelu(tp.f(x) @ m["w0"] + m["b0"], approximate="none")
+            return (tp.g(x @ m["w1"]) + m["b1"]).index_select(0, inv_perm_merged)
+    x = F.gelu(x @ m["w0"] + m["b0"], approximate="none")
+    x = x @ m["w1"] + m["b1"]
     return x.index_select(0, inv_perm_merged)

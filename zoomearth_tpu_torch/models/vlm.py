@@ -41,14 +41,16 @@ def _win_plan(vision_meta: dict):
     return None
 
 
-def compute_vision_embeds(params, cfg: VLMConfig, pixel_values, vision_meta, win_mode: int = 0):
+def compute_vision_embeds(params, cfg: VLMConfig, pixel_values, vision_meta, win_mode: int = 0, tp=None):
     """Run just the vision tower: packed patches -> (N_merged, E) merged embeddings in
-    image order. vision_meta holds device tensors (vit.meta_to_device)."""
+    image order. vision_meta holds device tensors (vit.meta_to_device). tp: the
+    TensorParallel view of the whole tree on a tensor mesh (parallel/collectives.py),
+    None elsewhere."""
     return vit_forward(
         params["vision"], cfg.vision, pixel_values,
         vision_meta["perm"], vision_meta["inv_perm_merged"],
         vision_meta["seg_window"], vision_meta["seg_full"], vision_meta["pos_ids"],
-        win_mode=win_mode, win_plan=_win_plan(vision_meta),
+        win_mode=win_mode, win_plan=_win_plan(vision_meta), tp=None if tp is None else tp.at("vision"),
     )
 
 
@@ -69,6 +71,7 @@ def vlm_forward(
     attend_len: Optional[int] = None,
     vision_embeds: Optional[torch.Tensor] = None,  # (N_merged, E) from compute_vision_embeds
     write_index=None,  # decoder.write_index(write_pos, T), where the caller has it
+    tp=None,  # TensorParallel view of the whole tree on a tensor mesh (no-cache training forward)
 ):
     """Full forward -> (logits fp32, cache).
 
@@ -79,14 +82,14 @@ def vlm_forward(
     given: then only that position's hidden state is projected."""
     x = embed_tokens(params, input_ids)
     if pixel_values is not None and vision_embeds is None:
-        vision_embeds = compute_vision_embeds(params, cfg, pixel_values, vision_meta, win_mode)
+        vision_embeds = compute_vision_embeds(params, cfg, pixel_values, vision_meta, win_mode, tp)
     if vision_embeds is not None:
         x = merge_vision_embeddings(x, vision_embeds, input_ids == cfg.tokens.image_pad)
     hidden, cache = decoder_forward(
         params["text"], cfg.text, x, position_ids,
         attn_positions=attn_positions, attn_valid=attn_valid, cache=cache,
         update_cache_len=update_cache_len, write_pos=write_pos, attend_len=attend_len,
-        index=write_index,
+        index=write_index, tp=None if tp is None else tp.at("text"),
     )
     if logit_index is not None:
         hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device), logit_index.long()]

@@ -4,17 +4,28 @@ The port's model is a functional tree of tensors with no nn.Module to wrap, so t
 is no DDP or FSDP wrapper: the step calls these explicitly.
 
 - `gather_for_compute`: the forward's view of a sharded tree. Each leaf split on the
-  fsdp axis is all-gathered by `GatherShard`, an autograd.Function whose backward
-  keeps this rank's slice of the full gradient. Ranks of one fsdp group take the same
-  rows (the batch is split on `data` only, as the JAX package's batch_shardings
-  split it), so their full gradients are equal and the slice needs no reduction: a
-  reduce-scatter would count them fsdp times. `torch.autograd.grad` against the shard
-  leaves then gives shard gradients, and the optimizer steps shards (ZeRO-3).
-- `reduce_gradients`: the sum over the data axis. A leaf split on fsdp sums its slice
-  over the data group. A leaf every rank holds whole sums over the data group too,
-  but where fsdp > 1 it goes over the world with the gradients of fsdp ranks other
-  than the first set to zero: one all-reduce, the same bits on every rank, so
-  replicas cannot drift.
+  fsdp axis is all-gathered over fsdp by `GatherShard`, an autograd.Function whose
+  backward keeps this rank's slice of the full gradient; a dimension split on tensor
+  stays this rank's piece. Ranks of one fsdp group take the same rows (the batch is
+  split on `data` only, as the JAX package's batch_shardings split it), so their full
+  gradients are equal and the slice needs no reduction: a reduce-scatter would count
+  them fsdp times. `torch.autograd.grad` against the shard leaves then gives shard
+  gradients, and the optimizer steps shards (ZeRO-3).
+- `TensorParallel`: the tensor axis inside the forward (Megatron's layout). Each rank
+  of a tensor group takes the same rows and computes its own heads and its own slice
+  of the MLP widths: `f` (identity forward, all-reduce over tensor backward) at the
+  input of each column-split block, `g` (all-reduce forward, identity backward) after
+  each row-split product, the row-split biases added once, after `g`. A replicated
+  bias in front of a column-split matrix is sliced by `SliceLocal`, whose backward
+  all-gathers its pieces, so its gradient is whole on every rank. A block whose
+  column and row matrices are not all split (the decoder's under LoRA, whose wrapped
+  matrices the rules leave whole) runs whole, its split leaves gathered over tensor by
+  GatherShard.
+- `reduce_gradients`: the sum over the data axis. A leaf split on fsdp or tensor sums
+  its piece over the data group. A leaf every rank holds whole sums over the data
+  group too, but where fsdp or tensor is above 1 it goes over the world with the
+  gradients of every rank whose fsdp or tensor coordinate is not 0 set to zero: one
+  all-reduce, the same bits on every rank, so replicas cannot drift.
 
 Every collective here (all-reduce, all-gather into one tensor, all-gather of
 objects) runs on nccl, and on gloo for CPU and for CUDA tensors alike (gloo copies a
@@ -25,12 +36,12 @@ here switches backend.
 from __future__ import annotations
 
 import collections
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from .mesh import TENSOR_AXIS_ITEM, Mesh, map_with_spec, split
+from .mesh import Mesh, _axes, groups_of, join_pieces, map_with_spec, split, take_piece
 
 BUCKET_BYTES = 256 << 20  # the largest flat buffer one all-reduce of gradients takes
 # bytes of the tensors this process handed to each kind of collective (a gather's
@@ -59,46 +70,165 @@ def all_reduce(t: torch.Tensor, group, op=None) -> torch.Tensor:
     return t
 
 
-def _sharded_dim(spec, mesh: Mesh) -> Optional[int]:
-    """The one dimension of a leaf split over more than one rank, None if none is;
-    only the fsdp axis may split it (tensor > 1 is not trained yet)."""
-    found = None
+def split_dims(spec, mesh: Mesh) -> List[Tuple[int, str]]:
+    """(dimension, axis) of each dimension of a leaf split over more than one rank; a
+    dimension is split on one axis at most (as every rule splits it)."""
+    out = []
     for dim, entry in enumerate(spec):
-        pieces, _ = split(entry, mesh)
-        if pieces > 1:
-            if found is not None or mesh.shape["tensor"] > 1:
-                raise NotImplementedError(f"training over the tensor axis is {TENSOR_AXIS_ITEM}")
-            found = dim
-    return found
+        axes = [a for a in _axes(entry) if mesh.shape[a] > 1]
+        if len(axes) > 1:
+            raise ValueError(f"dimension {dim} of spec {spec} is split on {axes}: one axis a dimension")
+        if axes:
+            out.append((dim, axes[0]))
+    return out
+
+
+def tensor_dim(spec, mesh: Mesh) -> Optional[int]:
+    """The dimension of a leaf split on the tensor axis, None if none is (or `spec` is a
+    LoRA leaf's spec dict)."""
+    if not isinstance(spec, tuple):
+        return None
+    return next((d for d, a in split_dims(spec, mesh) if a == "tensor"), None)
 
 
 class GatherShard(torch.autograd.Function):
-    """All-gather of an fsdp-split leaf for the forward; the backward keeps this
-    rank's slice of the (fsdp-group-identical) full gradient."""
+    """All-gather of a leaf's pieces along one dimension for the forward (joined into
+    the full layout); the backward keeps this rank's piece of the (group-identical)
+    full gradient."""
 
     @staticmethod
-    def forward(ctx, shard, dim, group, index):
-        ctx.dim, ctx.index, ctx.n = dim, index, shard.shape[dim]
-        return all_gather_dim(shard, dim, group)
+    def forward(ctx, shard, dim, group, index, groups):
+        n = dist.get_world_size(group)
+        ctx.dim, ctx.index, ctx.n, ctx.groups = dim, index, n, groups
+        return join_pieces(all_gather_dim(shard, dim, group), dim, n, groups)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad.narrow(ctx.dim, ctx.index * ctx.n, ctx.n).contiguous(), None, None, None
+        return take_piece(grad, ctx.dim, ctx.n, ctx.index, ctx.groups).contiguous(), None, None, None, None
 
 
-def gather_leaf(t: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
-    """The full value of one leaf (differentiable where `t` requires grad)."""
-    dim = _sharded_dim(spec, mesh)
-    if dim is None:
-        return t
-    _, index = split(spec[dim], mesh)
-    return GatherShard.apply(t, dim, mesh.group("fsdp"), index)
+def gather_leaf(t: torch.Tensor, spec, mesh: Mesh, axis: str = "fsdp") -> torch.Tensor:
+    """`t` with its dimension split on `axis` gathered (differentiable where `t`
+    requires grad); the other dimensions stay this rank's piece."""
+    for dim, a in split_dims(spec, mesh):
+        if a == axis:
+            _, index = split(spec[dim], mesh)
+            t = GatherShard.apply(t, dim, mesh.group(axis), index, groups_of(spec, dim))
+    return t
 
 
 def gather_for_compute(tree, specs, mesh: Mesh):
-    """The full parameter tree the forward reads: sharded leaves gathered (through
-    GatherShard, so their gradients come back as slices), the others as they are."""
+    """The parameter tree the forward reads: the fsdp-split leaves gathered (through
+    GatherShard, so their gradients come back as slices), a tensor-split dimension
+    left this rank's piece, the others as they are."""
     return map_with_spec(lambda t, s: gather_leaf(t, s, mesh), tree, specs)
+
+
+class _Copy(torch.autograd.Function):
+    """Megatron's f: the identity forward, an all-reduce of the gradient over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.contiguous().clone(), ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    """Megatron's g: an all-reduce over the group forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class SliceLocal(torch.autograd.Function):
+    """This rank's piece of a replicated leaf along `dim` (a bias in front of a
+    column-split matrix); the backward all-gathers every rank's gradient piece, so
+    the leaf's gradient is whole and the same on every rank of the group."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, index, groups):
+        n = dist.get_world_size(group)
+        ctx.dim, ctx.group, ctx.n, ctx.groups = dim, group, n, groups
+        return take_piece(x, dim, n, index, groups).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        full = join_pieces(all_gather_dim(grad.contiguous(), ctx.dim, ctx.group), ctx.dim, ctx.n, ctx.groups)
+        return full, None, None, None, None
+
+
+def f(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's f over `group` (the identity where group is None)."""
+    return x if group is None else _Copy.apply(x, group)
+
+
+def g(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's g over `group` (the identity where group is None)."""
+    return x if group is None else _Reduce.apply(x, group)
+
+
+class TensorParallel:
+    """The forward's view of the tensor axis (see the module docstring): the mesh's
+    tensor group, and the specs of the subtree the forward is in. `at(*keys)` steps
+    into a subtree; `block(p, cols, rows)` says whether a block runs on this rank's
+    heads and columns and gives the leaves it computes with. `blocks` records each
+    block's path and whether it ran split, shared by every view of one forward."""
+
+    def __init__(self, mesh: Mesh, specs, path: str = "", blocks: Optional[list] = None):
+        self.mesh, self.specs, self.path = mesh, specs, path
+        self.group = mesh.group("tensor")
+        self.size, self.index = mesh.shape["tensor"], mesh.coordinate["tensor"]
+        self.blocks = [] if blocks is None else blocks
+
+    def at(self, *keys) -> "TensorParallel":
+        specs, path = self.specs, self.path
+        for k in keys:
+            specs, path = specs[k], f"{path}/{k}" if path else str(k)
+        return TensorParallel(self.mesh, specs, path, self.blocks)
+
+    def f(self, x: torch.Tensor) -> torch.Tensor:
+        return f(x, self.group)
+
+    def g(self, x: torch.Tensor) -> torch.Tensor:
+        return g(x, self.group)
+
+    def block(self, p: dict, cols: Sequence[str], rows: Sequence[str], col_biases: Sequence[str] = ()):
+        """(leaves, split) of a block whose column-split matrices are among `cols` and
+        row-split ones among `rows` (names the block lacks are skipped). split: every
+        one of them is tensor-split here, and the block runs on this rank's pieces, the
+        replicated `col_biases` sliced to its columns (SliceLocal). Else the block runs
+        whole: its tensor-split leaves are gathered over tensor (GatherShard)."""
+        names = [n for n in tuple(cols) + tuple(rows) if n in p]
+        if not names:
+            raise ValueError(f"{self.path}: none of {tuple(cols) + tuple(rows)} in the block")
+        split_ = all(tensor_dim(self.specs[n], self.mesh) is not None for n in names)
+        out = dict(p)
+        if split_:
+            for n in col_biases:
+                if n in p and tensor_dim(self.specs[n], self.mesh) is None:
+                    out[n] = SliceLocal.apply(p[n], p[n].dim() - 1, self.group, self.index, 1)
+        else:
+            out = map_with_spec(lambda t, s: gather_leaf(t, s, self.mesh, "tensor"), p, self.specs)
+        self.blocks.append((self.path, split_))
+        return out, split_
+
+
+def tensor_parallel(mesh: Optional[Mesh], specs) -> Optional[TensorParallel]:
+    """The TensorParallel view of `mesh` over a tree with spec tree `specs`; None
+    without a mesh or where its tensor axis is 1 (the forward is then the one-device
+    forward, bit for bit)."""
+    if mesh is None or mesh.shape["tensor"] == 1:
+        return None
+    return TensorParallel(mesh, specs)
 
 
 def _flat_all_reduce(tensors: Sequence[torch.Tensor], group) -> None:
@@ -131,18 +261,16 @@ def reduce_gradients(grads: Sequence[torch.Tensor], specs: Sequence, mesh: Mesh)
     grads = list(grads)
     if mesh.size == 1:
         return grads
-    if mesh.shape["tensor"] > 1:
-        raise NotImplementedError(f"training over the tensor axis is {TENSOR_AXIS_ITEM}")
     split_leaves, whole = [], []
-    for g, s in zip(grads, specs):
-        (split_leaves if _sharded_dim(s, mesh) is not None else whole).append(g)
+    for grad, s in zip(grads, specs):
+        (split_leaves if split_dims(s, mesh) else whole).append(grad)
     if mesh.shape["data"] > 1 and split_leaves:
         _flat_all_reduce(split_leaves, mesh.group("data"))
     if whole:
-        if mesh.shape["fsdp"] > 1:
-            if mesh.coordinate["fsdp"] != 0:
-                for g in whole:
-                    g.zero_()
+        if mesh.shape["fsdp"] > 1 or mesh.shape["tensor"] > 1:
+            if mesh.coordinate["fsdp"] != 0 or mesh.coordinate["tensor"] != 0:
+                for grad in whole:
+                    grad.zero_()
             _flat_all_reduce(whole, mesh.world_group())
         elif mesh.shape["data"] > 1:
             _flat_all_reduce(whole, mesh.group("data"))

@@ -4,8 +4,9 @@ four sharded surfaces (port of the JAX package's `entry()` / `dryrun_multichip`)
 - entry(): (fn, example_args) for the forward of the flagship model (Qwen2.5-VL-3B
   config, zero weights on the `meta` device unless another is named: nothing is
   allocated, and the caller moves what it runs).
-- dryrun_multichip(n): n ranks on this host over a (data, fsdp) mesh (n = 4: data 2,
-  fsdp 2; the tensor axis stays 1, a later ROADMAP item) run, on the tiny config, one
+- dryrun_multichip(n): n ranks on this host over a (data, fsdp, tensor) mesh, factored
+  as the JAX package factors it (tensor 2 and fsdp 2 where they fit: n = 4 is data 1,
+  fsdp 2, tensor 2) run, on the tiny config, one
   sharded SFT step, one GRPO step, a serving-engine prefill and decode tick and a
   pair-pipelined wave over the mesh's gathered weights, and print a line for each.
   The engine's and the wave's greedy tokens must be the same on every rank and
@@ -158,8 +159,10 @@ def _rank_main(rank, world, addr, device=None, backend=None, out=None):
     dev = rank_device(device, rank)
     if dev.type == "cpu":
         torch.set_num_threads(1)
-    fsdp = 2 if world % 2 == 0 else 1
-    mesh = make_mesh(data=-1, fsdp=fsdp, tensor=1)
+    # the JAX package's factorization: 2-way tensor and 2-way fsdp where they fit
+    tensor = 2 if world % 2 == 0 else 1
+    fsdp = 2 if world % (2 * tensor) == 0 else 1
+    mesh = make_mesh(data=-1, fsdp=fsdp, tensor=tensor)
     lead = rank == 0
 
     def say(msg):

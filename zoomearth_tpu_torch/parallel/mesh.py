@@ -10,13 +10,23 @@ on the same three axes, with one torch.distributed process group per axis
 - ``fsdp``   — parameter/optimizer sharding (ZeRO-3): each rank keeps a slice of every
                leaf the rules shard; the training step gathers them for the forward
                (parallel/collectives.py)
-- ``tensor`` — megatron-style intra-layer sharding: the rules give its specs, as the
-               JAX package's do; training with tensor > 1 is a later ROADMAP item
+- ``tensor`` — megatron-style intra-layer sharding: each rank holds its own heads and
+               its own slice of the MLP widths (column-split q/k/v, gate, up; row-split
+               o, down), and the forward all-reduces twice a layer
+               (parallel/collectives.py::TensorParallel)
 
 A spec is the port's counterpart of a `PartitionSpec`: a tuple with one entry per
 leading dimension, each an axis name, a tuple of axis names, or None (not split);
 `()` is replicated. Ranks lie on the mesh in row-major order, rank = (d * fsdp + f) *
 tensor + t, the layout `init_device_mesh` gives.
+
+A rank's piece of a leaf is the JAX package's shard of it, except for the ViT's fused
+q|k|v (`vision/blocks/*/attn/wqkv` and `bqkv`, spec `QKVSpec`): its columns are
+[3][H][D], and a contiguous piece of them is not a set of heads (at 3B with tensor 2
+it is all of q and half of k). Its tensor piece is this rank's heads of q, k and v
+together. `take_piece` / `join_pieces` are the one pair of functions that go between
+the two layouts; every full tree (checkpoints, the HF export, a rollout's gathered
+tree, the optimizer's state_dict) stays in the JAX layout.
 """
 
 from __future__ import annotations
@@ -28,7 +38,6 @@ import numpy as np
 import torch
 
 AXES = ("data", "fsdp", "tensor")
-TENSOR_AXIS_ITEM = "ROADMAP §1 item 7 (the tensor axis)"
 
 
 class Mesh:
@@ -107,6 +116,48 @@ def make_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1, world_size: Option
 
 Spec = Tuple
 
+
+class QKVSpec(tuple):
+    """The spec of a fused [3][H][D] q|k|v dimension: its tensor piece is this rank's
+    heads of each of the `groups` parts (see the module docstring). Equal to the plain
+    tuple, which is the JAX package's spec."""
+
+    groups = 3
+
+
+def groups_of(spec, dim: int) -> int:
+    """How many parts a piece of `dim` takes its share of: a QKVSpec's tensor dimension
+    has 3 (q, k and v), every other dimension 1."""
+    if dim < len(spec) and "tensor" in _axes(spec[dim]):
+        return getattr(spec, "groups", 1)
+    return 1
+
+
+def take_piece(x, dim: int, pieces: int, index: int, groups: int = 1):
+    """Piece `index` of `pieces` along `dim` (a view): contiguous, or with groups > 1
+    the same piece of each of the dimension's `groups` equal parts, side by side. A
+    tensor or a numpy array."""
+    n = x.shape[dim]
+    if n % (pieces * groups):
+        raise ValueError(f"dimension {dim} of a {tuple(x.shape)} value does not split {pieces} ways"
+                         + (f" in each of its {groups} parts" if groups > 1 else ""))
+    m = n // groups // pieces
+    if groups == 1:
+        return x[(slice(None),) * dim + (slice(index * m, (index + 1) * m),)]
+    parts = x.reshape(tuple(x.shape[:dim]) + (groups, n // groups) + tuple(x.shape[dim + 1:]))
+    piece = parts[(slice(None),) * (dim + 1) + (slice(index * m, (index + 1) * m),)]
+    return piece.reshape(tuple(x.shape[:dim]) + (groups * m,) + tuple(x.shape[dim + 1:]))
+
+
+def join_pieces(x, dim: int, pieces: int, groups: int = 1):
+    """take_piece's inverse: `x` holds every piece along `dim` in index order (an
+    all-gather's output); returns the full value."""
+    if groups == 1:
+        return x
+    n = x.shape[dim]
+    parts = x.reshape(tuple(x.shape[:dim]) + (pieces, groups, n // pieces // groups) + tuple(x.shape[dim + 1:]))
+    return parts.swapaxes(dim, dim + 1).reshape(x.shape)
+
 # Megatron-style layout: column-parallel (out dim on tensor) for qkv/gate/up,
 # row-parallel (in dim on tensor) for o/down; the other matmul dim shards on fsdp
 # (ZeRO-3 style). Norm scales and small biases stay replicated on fsdp but biases of
@@ -121,8 +172,8 @@ DEFAULT_RULES: Tuple[Tuple[str, Spec], ...] = (
     (r"text/layers/\d+/mlp/wd$", ("tensor", "fsdp")),
     (r"text/(embed|lm_head)/weight$", ("fsdp", None)),
     # vision tower
-    (r"vision/blocks/\d+/attn/wqkv$", ("fsdp", "tensor")),
-    (r"vision/blocks/\d+/attn/bqkv$", ("tensor",)),
+    (r"vision/blocks/\d+/attn/wqkv$", QKVSpec(("fsdp", "tensor"))),
+    (r"vision/blocks/\d+/attn/bqkv$", QKVSpec(("tensor",))),
     (r"vision/blocks/\d+/attn/wo$", ("tensor", "fsdp")),
     (r"vision/blocks/\d+/mlp/w[gu]$", ("fsdp", "tensor")),
     (r"vision/blocks/\d+/mlp/wd$", ("tensor", "fsdp")),
@@ -190,7 +241,7 @@ def param_shardings(params, mesh: Mesh, rules: Sequence[Tuple[str, Spec]] = DEFA
     def assign(path, leaf):
         for pattern, spec in rules:
             if re.search(pattern, path) and _spec_fits(spec, tuple(leaf.shape), mesh):
-                return tuple(spec)
+                return spec
         return ()
 
     return map_with_path(assign, params)
@@ -210,22 +261,35 @@ def is_sharded(spec: Spec, mesh: Mesh) -> bool:
     return any(split(entry, mesh)[0] > 1 for entry in spec)
 
 
+def split_axes(spec: Spec, mesh: Mesh) -> Tuple[str, ...]:
+    """The axes of the mesh (of size > 1) that split a leaf under `spec`."""
+    return tuple(a for entry in spec for a in _axes(entry) if mesh.shape[a] > 1)
+
+
 def local_slice(x, spec: Spec, mesh: Mesh):
-    """This rank's slice of a full value under `spec` (a tensor or a numpy array; the
-    value itself where nothing is split). A tensor's slice is a copy, so the full
-    tensor can be freed."""
+    """This rank's piece of a full value under `spec` (a tensor or a numpy array; the
+    value itself where nothing is split), through take_piece. A tensor's piece is a
+    copy, so the full tensor can be freed."""
     if not is_sharded(spec, mesh):
         return x
-    shape = tuple(x.shape)
-    index = []
+    out = x
     for dim, entry in enumerate(spec):
         pieces, i = split(entry, mesh)
-        if shape[dim] % pieces:
-            raise ValueError(f"dimension {dim} of a {shape} value does not split {pieces} ways")
-        n = shape[dim] // pieces
-        index.append(slice(i * n, (i + 1) * n))
-    out = x[tuple(index)]
+        if pieces > 1:
+            out = take_piece(out, dim, pieces, i, groups_of(spec, dim))
     return out.clone() if isinstance(out, torch.Tensor) else np.ascontiguousarray(out)
+
+
+def check_tensor_heads(cfg, tensor: int) -> None:
+    """Refuse a tensor axis that does not divide the decoder's query or key/value head
+    counts or the ViT's, naming them: each rank computes whole heads of its own."""
+    t = int(tensor)
+    heads = {"decoder num_attention_heads": cfg.text.num_attention_heads,
+             "decoder num_key_value_heads": cfg.text.num_key_value_heads,
+             "ViT num_heads": cfg.vision.num_heads}
+    if t > 1 and any(h % t for h in heads.values()):
+        raise ValueError(f"a tensor axis of {t} does not divide the head counts "
+                         f"({', '.join(f'{k} {v}' for k, v in heads.items())}): each rank computes whole heads")
 
 
 def shard_params(params, mesh: Mesh, rules: Sequence[Tuple[str, Spec]] = DEFAULT_RULES):

@@ -17,8 +17,8 @@ from typing import Optional
 
 import torch
 
-from .collectives import all_gather_dim
-from .mesh import Mesh, is_sharded, local_slice, make_mesh, map_with_spec, split
+from .collectives import all_gather_dim, split_dims
+from .mesh import Mesh, groups_of, is_sharded, join_pieces, local_slice, make_mesh, map_with_spec
 
 INIT_TIMEOUT_S = 600  # a rank that waits longer in the rendezvous or a collective raises
 
@@ -121,7 +121,8 @@ def global_put(tree, specs, mesh: Mesh):
 @torch.no_grad()
 def gather_params(tree, specs, mesh: Mesh, *, root: Optional[int] = None, device=None):
     """The full tree from its shards (the "weight push" of a rollout actor): each leaf
-    split on the mesh is gathered over its axis, the others stay the same tensors. A
+    split on the mesh is gathered over its axes and joined into the JAX layout
+    (mesh.join_pieces), the others stay the same tensors. A
     collective: every rank calls it. root=None gives every rank the tree; root=r
     gives it to rank r and None elsewhere. device moves each gathered leaf there as
     it arrives (a checkpoint gathers onto the host)."""
@@ -130,11 +131,8 @@ def gather_params(tree, specs, mesh: Mesh, *, root: Optional[int] = None, device
     def one(t, spec):
         if not is_sharded(spec, mesh):
             return t if keep else None
-        for dim, entry in enumerate(spec):
-            pieces, _ = split(entry, mesh)
-            if pieces > 1:
-                (axis,) = [a for a in ((entry,) if isinstance(entry, str) else entry) if mesh.shape[a] > 1]
-                t = all_gather_dim(t, dim, mesh.group(axis))
+        for dim, axis in split_dims(spec, mesh):
+            t = join_pieces(all_gather_dim(t, dim, mesh.group(axis)), dim, mesh.shape[axis], groups_of(spec, dim))
         if not keep:
             return None  # freed leaf by leaf
         return t.to(device) if device is not None else t

@@ -10,10 +10,12 @@ latest() finds the newest complete checkpoint; restore() loads a checkpoint onto
 templates' devices and dtypes. The trees may hold dict leaves (a LoRA tree's {"w", "a",
 "b", "s"}); the optimizer state is SFTOptimizer's state_dict, SFT's or GRPO's.
 
-On a mesh the files hold full values, as orbax's global arrays do in the JAX package:
-the loop gathers the tree and the optimizer's state onto rank 0, which alone writes,
-and restore(mesh=, specs=) keeps each rank's slices of what it reads. A checkpoint
-written on a mesh restores on one device and the other way round.
+On a mesh the files hold full values in the JAX layout, as orbax's global arrays do
+in the JAX package: the loop gathers the tree and the optimizer's state onto rank 0
+(joining a tensor axis's head-aligned pieces of the ViT's fused q|k|v back,
+parallel/mesh.py), which alone writes, and restore(mesh=, specs=) keeps each rank's
+pieces of what it reads (parallel/mesh.local_slice). A checkpoint written on a mesh
+restores on one device and the other way round.
 """
 
 from __future__ import annotations

@@ -59,8 +59,9 @@ from ..runtime.generate import (
     prepare_batch,
     prepare_continuation,
 )
-from ..parallel.collectives import all_reduce, gather_for_compute, gather_objects, reduce_gradients, sum_over
-from ..parallel.mesh import TENSOR_AXIS_ITEM, Mesh, param_shardings, shard_params
+from ..parallel.collectives import (all_reduce, gather_for_compute, gather_objects, reduce_gradients, sum_over,
+                                    tensor_parallel)
+from ..parallel.mesh import Mesh, check_tensor_heads, param_shardings, shard_params
 from ..parallel.multihost import gather_params
 from .data import LRSGROSample
 from .lora import apply_lora, frozen_leaves, strip_lora
@@ -154,11 +155,12 @@ def _chunk_logps(text_params, cfg: VLMConfig, hidden: torch.Tensor, targets: tor
 
 
 def per_token_logps(params, cfg: VLMConfig, input_ids, position_ids, pixel_values, vision_meta, *,
-                    chunk: int = 256, image_offset: int = 0) -> torch.Tensor:
+                    chunk: int = 256, image_offset: int = 0, tp=None) -> torch.Tensor:
     """log p(token_t | tokens_<t) for every position, (B, S) fp32; the first position
     gets 0. vision_meta holds device tensors (meta_to_device). image_offset: where
     these rows' vision embeddings start among those of every packed image (a data
-    rank's rows of a batch whose images all go through the ViT).
+    rank's rows of a batch whose images all go through the ViT). tp: the
+    TensorParallel view of `params` on a tensor mesh.
 
     The hidden states are computed once; the head, log_softmax and gather run over
     chunks of `chunk` positions, so the (B, S, V) fp32 logits never exist at once.
@@ -166,12 +168,12 @@ def per_token_logps(params, cfg: VLMConfig, input_ids, position_ids, pixel_value
     the saved hidden states instead of keeping every chunk's log-probabilities."""
     x = embed_tokens(params, input_ids)
     if pixel_values is not None:
-        vis = compute_vision_embeds(params, cfg, pixel_values, vision_meta)
+        vis = compute_vision_embeds(params, cfg, pixel_values, vision_meta, tp=tp)
         if image_offset:
             vis = vis[image_offset:]
         if vis.shape[0]:
             x = merge_vision_embeddings(x, vis, input_ids == cfg.tokens.image_pad)
-    hidden, _ = decoder_forward(params["text"], cfg.text, x, position_ids)
+    hidden, _ = decoder_forward(params["text"], cfg.text, x, position_ids, tp=None if tp is None else tp.at("text"))
     B, S, _ = hidden.shape
     # the token at t + 1 is predicted from the hidden state at t
     targets = torch.cat([input_ids[:, 1:], input_ids.new_zeros((B, 1))], dim=1).long()
@@ -188,7 +190,7 @@ def per_token_logps(params, cfg: VLMConfig, input_ids, position_ids, pixel_value
 
 
 def grpo_loss(params, cfg: VLMConfig, batch: Dict, *, beta: float, epsilon_low: float, epsilon_high: float,
-              chunk: int = 256, rows: Optional[int] = None):
+              chunk: int = 256, rows: Optional[int] = None, tp=None):
     """Clipped-ratio GRPO loss (grpo_trainer.py:770-828). batch holds tensors
     (`batch_to_device`); old_logps / ref_logps may be None. Returns (loss, metrics)
     as 0-d tensors.
@@ -198,7 +200,7 @@ def grpo_loss(params, cfg: VLMConfig, batch: Dict, *, beta: float, epsilon_low: 
     means (their sums over the ranks are the means), and clip_ratio is split into
     its numerator (`clip_ratio`) and denominator (`clip_den`), each to be summed."""
     logps = per_token_logps(params, cfg, batch["input_ids"], batch["position_ids"], batch.get("pixel_values"),
-                            batch.get("vision_meta"), chunk=chunk, image_offset=batch.get("image_offset", 0))
+                            batch.get("vision_meta"), chunk=chunk, image_offset=batch.get("image_offset", 0), tp=tp)
     mask = batch["completion_mask"].float()
     adv = batch["advantages"][:, None]
     old = batch["old_logps"] if batch.get("old_logps") is not None else logps.detach()
@@ -248,7 +250,7 @@ def batch_to_device(rb: RolloutBatch, device) -> Dict:
 
 class GRPOTrainer:
     """GRPO engine: rollouts, rewards, advantages, the policy step; on one device, or
-    on a (data, fsdp) mesh of processes (`mesh`)."""
+    on a (data, fsdp, tensor) mesh of processes (`mesh`)."""
 
     def __init__(
         self,
@@ -274,7 +276,7 @@ class GRPOTrainer:
         outside torch.inference_mode(); its floating leaves become trainable leaves
         and are updated in place.
 
-        mesh: a (data, fsdp) mesh of the world's ranks; every rank builds the trainer
+        mesh: a (data, fsdp, tensor) mesh of the world's ranks; every rank builds the trainer
         from the same full tree and steps on the same samples. The tree (with its LoRA
         adapters, drawn alike on every rank) is sharded by param_shardings, and
         `params` holds this rank's shards (`specs` their spec tree). A step's N rows
@@ -289,7 +291,10 @@ class GRPOTrainer:
         whole batch. Rewards are computed for the rank's rows and gathered, so the
         grouped advantages and the logged rewards are the whole batch's; the loss
         divides by the whole batch's row count and its metrics are summed over the
-        mesh, as the JAX package's grpo_loss means them over the global batch.
+        mesh, as the JAX package's grpo_loss means them over the global batch. Over
+        a tensor axis the old and reference logps and the loss and its backward run
+        on each rank's heads and columns (TensorParallel), the rollout on the tree
+        gathered over fsdp and tensor (no collective is captured in a CUDA graph).
 
         rollout_engine: optional serve.engine.ServingEngine used as the rollout actor
         instead of the in-process Generator (the reference's decoupled vLLM trainer,
@@ -306,8 +311,8 @@ class GRPOTrainer:
             device = torch.device("cuda", torch.cuda.current_device())
         if any(t.device != device for t in tree_leaves(params)):
             raise ValueError(f"GRPOTrainer: the parameters must be on {device}")
-        if mesh is not None and mesh.shape["tensor"] > 1:
-            raise ValueError(f"GRPOTrainer: training over the tensor axis is {TENSOR_AXIS_ITEM}")
+        if mesh is not None:
+            check_tensor_heads(cfg, mesh.shape["tensor"])
         self.device = device
         self.mesh = mesh
         if grpo_cfg.use_lora:
@@ -776,8 +781,11 @@ class GRPOTrainer:
 
     @torch.no_grad()
     def _logps(self, params, specs, batch) -> np.ndarray:
-        lp = per_token_logps(self.full_params(params, specs), self.cfg, batch["input_ids"], batch["position_ids"],
-                             batch["pixel_values"], batch["vision_meta"], image_offset=batch.get("image_offset", 0))
+        tp = None
+        if self.mesh is not None:
+            params, tp = gather_for_compute(params, specs, self.mesh), tensor_parallel(self.mesh, specs)
+        lp = per_token_logps(params, self.cfg, batch["input_ids"], batch["position_ids"], batch["pixel_values"],
+                             batch["vision_meta"], image_offset=batch.get("image_offset", 0), tp=tp)
         return self._gather_rows(lp.cpu().numpy())
 
     # ------------------------------------------------------------------
@@ -802,7 +810,8 @@ class GRPOTrainer:
         else:
             full = gather_for_compute(self.params, self.specs, self.mesh)
             loss, aux = grpo_loss(full, self.cfg, batch, beta=self.grpo.beta, epsilon_low=self.grpo.epsilon_low,
-                                  epsilon_high=self.grpo.epsilon_high, rows=rb.input_ids.shape[0])
+                                  epsilon_high=self.grpo.epsilon_high, rows=rb.input_ids.shape[0],
+                                  tp=tensor_parallel(self.mesh, self.specs))
             grads = torch.autograd.grad(loss, self.optimizer.params, materialize_grads=True)
             del full
             grads = reduce_gradients(grads, self.optimizer.specs, self.mesh)

@@ -58,13 +58,16 @@ def apply_lora(params, generator: torch.Generator, *, r: int = 8, alpha: float =
 
 def strip_lora(params):
     """Adapter-DISABLED view of a LoRA tree: the same tree with each LoRA leaf
-    replaced by its base tensor (shared, not copied)."""
+    replaced by its base tensor (shared, not copied). A spec tree of a LoRA tree
+    (param_shardings) strips alike."""
     if is_lora(params):
         return params["w"]
     if isinstance(params, dict):
         return {k: strip_lora(v) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
+    if isinstance(params, list):
         return [strip_lora(v) for v in params]
+    if isinstance(params, tuple):  # a spec tree's tuples keep their type (parallel/mesh.QKVSpec)
+        return type(params)(strip_lora(v) for v in params)
     return params
 
 

@@ -21,11 +21,13 @@ optax chain step for step:
 On a (data, fsdp, tensor) mesh (parallel/), `make_sharded_train_step` is the JAX
 package's sharded step with the math of one device: the batch splits on `data` only
 (`batch_shardings`), each leaf the rules split on `fsdp` is a shard that the forward
-gathers (parallel/collectives.py), the loss is a rank's sum over the WHOLE batch's
-supervised-token count (one all-reduce of the count), the gradients sum over `data`,
-the clip's global norm is over the full gradients (shards' squares summed over
-`fsdp`, a replicated leaf counted once), and AdamW steps shards: optimizer state
-inherits each parameter's sharding, as in the JAX package.
+gathers (parallel/collectives.py), a leaf split on `tensor` stays this rank's heads or
+columns and the forward runs Megatron's column/row splits over it (TensorParallel),
+the loss is a rank's sum over the WHOLE batch's supervised-token count (one
+all-reduce of the count), the gradients sum over `data`, the clip's global norm is
+over the full gradients (each piece's squares summed over the axes that split it, a
+replicated leaf counted once), and AdamW steps pieces: optimizer state inherits each
+parameter's sharding and layout, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,8 +43,8 @@ from ..config import VLMConfig
 from ..models.params import tree_leaves
 from ..models.vit import meta_to_device
 from ..models.vlm import compute_vision_embeds, masked_ce_loss, vlm_forward
-from ..parallel.collectives import all_reduce, gather_for_compute, reduce_gradients
-from ..parallel.mesh import Mesh, is_sharded, local_slice, param_shardings, spec_leaves
+from ..parallel.collectives import all_reduce, gather_for_compute, reduce_gradients, tensor_parallel
+from ..parallel.mesh import Mesh, check_tensor_heads, is_sharded, local_slice, param_shardings, spec_leaves, split_axes
 from ..parallel.multihost import gather_params, global_put
 
 
@@ -91,16 +93,22 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def mesh_global_norm(grads, specs: Sequence, mesh: Optional[Mesh]) -> torch.Tensor:
-    """global_norm of the full gradients from shard gradients (one spec per leaf):
-    the shards' squares summed over the fsdp axis, a leaf every rank holds whole
-    counted once. Where no leaf is split it is global_norm itself, bit for bit."""
+    """global_norm of the full gradients from piece gradients (one spec per leaf):
+    the pieces' squares summed over each axis that splits them (fsdp, tensor or both),
+    a leaf every rank holds whole counted once, so each element of the full gradient
+    counts once. Where no leaf is split it is global_norm itself, bit for bit."""
     if mesh is None or not any(is_sharded(s, mesh) for s in specs):
         return global_norm(grads)
-    split_sq = [torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g, s in zip(grads, specs)
-                if is_sharded(s, mesh)]
-    whole_sq = [torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g, s in zip(grads, specs)
-                if not is_sharded(s, mesh)]
-    total = all_reduce(torch.stack(split_sq).sum(), mesh.group("fsdp"))
+    by_axes = {}
+    for g, s in zip(grads, specs):
+        by_axes.setdefault(split_axes(s, mesh), []).append(torch.linalg.vector_norm(g, dtype=torch.float32) ** 2)
+    whole_sq = by_axes.pop((), [])
+    total = None
+    for axes, sq in by_axes.items():
+        part = torch.stack(sq).sum()
+        for a in axes:
+            part = all_reduce(part, mesh.group(a))
+        total = part if total is None else total + part
     if whole_sq:
         total = total + torch.stack(whole_sq).sum()
     return torch.sqrt(total)
@@ -294,20 +302,21 @@ def shard_batch(batch: dict, mesh: Mesh, specs: dict, image_pad: int) -> dict:
     return out
 
 
-def sharded_sft_loss(params, cfg: VLMConfig, batch: dict, mesh: Mesh):
+def sharded_sft_loss(params, cfg: VLMConfig, batch: dict, mesh: Mesh, tp=None):
     """This rank's part of the whole batch's masked CE: the sum over its rows divided
     by the supervised tokens of every row (so the data ranks' losses sum to the
-    batch's mean). `params` is the full tree (gather_for_compute). The ViT runs over
-    the whole batch's packed images and this rank's rows read their embeddings from
+    batch's mean). `params` is the tree gather_for_compute gives, `tp` its
+    TensorParallel view on a tensor mesh (tensor_parallel). The ViT runs over the
+    whole batch's packed images and this rank's rows read their embeddings from
     `image_offset` on. Returns (loss, whole batch's token count)."""
     vis = None
     if batch.get("pixel_values") is not None:
-        vis = compute_vision_embeds(params, cfg, batch["pixel_values"], batch["vision_meta"])
+        vis = compute_vision_embeds(params, cfg, batch["pixel_values"], batch["vision_meta"], tp=tp)
         if mesh.shape["data"] > 1:
             offset = int(batch["image_offset"])
             vis = vis[offset:] if offset < vis.shape[0] else None
     logits, _ = vlm_forward(params, cfg, batch["input_ids"], batch["position_ids"], vision_embeds=vis,
-                            attn_valid=batch.get("attn_valid"))
+                            attn_valid=batch.get("attn_valid"), tp=tp)
     labels = batch["labels"]
     count = all_reduce((labels[:, 1:] != -100).sum(), mesh.group("data"))
     loss, _ = masked_ce_loss(logits, labels, count=count)
@@ -320,7 +329,7 @@ def sharded_train_step(shards, optimizer: SFTOptimizer, batch, *, cfg: VLMConfig
     its part of the batch (shard_batch, then batch_to_device). The returned loss,
     grad_norm and tokens are the whole batch's, the same on every rank."""
     full = gather_for_compute(shards, specs, mesh)
-    loss, n_tok = sharded_sft_loss(full, cfg, batch, mesh)
+    loss, n_tok = sharded_sft_loss(full, cfg, batch, mesh, tensor_parallel(mesh, specs))
     grads = torch.autograd.grad(loss, optimizer.params, materialize_grads=True)
     del full
     grads = reduce_gradients(grads, optimizer.specs, mesh)
@@ -338,7 +347,9 @@ def make_sharded_train_step(mesh: Mesh, cfg: VLMConfig, sft_cfg: SFTConfig, para
     the shard leaves trainable and returns their SFTOptimizer, whose state inherits
     each parameter's sharding; step(shards, optimizer, batch) takes this rank's
     part of a batch put with batch_shardings(mesh, has_vision, patch_shardable=False)
-    (shard_batch) and returns the whole batch's metrics."""
+    (shard_batch) and returns the whole batch's metrics. A tensor axis that does not
+    divide the head counts is refused here (check_tensor_heads)."""
+    check_tensor_heads(cfg, mesh.shape["tensor"])
     p_shard = param_shardings(params_tree, mesh)
 
     def init_opt(shards):

@@ -6,7 +6,7 @@ The reference's sample semantics (its accelerate loop, SFT.py:259-390): the
 template), 1- or 2-image samples depending on `cut`, label masking by the text_pair
 convention. One device per process, given explicitly (`cuda` unless the caller names
 another, through cli/common.py::resolve_device); with `mesh=` the processes of a
-(data, fsdp) mesh train one model through train/sft.py's sharded step.
+(data, fsdp, tensor) mesh train one model through train/sft.py's sharded step.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from ..models.rope import mrope_position_ids_batch
 from ..models.vit import vision_metadata
 from ..runtime.generate import DEFAULT_LENGTH_BUCKETS, DEFAULT_PATCH_BUCKETS, bucket
 from ..parallel.collectives import max_over
-from ..parallel.mesh import TENSOR_AXIS_ITEM, Mesh, param_shardings, shard_params
+from ..parallel.mesh import Mesh, check_tensor_heads, param_shardings, shard_params
 from ..parallel.multihost import gather_params
 from .checkpoints import CheckpointManager
 from .data import SFTSample, batched
@@ -204,7 +204,7 @@ def train_sft(
     also holds the micro-step's seconds in train_step, the device synchronized
     before and after (`step_s`), and its padded tokens and patches.
 
-    mesh: a (data, fsdp) mesh of the world's ranks (parallel/mesh.make_mesh); every
+    mesh: a (data, fsdp, tensor) mesh of the world's ranks (parallel/mesh.make_mesh); every
     rank calls train_sft with the same full parameters and dataset. The parameters
     are sharded at entry and the returned tree is this rank's shards
     (parallel/multihost.gather_params gives the full one); every rank collates the
@@ -225,8 +225,7 @@ def train_sft(
         raise ValueError(f"train_sft: the parameters must be on {device}")
     specs = None
     if mesh is not None:
-        if mesh.shape["tensor"] > 1:
-            raise ValueError(f"train_sft: training over the tensor axis is {TENSOR_AXIS_ITEM}")
+        check_tensor_heads(cfg, mesh.shape["tensor"])
         if loop_cfg.batch_size % mesh.shape["data"]:
             raise ValueError(f"train_sft: a batch of {loop_cfg.batch_size} does not split over {mesh.shape['data']} "
                              "data ranks")
