@@ -75,7 +75,26 @@ identical (`eager_and_captured`; the engine's chunks through whole engine runs i
    where K2 and K3 must take their int8 entries and nine tokens in ten must equal the
    bf16 cache's, then K2 and K3 against their plain versions on a cache that this
    path's prefill quantized, in the decoder's forms; then the scorer over the jsonl.
-7. serving — the same model behind the continuous-batching ServingEngine (8 slots of
+7. split-prefill — the Generator's two memory levers on the same weights. First the tiny
+   config in fp32 on the card: prefill_split_rows=2 over 4 embeds rows gives the
+   one-shot prefill's first logits (1e-5) and its greedy tokens exactly. Then the
+   reference bench's big-batch shape: 96 embeds rows (random text around 8 distinct
+   504 px images, whose embeddings the port's ViT computes) in the 768 bucket, a 1536-slot
+   cache, one-shot against prefill_split_rows=48, in turns (one-shot, split, one-shot,
+   split; the second pair kept): the prefill's wall time and its peak memory over what
+   was allocated before it, K2 launched 36 times one-shot and 72 times split, the split's
+   peak below the one-shot's, its first logits and every layer's cache (the valid
+   slots) held row by row against the one-shot's (held_on_path's rule); K2 against its
+   plain version over the last 48-row view of the split's cache (layers 0 and 35, the
+   view's data pointer checked) and K3 over the attend-prefix views of the whole cache,
+   random bf16 queries on the keys and values the split wrote; and after each
+   a greedy decode of 32 tokens whose tokens must agree in 99 % of positions (bf16:
+   cuBLAS picks its algorithms by row count). Then right_size_cache over one episode
+   batch of those rows (stage 1: 160 tokens; stage 2: a 300-token text chunk and 32
+   tokens), right-sized against full-size: the stage-1 cache at the bucket of
+   768 + 160, grown in continue_generate, its bytes and the grown cache's printed, the
+   tokens of both stages agreeing in 99 % of positions.
+8. serving — the same model behind the continuous-batching ServingEngine (8 slots of
    2048, decode chunks of 8) with its pump thread running and an OpenAIServer on a free
    port: real HTTP through ChatClient (a text chat, a chat with a 512 px image, an
    over-long prompt that must come back as an error while the next request is served)
@@ -105,7 +124,7 @@ identical (`eager_and_captured`; the engine's chunks through whole engine runs i
    int8 KV cache; then captured over bf16 weights and over the int8 layout of
    ops/quant.py (which widens the weights for every product), in turns, and one decoder
    matmul at that step's shape on the device, bf16 torch.mm beside qdot.
-8. training — train_sft on Qwen2.5-VL-3B at full width (random bf16 weights from a
+9. training — train_sft on Qwen2.5-VL-3B at full width (random bf16 weights from a
    seeded torch.Generator, FakeTokenizer) over synthetic SFT samples on the 5000 px
    tiles: batch 1 per micro-step, 2 micro-steps to an update, cut (a 500 px bbox, a
    crop of at least 512 px) and uncut samples in turn, 4 micro-steps with a checkpoint
@@ -120,7 +139,7 @@ identical (`eager_and_captured`; the engine's chunks through whole engine runs i
    equal the uninterrupted run's and its parameters stay within a bf16 step, and the
    export must load back equal. Seconds per micro-step (host clock, synchronized),
    tokens and patches per second and peak memory are printed.
-9. grpo — GRPOTrainer on Qwen2.5-VL-3B at full width (random bf16 weights from seed 0;
+10. grpo — GRPOTrainer on Qwen2.5-VL-3B at full width (random bf16 weights from seed 0;
    a FakeTokenizer that reads every id as a letter, since random weights pick ids the
    byte-level tokenizer has no text for and a completion without text counts as none;
    rl_prompt with its instruction cut to 80 characters) on two synthetic 5000 px
@@ -146,7 +165,7 @@ identical (`eager_and_captured`; the engine's chunks through whole engine runs i
    full segments) and K2-bwd at the policy pass (B = 4, S = T = 1024), and [parity]
    holds one tiny fp32 GRPO policy step's loss, metrics and every gradient leaf on the
    card against the CPU.
-10. parallel — the training paths over a (data, fsdp, tensor) mesh (parallel/), each group of
+11. parallel — the training paths over a (data, fsdp, tensor) mesh (parallel/), each group of
    ranks a set of subprocesses under a wall limit (parallel/launch.py: the whole group
    is killed when one rank fails, and the smoke fails), the parent holding almost
    nothing meanwhile. (a) One rank over nccl, mesh (1, 1, 1), Qwen2.5-VL-3B at full
@@ -183,8 +202,20 @@ identical (`eager_and_captured`; the engine's chunks through whole engine runs i
    K2-bwd at 16 / 2 (LoRA's decoder whole), replicated leaves equal in bits. Printed:
    seconds per micro-step and per step beside [training]'s and [grpo]'s, each rank's
    peak, the bytes each rank handed to collectives (parallel/collectives.traffic) and
-   the launches of K1, K2 and K3 per rank.
-11. decode-variants — the decode-attention entry points beside the serving path, at
+   the launches of K1, K2 and K3 per rank. (d) Four ranks sharing cuda:0 over gloo on
+   the tensor axis, mesh (1, 1, 4), where two ranks share each of the decoder's 2 KV
+   heads (parallel/collectives.ShareKVHead over the mesh's KV-replica groups): one fp32
+   check as (c)'s at 4 layers and 8 ViT blocks, every gathered gradient leaf of the
+   first micro-step within 1e-4 and every leaf's change in L2 form within 2^-7 of the
+   one-rank run's; then Qwen2.5-VL-3B at full depth and width (36 layers, 32 ViT
+   blocks; rank 0's trained reference tree freed before the four ranks' trees are
+   made), 4 bf16 SFT micro-steps whose losses and grad norms must be within 2^-7 of
+   rank 0's unsharded run, replicas and histories equal in bits, K1 and K1-bwd at 4
+   heads and K2 and K2-bwd at 4 / 1 once
+   per block and layer per micro-step, all "mma", and the bytes a micro-step of each
+   collective (the KV-replica groups' all-gathers and all-reduces apart). No GRPO step
+   in (d): the CPU tests hold GRPO over (1, 1, 4) against the JAX trainer.
+12. decode-variants — the decode-attention entry points beside the serving path, at
    the reference's shapes. First the checks: K4 (paged decode) against its plain
    version and K3 at (B=32|64, T=4096, 30 % live, pages 64|256); P1 (stream probe)
    and P2 (big-product decode) against their plain versions at B=32, T=1536; then,
@@ -199,9 +230,9 @@ identical (`eager_and_captured`; the engine's chunks through whole engine runs i
    its row blocks walk, on device time) and a paged decode loop whose full row must
    be left unchanged; K4, P1 and P2 must each have launched. A count is of kernel runs
    through the wrapper: a call captured by runtime.graphs (the decode steps of phases
-   5-7, 9, 10 and 12) counts at every replay of its graph; a call captured into the timing
+   5-8, 10, 11 and 13) counts at every replay of its graph; a call captured into the timing
    harness's own CUDA graph is not counted, nor are that graph's replays.
-12. internvl — the second model family. First the tiny InternVL config in fp32 on the
+13. internvl — the second model family. First the tiny InternVL config in fp32 on the
    card against the CPU plain path (which the CPU tests hold against the JAX package):
    InternViT's embeddings, the embeds-path prefill logits and the greedy tokens. Then
    InternVLVLMConfig() at full width (an InternViT-300M tower: 24 blocks, width 1024,
@@ -229,7 +260,8 @@ runs through the wrapper, a captured step's counted at each replay; each K3, K4 
 split merge; a P1 call is one memset and one kernel; a backward call runs its dq
 kernel, then its dk/dv kernel, and its launches are the training phase's; the
 `launches_grpo` of K1, K2, K3 and the backward kernels are the GRPO phase's, their
-`launches_parallel` the parallel phase's ranks' together, the
+`launches_parallel` the parallel phase's ranks' together, the `launches_split_prefill` of K2
+and K3 the split-prefill phase's, the
 `launches_internvl` of K2 and K3 the InternVL phase's); the last is the device contract
 line.
 """
@@ -550,6 +582,11 @@ def check_kernels(card):
     forwards, backwards = check_training_kernels(card, randn, heads=(8, 8, 1))
     for name, cases in {**forwards, **{n: b[2] for n, b in backwards.items()}}.items():
         rows[name][2].extend(cases)
+    log("[kernels] a tensor rank's heads ([parallel] (d), mesh (1, 1, 4), two ranks to a KV head): K1 at 4 heads and "
+        "K2 at 4 / 1, with lse, and their backward kernels")
+    forwards, backwards = check_training_kernels(card, randn, heads=(4, 4, 1))
+    for name, cases in {**forwards, **{n: b[2] for n, b in backwards.items()}}.items():
+        rows[name][2].extend(cases)
     log("[kernels] untimed checks where the kernels have edges")
     return rows, {"flash_segment_attention": check_k1_edges(randn),
                   "flash_causal_attention": check_k2_edges(randn, int8, scales) + check_k2_int8_chunk(randn, cache8),
@@ -779,7 +816,8 @@ def check_training_kernels(card, randn, heads=(16, 16, 2)):
     included: the backward needs it). The kernel's backward takes the kernel forward's
     out and lse, the plain backward the plain forward's, so a wrong lse shows here; the
     edge checks give both the kernel's. heads = (K1's H, K2's H, K2's Hkv): the model's
-    (16, 16, 2), or a tensor rank's of (1, 1, 2), (8, 8, 1) ([parallel] (c)), where only
+    (16, 16, 2), or a tensor rank's of (1, 1, 2), (8, 8, 1) ([parallel] (c)), or of
+    (1, 1, 4), (4, 4, 1) ([parallel] (d): two ranks share a KV head), where only
     the forms that path runs are timed (lse on; K2-bwd's dk/dv split plan at Hkv = 1 is
     not the model's). Every variant must be the tensor-core one. Returns ({kernel name:
     [forward cases]} for K1 and K2, {backward kernel name: (source, None, [case])})."""
@@ -790,7 +828,7 @@ def check_training_kernels(card, randn, heads=(16, 16, 2)):
 
     dev = torch.device("cuda")
     whole = heads == (16, 16, 2)
-    rank = "" if whole else ", a tensor rank's heads of (1, 1, 2)"
+    rank = "" if whole else f", a tensor rank's heads of (1, 1, {16 // heads[0]})"
     S, H, D = SFT_PATCHES, heads[0], 80
     seg = torch.cat([torch.full((n,), i, dtype=torch.int32) for i, n in enumerate(SFT_RUNS)]
                     + [torch.full((S - sum(SFT_RUNS),), K1.PAD_SEG, dtype=torch.int32)]).to(dev)
@@ -1088,7 +1126,7 @@ def training_setup():
 
 
 def run_training(card):
-    """SFT at Qwen2.5-VL-3B width (see the module docstring, phase 8). Three runs of
+    """SFT at Qwen2.5-VL-3B width (see the module docstring, phase 9). Three runs of
     train_sft from the same seeded weights: the uninterrupted one (TRAIN_MICRO
     micro-steps, no checkpoint: the run whose launches, times and memory are read), one
     that stops at its checkpoint (TRAIN_RESUME_AT micro-steps, saved, exported in the HF
@@ -1359,7 +1397,7 @@ def bf16_step_vanishes(t, lr):
 
 
 def run_grpo(card):
-    """GRPO at Qwen2.5-VL-3B width (the module docstring, phase 9). Returns
+    """GRPO at Qwen2.5-VL-3B width (the module docstring, phase 10). Returns
     ({kernel name: {"launches_grpo": n}} for K1, K2, K3 and the backward kernels)."""
     import dataclasses
 
@@ -1514,7 +1552,7 @@ PAR_FSDP_GENERATIONS = 2
 PAR_C_LAYERS, PAR_C_BLOCKS = 36, 32
 PAR_C_FP32_DEPTH = (4, 8)  # (c)'s fp32 check: 4 layers, 8 ViT blocks (the full-attention block 7 among them)
 PAR_C_FP32_TOL = 1e-4  # of each gradient leaf's largest value (the card's worst, 3.6e-06 at 4 / 8 and 5.7e-06 at 18 / 16)
-PAR_TIMEOUT_A, PAR_TIMEOUT_B, PAR_TIMEOUT_C = 420, 480, 480  # wall limits of the three groups of ranks, seconds
+PAR_TIMEOUT_A, PAR_TIMEOUT_B, PAR_TIMEOUT_C, PAR_TIMEOUT_D = 420, 480, 480, 420  # the groups' wall limits, seconds
 GRPO_LORA_LABEL = "LoRA r 8 alpha 16, cut step"
 
 
@@ -2049,11 +2087,27 @@ def run_tensor_grads(card, depths):
 
 
 def run_parallel(card):
-    """[parallel] (the module docstring, phase 10): the two groups of ranks, their
+    """[parallel] (the module docstring, phase 11): the groups of ranks, their
     lines and checks. Returns {kernel name: {"launches_parallel": n}}."""
     from zoomearth_tpu_torch.parallel.launch import run_ranks
 
+    import gc
+
+    import torch
+
+    from zoomearth_tpu_torch.scripts.timing import release_flush_buffer
+
     tol = 2.0 ** -7
+    # the ranks share the card with this process: [kernels]' L2 flush buffer (128 MiB) and cuBLAS's workspaces pinned
+    # a 6.4 GiB segment of its cache here, which empty_cache cannot return while they live
+    release_flush_buffer()
+    torch._C._cuda_clearCublasWorkspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"  before the ranks start: this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; the card {(total - free) / 2**30:.2f} of "
+        f"{total / 2**30:.2f} GiB in use | {card}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
         log(f"  (a) nccl, one rank on cuda:0, mesh (1, 1, 1), Qwen2.5-VL-3B at full depth: train_sft(mesh=) for "
             f"{PAR_MICRO} micro-steps against the unsharded train_sft, then one GRPOTrainer(mesh=) LoRA step")
@@ -2150,10 +2204,12 @@ def run_parallel(card):
         assert all(abs(x - y) <= tol * abs(y) for x, y in zip(s0["losses"] + s0["grad_norms"],
                                                               b[0]["sft_ref_losses"] + b[0]["sft_ref_grad_norms"])), s0
         c = run_tensor_part(card, tmp, tol)
+        d = run_tensor4_part(card, tmp, tol)
     names = list(parallel_counters())
     total = {n: a["sft"]["launches"][n] + a["grpo"]["launches"][n]
              + sum(r[k]["launches"][n] for r in b for k in ("sft", "grpo_fsdp", "grpo", "serve"))
              + sum(r[k]["launches"][n] for r in c for k in ("sft", "grpo"))
+             + sum(r["sft"]["launches"][n] for r in d)
              for n in names}
     return {n: {"launches_parallel": total[n]} for n in names}
 
@@ -2225,6 +2281,133 @@ def run_tensor_part(card, tmp, tol):
     assert all(abs(x - y) <= tol * abs(y) for x, y in zip(s0["losses"] + s0["grad_norms"],
                                                           c[0]["sft_ref_losses"] + c[0]["sft_ref_grad_norms"])), s0
     return c
+
+
+def parallel_tensor4(rank, world, addr, out_dir, layers, blocks):
+    """[parallel] part (d), four ranks on cuda:0 over gloo on a (1, 1, 4) mesh, where two
+    ranks share each of the 3B decoder's 2 KV heads: the fp32 check of the split
+    (split_distances at PAR_C_FP32_DEPTH), then in bf16 at `layers` decoder layers and
+    `blocks` ViT blocks rank 0's single-process unsharded reference and PAR_MICRO SFT
+    micro-steps over the tensor axis (each rank 4 ViT heads, 4 query heads against its
+    shared KV head, a quarter of every MLP width), the dispatchers shadowed to count
+    calls by heads."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    parallel_setup(rank, world, addr, "gloo")
+    from zoomearth_tpu_torch.models.params import init_vlm_params, tree_leaves
+    from zoomearth_tpu_torch.parallel.collectives import gather_objects
+    from zoomearth_tpu_torch.parallel.mesh import is_sharded, make_mesh, param_shardings, spec_leaves
+    from zoomearth_tpu_torch.train import sft as TS
+    from zoomearth_tpu_torch.train import sft_loop as TL
+
+    res = {"rank": rank, "backend": "gloo", "device": f"cuda:{torch.cuda.current_device()}"}
+    cfg, processor, samples, loader, _ = training_setup()
+    mesh = make_mesh(1, 1, 4)
+    d = split_distances(rank, mesh, cut_depth(cfg, *PAR_C_FP32_DEPTH), torch.float32, PAR_MICRO, out_dir, processor,
+                        samples, loader)
+    if rank == 0:
+        res["fp32"] = {"leaves": len(d["grads"]), "worst_grad_rel": max(d["grads"]),
+                       "worst_grad_leaf": d["paths"][d["grads"].index(max(d["grads"]))],
+                       "worst_change_rel": max(d["changes"]),
+                       "worst_change_leaf": d["paths"][d["changes"].index(max(d["changes"]))],
+                       "depth": list(PAR_C_FP32_DEPTH)}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = cut_depth(cfg, layers, blocks)
+
+    def new_params():
+        return init_vlm_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda", dtype=torch.bfloat16)
+
+    sft_cfg = TS.SFTConfig(learning_rate=1e-4, warmup_steps=1, total_steps=8, weight_decay=0.01,
+                           gradient_accumulation_steps=TRAIN_ACCUM)
+    loop = TL.SFTLoopConfig(output_dir=os.path.join(out_dir, "d_sft"), num_train_epochs=1, batch_size=1,
+                            save_steps=100, log_steps=1, seed=42)
+    if rank == 0:
+        ref, ref_hist = TL.train_sft(new_params(), cfg, sft_cfg, loop, samples, processor, device="cuda:0",
+                                     image_loader=loader, max_steps=PAR_MICRO)
+        res["sft_ref_losses"] = [r["loss"] for r in ref_hist]
+        res["sft_ref_grad_norms"] = [r["grad_norm"] for r in ref_hist]
+        del ref  # the trained tree: the four ranks' trees need its room on the shared card
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    heads, restore = head_shadows()
+    zero_counts()
+    shards, hist = TL.train_sft(new_params(), cfg, sft_cfg, loop, samples, processor, mesh=mesh, device="cuda:0",
+                                image_loader=loader, max_steps=PAR_MICRO)
+    launches, variants, traffic, peak = read_counts()
+    restore()
+    with torch.device("meta"):
+        spec_tree = param_shardings(init_vlm_params(cfg, generator=torch.Generator(), device="meta"), mesh)
+    specs = spec_leaves(shards, spec_tree)
+    whole = [t for t, s in zip(tree_leaves(shards), specs) if not is_sharded(s, mesh)]
+    prints = gather_objects(fingerprints(whole), mesh.world_group())
+    res["sft"] = {"losses": [r["loss"] for r in hist], "grad_norms": [r["grad_norm"] for r in hist],
+                  "step_s": [r["step_s"] for r in hist], "launches": launches, "variants": variants,
+                  "traffic": traffic, "peak_gib": peak, "replicated_leaves": len(whole),
+                  "split_leaves": len(specs) - len(whole), "replicas_equal": all(p == prints[0] for p in prints),
+                  "history_equal": all(h == hist for h in gather_objects(hist, mesh.world_group())),
+                  "heads": {f"{k}@{h}": n for (k, h), n in heads.items()}, "depth": [layers, blocks]}
+    del shards
+    with open(os.path.join(out_dir, f"d_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def run_tensor4_part(card, tmp, tol):
+    """[parallel] part (d): the group of four tensor ranks, its lines and checks."""
+    from zoomearth_tpu_torch.parallel.launch import run_ranks
+
+    L, V, M = PAR_C_LAYERS, PAR_C_BLOCKS, PAR_MICRO
+    log(f"  (d) gloo, four ranks sharing cuda:0 on the tensor axis, mesh (1, 1, 4): two ranks share each of the 2 KV "
+        f"heads. fp32 at {PAR_C_FP32_DEPTH[0]} layers / {PAR_C_FP32_DEPTH[1]} ViT blocks against one rank, then "
+        f"Qwen2.5-VL-3B at full depth, {L} decoder layers and {V} ViT blocks: {M} bf16 SFT "
+        f"micro-steps (each rank 4 ViT heads, 4 / 1 decoder heads, a quarter of every MLP width) against the "
+        f"unsharded run; no GRPO step here (the CPU tests hold GRPO on (1, 1, 4) against the JAX trainer)")
+    t0 = time.time()
+    # four full-depth ranks peak at ~16.3 GiB allocated each; without expandable segments the caching allocator held
+    # ~1.4 GiB more a rank, reserved and unused, and the four ran out of the card's memory
+    run_ranks(f"{os.path.join(REPO, 'chip_smoke.py')}:parallel_tensor4", 4,
+              {"out_dir": tmp, "layers": L, "blocks": V}, timeout_s=PAR_TIMEOUT_D, cwd=REPO,
+              env=dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+    d = [json.load(open(os.path.join(tmp, f"d_rank{r}.json"))) for r in range(4)]
+    log(f"  (d) took {time.time() - t0:.1f} s of command")
+    for r in d:
+        s = r["sft"]
+        per_step = {k: v / M for k, v in s["traffic"].items()}
+        log(f"  (d) rank {r['rank']} ({r['backend']}, {r['device']}): SFT losses {s['losses']}, grad norms "
+            f"{s['grad_norms']}, {sum(s['step_s']) / M:.3f} s a micro-step, peak {s['peak_gib']:.2f} GiB, collective "
+            f"bytes a micro-step {per_step} (kv_*: the KV-replica groups'), {s['split_leaves']} leaves split and "
+            f"{s['replicated_leaves']} whole | {card}")
+        log(f"  (d) rank {r['rank']} launches: SFT {s['launches']} (variants {s['variants']}), by kernel@heads "
+            f"{s['heads']}")
+    s0, f32 = d[0]["sft"], d[0]["fp32"]
+    log(f"  (d) fp32 at {f32['depth'][0]} layers / {f32['depth'][1]} ViT blocks over (1, 1, 4) against one rank, "
+        f"{f32['leaves']} leaves gathered: the first micro-step's gradients, worst max |diff| / max |value| "
+        f"{f32['worst_grad_rel']:.3e} ({f32['worst_grad_leaf']}; tol {PAR_C_FP32_TOL:g}); each leaf's change after "
+        f"{M // TRAIN_ACCUM} updates, worst |diff|_2 / |change|_2 {f32['worst_change_rel']:.3e} "
+        f"({f32['worst_change_leaf']}; tol 2^-7)")
+    log(f"  (d) bf16 SFT against the single-process unsharded run at the same depth: losses {s0['losses']} vs "
+        f"{d[0]['sft_ref_losses']}, grad norms {s0['grad_norms']} vs {d[0]['sft_ref_grad_norms']}; replicas equal in "
+        f"bits {[r['sft']['replicas_equal'] for r in d]}, histories equal {[r['sft']['history_equal'] for r in d]}")
+    split_heads = {"flash_segment_attention@4": V * M, "flash_segment_attention_bwd@4": V * M,
+                   "flash_causal_attention@4/1": L * M, "flash_causal_attention_bwd@4/1": L * M}
+    for r in d:
+        s = r["sft"]
+        assert s["replicas_equal"] and s["history_equal"], r
+        assert s["heads"] == split_heads, s["heads"]
+        assert s["launches"]["flash_segment_attention"] == s["launches"]["flash_segment_attention_bwd"] == V * M
+        assert s["launches"]["flash_causal_attention"] == s["launches"]["flash_causal_attention_bwd"] == L * M
+        assert all(x["fma"] == 0 for x in s["variants"].values()), s["variants"]
+        assert s["traffic"].get("kv_all_gather", 0) > 0 and s["traffic"].get("kv_all_reduce", 0) > 0, s["traffic"]
+        assert s["losses"] == s0["losses"]
+    assert f32["worst_grad_rel"] <= PAR_C_FP32_TOL and f32["worst_change_rel"] <= tol, f32
+    assert all(abs(x - y) <= tol * abs(y) for x, y in zip(s0["losses"] + s0["grad_norms"],
+                                                          d[0]["sft_ref_losses"] + d[0]["sft_ref_grad_norms"])), s0
+    return d
 
 
 def profile_training(card, parent=None):
@@ -2521,6 +2704,14 @@ def run_slice(card, env):
             "flash_decode_attention": launches["decode_attention_cuda"]}
 
 
+def same_tokens(a, b):
+    """(identical, compared) tokens of two runs' stages (each a list of token rows),
+    position by position, the longer row's length compared."""
+    assert len(a) == len(b) and all(len(x) == len(y) for x, y in zip(a, b)), "runs of other shapes"
+    rows = [(ra, rb) for x, y in zip(a, b) for ra, rb in zip(x, y)]
+    return (sum(p == q for ra, rb in rows for p, q in zip(ra, rb)), sum(max(len(ra), len(rb)) for ra, rb in rows))
+
+
 def run_pipelined(card, env):
     """The pair-pipelined evaluation path at 3B width (see the module docstring,
     phase 6). Returns {kernel name: {"launches_pipelined": n[, "launches_pipelined_int8": n]}}."""
@@ -2580,12 +2771,6 @@ def run_pipelined(card, env):
         wall, _, tokens = run(g, lambda: run_inference(g, processor, chosen, path, batch_size=BATCH, gen=gen1,
                                                        stage2_gen=gen2, image_loader=loader, mode="pipelined"))
         return wall, [json.loads(line) for line in open(path)], tokens
-
-    def same_tokens(a, b):
-        """(identical, compared) tokens of two runs' stages, position by position."""
-        assert len(a) == len(b) and all(len(x) == len(y) for x, y in zip(a, b)), "runs of other shapes"
-        rows = [(ra, rb) for x, y in zip(a, b) for ra, rb in zip(x, y)]
-        return (sum(p == q for ra, rb in rows for p, q in zip(ra, rb)), sum(max(len(ra), len(rb)) for ra, rb in rows))
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         # (1) the main path of this phase, as a user runs it
@@ -2766,8 +2951,231 @@ def run_pipelined(card, env):
     return out
 
 
+# the reference bench's big-batch shape for the split prefill (bench.py:291-301: R = 48 at B >= 96)
+SPLIT_B, SPLIT_S, SPLIT_T, SPLIT_R = 96, 768, 1536, 48
+SPLIT_GRID, SPLIT_IMAGES = (1, 36, 36), 8  # 504 px images (324 tokens a row), row b showing image b % 8
+SPLIT_NEW = 32  # greedy tokens decoded after each prefill
+RIGHT_NEW_1, RIGHT_NEW_2, RIGHT_CHUNK = 160, 32, 300  # the right-sized episode: budgets, stage-2 text chunk
+SPLIT_AGREE = 0.99  # share of greedy tokens the split's decode must share with the one-shot's (bf16)
+
+
+def split_batch(cfg, params, B, S, grid, images):
+    """An embeds batch of B rows in the S bucket: row b is random text around image
+    b % images (random patches through the port's ViT: the embeds path, vision_meta
+    None, the embeddings a device tensor in row order)."""
+    import numpy as np
+    import torch
+
+    from zoomearth_tpu_torch.models.vit import meta_to_device
+    from zoomearth_tpu_torch.models.vlm import compute_vision_embeds
+    from zoomearth_tpu_torch.runtime.generate import prepare_batch
+
+    rng = np.random.default_rng(7)
+    tok = cfg.tokens
+    n = grid[0] * grid[1] * grid[2] // cfg.vision.merge_unit
+    top = min(vars(tok).values())  # text ids below every special id
+    pvs = [rng.standard_normal((grid[0] * grid[1] * grid[2], cfg.vision.patch_dim)).astype(np.float32)
+           for _ in range(images)]
+    image_ids = [tok.vision_start] + [tok.image_pad] * n + [tok.vision_end]
+    imgs = prepare_batch(cfg, [image_ids] * images, [[(pv, grid)] for pv in pvs], length_buckets=(len(image_ids),),
+                         patch_buckets=(images * len(pvs[0]),))
+    with torch.inference_mode():
+        emb = compute_vision_embeds(params, cfg, torch.as_tensor(imgs.pixel_values, device="cuda"),
+                                    meta_to_device(imgs.vision_meta, "cuda"), int(imgs.vision_meta["win_mode"]))
+    per_image = emb.reshape(images, n, -1)
+    free = S - len(image_ids) - 1
+    seqs = []
+    for b in range(B):
+        head = [int(t) for t in rng.integers(1, top, size=8)]
+        tail = [int(t) for t in rng.integers(1, top, size=int(rng.integers(free // 2, free - len(head) + 1)))]
+        seqs.append([tok.im_start] + head + image_ids + tail)
+    batch = prepare_batch(cfg, seqs, [[(pvs[0][:, :1], grid)] for _ in range(B)], length_buckets=(S,),
+                          patch_buckets=(B * len(pvs[0]),))
+    batch.pixel_values = torch.cat([per_image[b % images] for b in range(B)])
+    batch.vision_meta = None
+    return batch
+
+
+def hold_caches(label, cache, ref):
+    """Every layer's keys and values of `cache` against `ref`'s, row by row (one slot of
+    one head a row) over the slots below each row's length; the lengths exactly."""
+    import torch
+
+    assert torch.equal(cache.length, ref.length), label
+    T = cache.max_len
+    valid = (torch.arange(T, device=cache.length.device)[None] < cache.length[:, None].long())
+    valid = valid[:, None, :].expand(-1, cache.k[0].shape[1], -1)
+    worst, err = 0.0, 0.0
+    for a, b in zip(cache.k + cache.v, ref.k + ref.v):
+        o, r = a[valid].float(), b[valid].float()
+        worst = max(worst, row_ratios(o, r).max().item())
+        err = max(err, (o - r).abs().max().item())
+    log(f"  {label}: every layer's k and v over the valid slots, max_abs_err {err:.3e}, worst row's error over its "
+        f"tolerance {worst:.3f} ({ROW_TOL})")
+    if worst > 1:
+        raise AssertionError(f"{label}: the caches disagree (worst row {worst:.3f} of its tolerance)")
+
+
+def check_tiny_split_prefill():
+    """The tiny config in fp32 on the card: a Generator with prefill_split_rows=2 over 4
+    embeds rows gives the one-shot prefill's first logits (1e-5) and its greedy tokens
+    exactly."""
+    import torch
+
+    from zoomearth_tpu_torch.config import VLMConfig
+    from zoomearth_tpu_torch.models.params import init_vlm_params
+    from zoomearth_tpu_torch.runtime.generate import GenerationConfig, Generator
+
+    cfg = VLMConfig.tiny()
+    params = init_vlm_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    batch = split_batch(cfg, params, 4, 64, (1, 4, 4), 2)
+    one, split = (Generator(params, cfg, max_cache_len=128, prefill_split_rows=r) for r in (0, 2))
+    gen = GenerationConfig(max_new_tokens=16)
+    err = max_err(split.run_prefill(batch, max_new=16)[0], one.run_prefill(batch, max_new=16)[0])
+    same = split.generate(batch, gen) == one.generate(batch, gen)
+    log(f"  tiny fp32, 4 embeds rows in slices of 2: first logits max_abs_err {err:.3e} against the one-shot prefill "
+        f"(tol 1e-5), greedy tokens {'identical' if same else 'DIFFER'}")
+    if not (err <= 1e-5 and same):
+        raise AssertionError("the split prefill at the tiny config differs from the one-shot prefill")
+
+
+def run_split_prefill(card, env):
+    """[split-prefill] (module docstring, phase 7): the split-row prefill and the
+    right-sized cache on the slice's 3B weights. Returns {kernel name:
+    {"launches_split_prefill": n}}."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from zoomearth_tpu_torch.ops import flash_causal as K2
+    from zoomearth_tpu_torch.ops import flash_decode as K3
+    from zoomearth_tpu_torch.runtime.generate import GenerationConfig, Generator, prepare_continuation
+
+    check_tiny_split_prefill()
+    cfg, params = env.cfg, env.params
+    L = cfg.text.num_hidden_layers
+    kernels = {"flash_causal_attention": K2.causal_attention_cuda, "flash_decode_attention": K3.decode_attention_cuda}
+    totals = dict.fromkeys(kernels, 0)
+    batch = split_batch(cfg, params, SPLIT_B, SPLIT_S, SPLIT_GRID, SPLIT_IMAGES)
+    weights = torch.cuda.memory_allocated()
+    gens = {"one-shot": Generator(params, cfg, max_cache_len=SPLIT_T),
+            "split": Generator(params, cfg, max_cache_len=SPLIT_T, prefill_split_rows=SPLIT_R)}
+
+    def measured(fn):
+        """fn() with the counts at 0: (its result, seconds, peak GiB over what was
+        allocated before, K2 launches and the rows of each, K3 launches)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        n = {name: k.launches for name, k in kernels.items()}
+        for name in totals:
+            totals[name] += n[name]
+        return out, s, (torch.cuda.max_memory_allocated() - base) / 2**30, n
+
+    # in turns, one-shot then split twice: the first pair warms up, the second is kept
+    runs = {}
+    for name in ("one-shot", "split", "one-shot", "split"):
+        runs.pop(name, None)
+        runs[name] = measured(lambda g=gens[name]: g.run_prefill(batch, max_new=SPLIT_NEW))
+    (logits1, cache1, attend1), s1, peak1, n1 = runs["one-shot"]
+    (logits2, cache2, attend2), s2, peak2, n2 = runs["split"]
+    log(f"  B={SPLIT_B} S={SPLIT_S} max_cache_len {SPLIT_T} (cache {cache_bytes(gens['split'], SPLIT_B) / 2**30:.2f} GiB), "
+        f"weights and what the slice holds {weights / 2**30:.2f} GiB: one-shot prefill {s1 * 1e3:.1f} ms, peak "
+        f"{peak1:.2f} GiB over what was allocated before it (total {(weights + peak1 * 2**30) / 2**30:.2f} GiB); split "
+        f"into {SPLIT_B // SPLIT_R} slices of {SPLIT_R} rows {s2 * 1e3:.1f} ms ({s2 / s1:.3f}x), peak {peak2:.2f} GiB "
+        f"(total {(weights + peak2 * 2**30) / 2**30:.2f} GiB) | {card}")
+    log(f"  K2 launches: one-shot {n1['flash_causal_attention']}, split {n2['flash_causal_attention']}")
+    assert n1["flash_causal_attention"] == L and n2["flash_causal_attention"] == 2 * L, (n1, n2)
+    assert peak2 < peak1, (peak1, peak2)
+    assert attend1 == attend2 and cache2.max_len == SPLIT_T
+    held_on_path("split prefill's first logits against the one-shot's, row by row", logits2, logits1)
+    hold_caches("split prefill's cache against the one-shot's", cache2, cache1)
+    # K2 and K3 against their plain versions in the forms this path hands them, on the keys and values the split
+    # prefill wrote: K2 over a row view (the last slice's rows) of the full cache, K3 over the attend-prefix views of
+    # the whole cache that the decode below reads
+    t = cfg.text
+    with torch.inference_mode():
+        gq = torch.Generator(device="cuda").manual_seed(2)
+        view = cache2.rows(slice(SPLIT_B - SPLIT_R, SPLIT_B))
+        qs = torch.randn((SPLIT_R, SPLIT_S, t.num_attention_heads, t.head_dim), generator=gq, device="cuda").bfloat16()
+        q1 = torch.randn((SPLIT_B, t.num_attention_heads, t.head_dim), generator=gq, device="cuda").bfloat16()
+        pos = torch.arange(SPLIT_S, device="cuda")[None].expand(SPLIT_R, SPLIT_S)
+        assert attend2 is not None and attend2 < SPLIT_T, attend2
+        for layer in (0, L - 1):
+            k, v, _, _ = view.layer(layer)
+            assert k.data_ptr() == cache2.k[layer][SPLIT_B - SPLIT_R].data_ptr(), "the row view is not a view"
+            held_on_path(f"K2 on the split prefill's row view, layer {layer}, rows {SPLIT_B - SPLIT_R}-{SPLIT_B - 1} "
+                         f"of B={SPLIT_B}, S={SPLIT_S} T={k.shape[2]}",
+                         K2.causal_attention_cuda(qs, k, v, pos, view.length),
+                         K2.flash_causal_attention_plain(qs, k, v, pos, view.length))
+            k, v = (x[:, :, :attend2] for x in cache2.layer(layer)[:2])
+            held_on_path(f"K3 on the split prefill's cache, layer {layer}, attend {attend2} view of T={SPLIT_T}, "
+                         f"B={SPLIT_B}",
+                         K3.decode_attention_cuda(q1, k, v, cache2.length),
+                         K3.flash_decode_attention_plain(q1, k, v, cache2.length))
+        del view, qs, q1, pos, k, v
+
+    gen = GenerationConfig(max_new_tokens=SPLIT_NEW)
+    toks = {}
+    for name, (logits, cache, attend) in (("one-shot", (logits1, cache1, attend1)), ("split", (logits2, cache2, attend2))):
+        out, _, _, n = measured(lambda: gens[name].run_decode(logits, cache, batch.next_pos, gen, attend=attend)[0])
+        toks[name] = gens[name].trim_generated(out.cpu().numpy())
+    same, total = same_tokens([toks["split"]], [toks["one-shot"]])
+    share = same / total
+    log(f"  greedy decode of {SPLIT_NEW} tokens after each: {share:.4f} of the split's tokens equal the one-shot's "
+        f"(at least {SPLIT_AGREE}); rows identical {sum(a == b for a, b in zip(toks['split'], toks['one-shot']))} "
+        f"of {SPLIT_B}")
+    assert share >= SPLIT_AGREE, share
+    del logits, cache, logits1, cache1, logits2, cache2, runs
+
+    # right_size_cache: one stage-1 / stage-2 episode batch, right-sized against full size
+    right = Generator(params, cfg, max_cache_len=SPLIT_T, right_size_cache=True, prefill_split_rows=SPLIT_R)
+    full = gens["split"]
+    gen1, gen2 = GenerationConfig(max_new_tokens=RIGHT_NEW_1), GenerationConfig(max_new_tokens=RIGHT_NEW_2)
+    episode = {}
+    for name, g in (("full-size", full), ("right-sized", right)):
+        rng = np.random.default_rng(11)  # the same stage-2 chunks for both
+        (out1, c1), s_1, peak_1, _ = measured(lambda g=g: g.generate(batch, gen1, return_cache=True))
+        bytes1 = sum(t.numel() * t.element_size() for t in c1.k + c1.v)
+        keep = np.asarray([int(batch.lengths[b]) + len(out1[b]) for b in range(SPLIT_B)], np.int32)
+        starts = [int(batch.next_pos[b]) + len(out1[b]) for b in range(SPLIT_B)]
+        chunk = [[int(t) for t in rng.integers(1, min(vars(cfg.tokens).values()), size=RIGHT_CHUNK)]
+                 for _ in range(SPLIT_B)]
+        bc = prepare_continuation(cfg, chunk, [[] for _ in range(SPLIT_B)], starts)
+        (out2, c2), s_2, peak_2, _ = measured(lambda g=g: g.continue_generate(c1, bc, keep, gen2, return_cache=True))
+        bytes2 = sum(t.numel() * t.element_size() for t in c2.k + c2.v)
+        episode[name] = (out1, out2, c1.max_len, c2.max_len, bytes1, bytes2)
+        log(f"  {name}: stage-1 cache {c1.max_len} slots, {bytes1 / 2**30:.2f} GiB; generate {s_1:.2f} s, peak "
+            f"{peak_1:.2f} GiB over what was allocated before; stage-2 cache {c2.max_len} slots, {bytes2 / 2**30:.2f} "
+            f"GiB; continue_generate {s_2:.2f} s, peak {peak_2:.2f} GiB over what was allocated before | {card}")
+        del c1, c2
+    rs, fs = episode["right-sized"], episode["full-size"]
+    need1 = SPLIT_S + RIGHT_NEW_1
+    assert rs[2] == next(b for b in (256, 512, 768, 1024, 1280, 1536) if need1 <= b) < SPLIT_T == fs[2], (rs, fs)
+    assert rs[2] < rs[3] <= SPLIT_T, rs
+    (same1, total1), (same2, total2) = same_tokens([rs[0]], [fs[0]]), same_tokens([rs[1]], [fs[1]])
+    share1, share2 = same1 / total1, same2 / total2
+    log(f"  right-sized against full-size: stage-1 tokens {share1:.4f} equal, stage-2 {share2:.4f} (at least "
+        f"{SPLIT_AGREE}); the stage-1 cache {rs[4] / fs[4]:.3f} of the full-size one's bytes")
+    assert share1 >= SPLIT_AGREE and share2 >= SPLIT_AGREE, (share1, share2)
+    del gens, right, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  [split-prefill] launches: {totals}")
+    return {n: {"launches_split_prefill": v} for n, v in totals.items()}
+
+
 def run_serving(card, env):
-    """The serving path at 3B width (see the module docstring, phase 7). Returns
+    """The serving path at 3B width (see the module docstring, phase 8). Returns
     {kernel name: {"launches_serving": n[, "launches_serving_int8": n]}} and {kernel name: [the
     checks of that kernel against its plain version on this path's own pools]}."""
     import copy
@@ -3562,7 +3970,7 @@ def check_tiny_internvl_parity():
 
 
 def run_internvl(card):
-    """InternVL at full width (the module docstring, phase 11). Returns ({kernel name:
+    """InternVL at full width (the module docstring, phase 13). Returns ({kernel name:
     {"launches_internvl": n, "planted_faults_rejected": [...]}}, {kernel name: [timed
     cases at the path's forms]}, {kernel name: [untimed checks]})."""
     import gc
@@ -3809,6 +4217,10 @@ def main(argv=()) -> int:
     launches = run_slice(card, env)
     log("[pipelined] Qwen2.5-VL-3B bf16, run_inference(mode='pipelined') over 3 waves of 8, then the int8 KV cache")
     pipelined = run_pipelined(card, env)
+    log(f"[split-prefill] Qwen2.5-VL-3B bf16, B={SPLIT_B} S={SPLIT_S} embeds rows, max_cache_len {SPLIT_T}: the "
+        f"one-shot prefill against prefill_split_rows={SPLIT_R}, then right_size_cache over one stage-1 / stage-2 "
+        f"episode batch")
+    split = run_split_prefill(card, env)
     log(f"[serving] Qwen2.5-VL-3B bf16 behind the ServingEngine: the OpenAI endpoint over HTTP, run_episodes_served over "
         f"{SERVE_EPISODES} episodes on {SERVE_SLOTS} slots, the int8 KV cache, the decode step over int8 weights")
     serving, serving_checks = run_serving(card, env)
@@ -3830,7 +4242,8 @@ def main(argv=()) -> int:
     torch.cuda.empty_cache()
     log(f"[parallel] the training paths over a mesh: (a) nccl, one rank, Qwen2.5-VL-3B at full depth; (b) gloo, two "
         f"ranks sharing cuda:0, {PAR_LAYERS} layers and {PAR_BLOCKS} ViT blocks at full width; (c) gloo, two tensor "
-        f"ranks sharing cuda:0, {PAR_C_LAYERS} layers and {PAR_C_BLOCKS} ViT blocks")
+        f"ranks sharing cuda:0, {PAR_C_LAYERS} layers and {PAR_C_BLOCKS} ViT blocks; (d) gloo, four tensor ranks "
+        f"sharing cuda:0, {PAR_C_LAYERS} layers and {PAR_C_BLOCKS} ViT blocks")
     parallel = run_parallel(card)
     log("[decode-variants] K4 / P1 / P2 checked at the reference's shapes and at their edges, then the entry "
         "points' runs")
@@ -3854,7 +4267,8 @@ def main(argv=()) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             **({"note": BWD_NOTE} if replaces is None else {}),
-            "launches": launches[name], **pipelined.get(name, {}), **serving.get(name, {}), **training.get(name, {}),
+            "launches": launches[name], **pipelined.get(name, {}), **split.get(name, {}), **serving.get(name, {}),
+            **training.get(name, {}),
             **grpo.get(name, {}), **parallel.get(name, {}), **internvl.get(name, {}),
             "max_abs_err": max(c["max_abs_err"] for c in cases + checks),
             **{key: cases[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",

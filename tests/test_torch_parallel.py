@@ -230,11 +230,11 @@ def test_dryrun_takes_the_card_unless_the_cpu_is_named():
 
 def test_tensor_axis_is_refused_with_the_roadmap_item():
     """A tensor axis that does not divide the head counts is refused on the host with
-    the counts named: tensor 4 over a world of 4 at the tiny config, whose decoder has
-    2 key/value heads."""
+    the counts named: tensor 3 over a world of 3 at the tiny config, whose decoder has
+    4 query and 2 key/value heads."""
     params = params_from_numpy(jax.tree.map(np.asarray, jax_init(jax.random.key(0), JCFG)))
-    mesh = TM.make_mesh(tensor=4, world_size=4)
-    counts = (r"a tensor axis of 4 does not divide the head counts \(decoder num_attention_heads 4, decoder "
+    mesh = TM.make_mesh(tensor=3, world_size=3)
+    counts = (r"a tensor axis of 3 does not divide the head counts \(decoder num_attention_heads 4, decoder "
               r"num_key_value_heads 2, ViT num_heads 4\)")
     with pytest.raises(ValueError, match=counts):
         TL.train_sft(params, CFG, TS.SFTConfig(), TL.SFTLoopConfig(), [], W.processor(), mesh=mesh, device="cpu")

@@ -8,6 +8,7 @@ LoRA's mixed blocks (the decoder whole, the ViT and merger split), each held to 
 one-device forward and backward at 5e-5. The training paths over tensor meshes
 against the JAX package are tests/test_torch_tensor_procs.py."""
 
+import dataclasses
 import os
 
 import jax
@@ -18,6 +19,7 @@ import torch.distributed as dist
 
 from zoomearth_tpu.config import VLMConfig as JVLMConfig
 from zoomearth_tpu.models.params import init_vlm_params as jax_init
+from zoomearth_tpu.parallel import mesh as JM
 from zoomearth_tpu_torch.config import VLMConfig
 from zoomearth_tpu_torch.models.params import init_vlm_params, params_from_numpy, tree_leaves
 from zoomearth_tpu_torch.parallel import collectives as TC
@@ -34,6 +36,8 @@ import torch_parallel_worker as W  # noqa: E402  (tests/ is on sys.path under py
 torch.set_num_threads(1)
 CFG, JCFG = VLMConfig.tiny(), JVLMConfig.tiny()
 ATOL = 5e-5
+WIDE_MLP = 66  # a ViT MLP width that does not split 4 ways
+WIDE_CFG = dataclasses.replace(CFG, vision=dataclasses.replace(CFG.vision, intermediate_size=WIDE_MLP))
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_tensor_worker.py")
 LAYOUT_MESHES = [(1, 1, 2), (2, 1, 2), (1, 2, 2), (2, 2, 2), (1, 1, 4), (1, 2, 4)]
 
@@ -109,22 +113,33 @@ def test_the_3b_trees_pieces_are_head_sets_and_join_back(t):
 
 
 def test_a_tensor_axis_that_does_not_divide_the_heads_is_refused_with_the_counts():
-    """--tensor 4 at the tiny config (decoder 4 / 2 heads, ViT 4): refused by the
-    sharded step, train_sft and GRPOTrainer on the host; 2 passes; no refusal names a
-    later ROADMAP item any more."""
+    """--tensor 3 at the tiny config (decoder 4 / 2 heads, ViT 4): refused by the
+    sharded step, train_sft and GRPOTrainer on the host, naming the counts. Tensor 4,
+    where 2 KV heads divide the axis (two ranks share each), is accepted at the tiny
+    config and at 3B, as is 2; so is 3B at tensor 8, whose ViT MLP width 3420 does not
+    split 8 ways: the rules leave those leaves whole there, as the JAX rules do
+    (test_torch_parallel holds the 3B specs on (1, 1, 8) against them), and their blocks
+    run whole. No refusal names a ROADMAP item."""
     params = params_from_numpy(jax.tree.map(np.asarray, jax_init(jax.random.key(0), JCFG)))
-    mesh = TM.make_mesh(tensor=4, world_size=4)
-    msg = "decoder num_attention_heads 4, decoder num_key_value_heads 2, ViT num_heads 4"
+    mesh = TM.make_mesh(tensor=3, world_size=3)
+    msg = "a tensor axis of 3 does not divide the head counts .decoder num_attention_heads 4, decoder " \
+          "num_key_value_heads 2, ViT num_heads 4."
     with pytest.raises(ValueError, match=msg):
         TS.make_sharded_train_step(mesh, CFG, TS.SFTConfig(), params)
     with pytest.raises(ValueError, match=msg):
         TL.train_sft(params, CFG, TS.SFTConfig(), TL.SFTLoopConfig(), [], W.processor(), mesh=mesh, device="cpu")
     with pytest.raises(ValueError, match=msg):
         TG.GRPOTrainer(params, CFG, TG.GRPOConfig(), W.processor(), [], device="cpu", mesh=mesh)
-    TM.check_tensor_heads(CFG, 2)
-    TM.check_tensor_heads(VLMConfig.qwen2_5_vl_3b(), 2)
-    with pytest.raises(ValueError, match="decoder num_key_value_heads 2"):
-        TM.check_tensor_heads(VLMConfig.qwen2_5_vl_3b(), 4)
+    for cfg in (CFG, VLMConfig.qwen2_5_vl_3b()):
+        TM.check_tensor_heads(cfg, 2)
+        TM.check_tensor_heads(cfg, 4)
+    cfg3 = VLMConfig.qwen2_5_vl_3b()
+    TM.check_tensor_heads(cfg3, 8)
+    with torch.device("meta"):
+        tree = init_vlm_params(cfg3, generator=torch.Generator(), device="meta")
+    specs = TM.param_shardings(tree, TM.make_mesh(1, 1, 8, world_size=8))
+    assert [specs["vision"]["blocks"][0]["mlp"][n] for n in ("wg", "wu", "wd")] == [()] * 3
+    assert specs["vision"]["blocks"][0]["attn"]["wqkv"] == ("fsdp", "tensor")
     assert not hasattr(TM, "TENSOR_AXIS_ITEM")
 
 
@@ -201,29 +216,54 @@ def _batch():
 
 
 @pytest.fixture(scope="module")
-def rules(tmp_path_factory):
-    """The worker's block_rules on a (1, 1, 2) gloo group, and the same loss, gradients
-    and ViT output on one device."""
+def rules_inputs(tmp_path_factory):
+    """The tree with random biases, its LoRA form and a batch, written for the workers;
+    the loss, gradients and ViT output of each on one device."""
     d = tmp_path_factory.mktemp("tensor_rules")
     params = _with_random_biases(init_vlm_params(CFG, torch.Generator().manual_seed(0), device="cpu",
                                                  dtype=torch.float32), 1)
     lora = _with_random_biases(TLORA.apply_lora(params, torch.Generator().manual_seed(2), r=4, alpha=8.0), 3)
+    wide = _with_random_biases(init_vlm_params(WIDE_CFG, torch.Generator().manual_seed(4), device="cpu",
+                                               dtype=torch.float32), 5)
     torch.save(params, d / "bias_params.pt")
     torch.save(lora, d / "lora_bias_params.pt")
+    torch.save(wide, d / "wide_params.pt")
     torch.save(_batch(), d / "batch.pt")
-    run_ranks(f"{WORKER}:run", 2, {"workdir": str(d), "scenarios": [["block_rules", {}]]}, timeout_s=240)
-    got = [torch.load(d / f"rules_rank{r}.pt", weights_only=False) for r in range(2)]
     batch = TS.batch_to_device(_batch(), "cpu")
     want = {}
-    for name, tree in (("bias_params", params), ("lora_bias_params", lora)):
+    for name, tree, cfg in (("bias_params", params, CFG), ("lora_bias_params", lora, CFG),
+                            ("wide_params", wide, WIDE_CFG)):
         TL.make_trainable(tree)
-        loss, _ = TS.sft_loss(tree, CFG, batch)
+        loss, _ = TS.sft_loss(tree, cfg, batch)
         grads = torch.autograd.grad(loss, tree_leaves(tree))
         paths = TM.spec_leaves(tree, TM.map_with_path(lambda p, leaf: p, tree))  # in tree_leaves order
         with torch.no_grad():
-            vis = TS.compute_vision_embeds(tree, CFG, batch["pixel_values"], batch["vision_meta"])
-        want[name] = {"loss": float(loss.detach()), "grads": [g.numpy() for g in grads], "paths": paths, "vision": vis.numpy()}
-    return got, want
+            vis = TS.compute_vision_embeds(tree, cfg, batch["pixel_values"], batch["vision_meta"])
+        want[name] = {"loss": float(loss.detach()), "grads": [g.numpy() for g in grads], "paths": paths,
+                      "vision": vis.numpy(), "grad_norm": float(TS.global_norm(list(grads)))}
+    return d, want
+
+
+@pytest.fixture(scope="module")
+def rules(rules_inputs):
+    """The worker's block_rules on a (1, 1, 2) gloo group, and the same loss, gradients
+    and ViT output on one device."""
+    d, want = rules_inputs
+    run_ranks(f"{WORKER}:run", 2, {"workdir": str(d), "scenarios": [["block_rules", {}]]}, timeout_s=240)
+    return [torch.load(d / f"rules_rank{r}.pt", weights_only=False) for r in range(2)], want
+
+
+@pytest.fixture(scope="module")
+def rules4(rules_inputs):
+    """On a (1, 1, 4) gloo group, where two ranks share each of the tiny decoder's 2 KV
+    heads: the worker's share_kv, then block_rules on the tiny trees and on the tree of
+    WIDE_CFG; and the one-device results."""
+    d, want = rules_inputs
+    run_ranks(f"{WORKER}:run", 4, {"workdir": str(d), "scenarios": [
+        ["share_kv", {}], ["block_rules", {"shape": [1, 1, 4]}],
+        ["block_rules", {"shape": [1, 1, 4], "names": ["wide_params"], "vision_mlp": WIDE_MLP}]]}, timeout_s=240)
+    load = lambda name: [torch.load(d / f"{name}_rank{r}.pt", weights_only=False) for r in range(4)]  # noqa: E731
+    return load("share_kv"), load("rules114"), want, load(f"rules114_mlp{WIDE_MLP}")
 
 
 def _close(a, b, what):
@@ -283,3 +323,85 @@ def test_lora_runs_the_decoder_whole_and_the_vit_and_merger_split(rules):
         _close(r["lora_bias_params"]["vision"], w["vision"], "LoRA ViT output")
         for i, (a, b) in enumerate(zip(r["lora_bias_params"]["grads"], w["grads"])):
             _close(a, b, f"LoRA gradient {w['paths'][i]}")
+
+
+# ---------------------------------------------------------------------------
+# tensor 4 over 2 KV heads: each head shared by two ranks
+# ---------------------------------------------------------------------------
+
+def test_share_kv_head_joins_the_pieces_and_sums_the_gradients(rules4):
+    """ShareKVHead over the KV-replica groups of a (1, 1, 4) mesh ({0, 1} and {2, 3},
+    built with the mesh): the forward gives each rank the whole head its group holds,
+    and the backward gives each rank its piece of the group's summed gradient, which
+    is one device's gradient of sum over the group's ranks of head * w_rank, split.
+    The backward's all-reduce carries the whole head once, and so does the forward's
+    all-gather, each counted under its own key of collectives.traffic. Where the KV heads are as many as the ranks (r = 1) the leaves are handed
+    back as they are."""
+    share = rules4[0]
+    full = np.arange(24.0, dtype=np.float32).reshape(3, 8)
+    for r, out in enumerate(share):
+        h = r // 2
+        assert out["group"] == [2 * h, 2 * h + 1] and out["tensor_group"] == [0, 1, 2, 3]
+        np.testing.assert_array_equal(out["piece"], full[:, 2 * r:2 * r + 2])
+        np.testing.assert_array_equal(out["head"], full[:, 4 * h:4 * h + 4])
+        head_grad = share[2 * h]["w"] + share[2 * h + 1]["w"]
+        _close(out["grad"], head_grad[:, 2 * (r % 2):2 * (r % 2) + 2], f"rank {r}'s piece of the head's gradient")
+        assert out["traffic"] == {"kv_all_gather": 3 * 4 * 4, "kv_all_reduce": 3 * 4 * 4}
+        assert out["whole_heads_untouched"]
+
+
+def test_tensor_4_shares_each_kv_head_and_equals_one_device(rules4):
+    """The tensor-parallel forward and backward on (1, 1, 4) at the tiny config
+    (decoder 4 / 2 heads: each rank one query head against a KV head it shares with
+    one other rank; ViT 4 heads, one a rank), biases random: every block runs split
+    (under LoRA the decoder whole), and the loss, the ViT's output, every gradient
+    after reduce_gradients gathered into the JAX layout, and mesh_global_norm of the
+    reduced pieces equal one device's to 5e-5: the stored pieces are the JAX pieces,
+    so the reduction and the norm need nothing new."""
+    _, got, want, _ = rules4
+    L, V = CFG.text.num_hidden_layers, CFG.vision.depth
+    for r in got:
+        assert all(s for _, s in r["bias_params"]["blocks"])
+        assert [p for p, s in r["lora_bias_params"]["blocks"] if not s] == [
+            f"text/layers/{i}/{k}" for i in range(L) for k in ("attn", "mlp")]
+        assert len(r["bias_params"]["blocks"]) == 2 * L + 2 * V + 1
+        for name in ("bias_params", "lora_bias_params"):
+            w = want[name]
+            _close(r[name]["loss"], w["loss"], f"{name} loss")
+            _close(r[name]["vision"], w["vision"], f"{name} ViT output")
+            _close(r[name]["grad_norm"], w["grad_norm"], f"{name} gradient norm")
+            for i, (a, b) in enumerate(zip(r[name]["grads"], w["grads"])):
+                _close(a, b, f"{name} gradient {w['paths'][i]}")
+    grads = dict(zip(want["bias_params"]["paths"], want["bias_params"]["grads"]))
+    assert all(np.abs(grads[f"text/layers/{i}/attn/{n}"]).max() > 1e-4 for i in range(L) for n in ("wk", "bk"))
+
+
+def test_a_width_the_axis_does_not_split_runs_its_blocks_whole(rules4):
+    """The tiny config with the ViT's MLP 66 wide on (1, 1, 4), where 66 does not split 4
+    ways: the rules leave the MLP's wg, wu and wd whole, spec for spec as the JAX rules
+    place the same tree on a mesh of that shape (no refusal, as in the JAX package); the
+    ViT's MLP blocks run whole on every rank and every other block split; the loss, the
+    ViT's output, every gradient and the gradient norm equal one device's to 5e-5. The
+    3B model at tensor 8 (ViT MLP width 3420) takes this path."""
+    *_, want, got = rules4
+    with torch.device("meta"):
+        tree = init_vlm_params(WIDE_CFG, generator=torch.Generator(), device="meta")
+    ours = dict(zip(TM.spec_leaves(tree, TM.map_with_path(lambda p, leaf: p, tree)),
+                    TM.spec_leaves(tree, TM.param_shardings(tree, TM.make_mesh(1, 1, 4, world_size=4)))))
+    jcfg = dataclasses.replace(JCFG, vision=dataclasses.replace(JCFG.vision, intermediate_size=WIDE_MLP))
+    jtree = jax.eval_shape(lambda: jax_init(jax.random.key(0), jcfg))
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        JM.param_shardings(jtree, JM.make_mesh(1, 1, 4, devices=jax.devices()[:4])))
+    assert ours == {JM._path_str(path): tuple(s.spec) for path, s in flat}
+    V = WIDE_CFG.vision.depth
+    assert all(ours[f"vision/blocks/{i}/mlp/{n}"] == () for i in range(V) for n in ("wg", "wu", "wd"))
+    TM.check_tensor_heads(WIDE_CFG, 4)
+    w = want["wide_params"]
+    for r in got:
+        blocks = r["wide_params"]["blocks"]
+        assert [p for p, split in blocks if not split] == [f"vision/blocks/{i}/mlp" for i in range(V)], blocks
+        _close(r["wide_params"]["loss"], w["loss"], "loss")
+        _close(r["wide_params"]["vision"], w["vision"], "ViT output")
+        _close(r["wide_params"]["grad_norm"], w["grad_norm"], "gradient norm")
+        for i, (a, b) in enumerate(zip(r["wide_params"]["grads"], w["grads"])):
+            _close(a, b, f"gradient {w['paths'][i]}")

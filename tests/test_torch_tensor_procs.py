@@ -1,9 +1,10 @@
 """The port's training paths over tensor meshes, across gloo processes on the CPU,
 against the JAX package's sharded programs on meshes of the same shapes: the sharded
-SFT step over (1,1,2), (2,1,2) and (1,2,2), GRPOTrainer(mesh=) over (2,2,2) (the mesh
-of tests/test_grpo_mesh.py) and with LoRA over (1,1,2) (the mixed blocks),
-train_sft(mesh=) over (1,1,2) with its JAX-layout checkpoint and a resume, and
-cli.train_sft --tensor 2 as two processes.
+SFT step over (1,1,2), (2,1,2), (1,2,2), (1,1,4) and (2,1,4) (tensor 4: two ranks
+share each of the tiny decoder's 2 KV heads), GRPOTrainer(mesh=) over (2,2,2) (the
+mesh of tests/test_grpo_mesh.py), over (1,1,4) and with LoRA over (1,1,2) (the mixed
+blocks), train_sft(mesh=) over (1,1,2) with its JAX-layout checkpoint and a resume,
+and cli.train_sft --tensor 2 and --tensor 4 as two and four processes.
 
 The ranks run tests/torch_tensor_worker.py (torch and the port only) through
 parallel/launch.py's run_ranks. The weights are the JAX package's tiny init with every
@@ -42,9 +43,9 @@ CFG = VLMConfig.tiny()
 ATOL = 5e-5
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_tensor_worker.py")
 GROUP_TIMEOUT_S = 300
-SFT_SHAPES = [(1, 1, 2), (2, 1, 2), (1, 2, 2)]
+SFT_SHAPES = [(1, 1, 2), (2, 1, 2), (1, 2, 2), (1, 1, 4), (2, 1, 4)]
 # (mesh, prompts, steps, lora)
-GRPO_CASES = [((2, 2, 2), "img", 1, False), ((1, 1, 2), "img", 1, True)]
+GRPO_CASES = [((2, 2, 2), "img", 1, False), ((1, 1, 2), "img", 1, True), ((1, 1, 4), "img", 1, False)]
 
 
 @pytest.fixture(autouse=True)
@@ -118,14 +119,19 @@ def world2(workdir):
 
 @pytest.fixture(scope="module")
 def world4(workdir):
+    """(2,1,2), (1,2,2) and (1,1,4), where two ranks share each of the 2 KV heads: the
+    sharded SFT step; GRPO on (1,1,4)."""
     d, _ = workdir
-    return _run(d, 4, [["sft_step", {"shape": [2, 1, 2]}], ["sft_step", {"shape": [1, 2, 2]}]])
+    return _run(d, 4, [["sft_step", {"shape": [2, 1, 2]}], ["sft_step", {"shape": [1, 2, 2]}],
+                       ["sft_step", {"shape": [1, 1, 4]}],
+                       ["grpo_step", {"shape": [1, 1, 4], "kind": "img", "steps": 1, "lora": False}]])
 
 
 @pytest.fixture(scope="module")
 def world8(workdir):
     d, _ = workdir
-    return _run(d, 8, [["grpo_step", {"shape": [2, 2, 2], "kind": "img", "steps": 1, "lora": False}]])
+    return _run(d, 8, [["grpo_step", {"shape": [2, 2, 2], "kind": "img", "steps": 1, "lora": False}],
+                       ["sft_step", {"shape": [2, 1, 4]}]])
 
 
 def _world(request, shape):
@@ -144,7 +150,8 @@ def _same_piece(shape, tree):
     return [lambda a, b, axes=TM.split_axes(s, mesh): all(a[x] == b[x] for x in axes) for s in specs]
 
 
-@pytest.mark.parametrize("shape", SFT_SHAPES, ids=["tensor2", "data2_tensor2", "fsdp2_tensor2"])
+@pytest.mark.parametrize("shape", SFT_SHAPES, ids=["tensor2", "data2_tensor2", "fsdp2_tensor2", "tensor4",
+                                                   "data2_tensor4"])
 def test_sharded_sft_step_over_the_tensor_axis_equals_jax_and_the_unsharded_step(request, jparams, shape):
     """2 updates of 2 micro-steps with a clip that binds: each micro-step's loss, grad
     norm and tokens, and every leaf after the last update gathered into the JAX
@@ -175,7 +182,7 @@ def test_sharded_sft_step_over_the_tensor_axis_equals_jax_and_the_unsharded_step
                     assert a == b, f"update {u}: leaf {leaf} differs between rank 0 and a rank holding its piece"
 
 
-@pytest.mark.parametrize("case", GRPO_CASES, ids=["data2_fsdp2_tensor2", "tensor2_lora"])
+@pytest.mark.parametrize("case", GRPO_CASES, ids=["data2_fsdp2_tensor2", "tensor2_lora", "tensor4"])
 def test_grpo_over_the_tensor_axis_equals_the_jax_trainer_on_that_mesh(request, workdir, jparams, case):
     """GRPOTrainer(mesh=) with G = 2, sampled, on (2,2,2) and with LoRA on (1,1,2): every
     rank stitches the same whole rollout (made on the tree gathered over fsdp and
@@ -275,11 +282,31 @@ def test_cli_train_sft_takes_tensor_2_as_two_processes(workdir):
     """cli.train_sft --num_processes 2 --coordinator_address --process_id --tensor 2
     --device cpu, loading stubbed: the head check reads the model's config.json, both
     ranks train on a (1, 1, 2) mesh and all-reduce activations, and one writes."""
+    _cli_tensor(workdir, 2)
+
+
+def test_cli_train_sft_takes_tensor_4_as_four_processes(workdir, jparams):
+    """The same with --tensor 4 over four processes: the tiny config's 2 KV heads are
+    shared by two ranks each, so the ranks also all-gather each head's pieces; the
+    step-2 checkpoint, read in one process, is a tree of the JAX layout's shapes."""
+    d = _cli_tensor(workdir, 4)
+    template = PP._port_params(jparams)
+    restored, _, _ = CheckpointManager(str(d / "cli_sft4")).restore(2, template)
+    assert [t.shape for t in tree_leaves(restored)] == [t.shape for t in tree_leaves(template)]
+    assert all(torch.isfinite(t).all() for t in tree_leaves(restored))
+
+
+def _cli_tensor(workdir, tensor):
     d, _ = workdir
-    run_ranks(f"{WORKER}:cli_tensor", 2, {"workdir": str(d)}, timeout_s=GROUP_TIMEOUT_S)
-    results = PP._load(d, "cli_tensor", 2)
-    assert all(r["world"] == 2 and r["seen"] == [("ckpt", "cpu")] for r in results)
+    run_ranks(f"{WORKER}:cli_tensor", tensor, {"workdir": str(d), "tensor": tensor}, timeout_s=GROUP_TIMEOUT_S)
+    name = "cli_tensor" + ("" if tensor == 2 else str(tensor))
+    results = PP._load(d, name, tensor)
+    assert all(r["world"] == tensor and r["seen"] == [("ckpt", "cpu")] for r in results)
     assert all(r["traffic"]["all_reduce"] > 0 for r in results)
-    sft = [json.loads(x) for x in open(d / "cli_sft" / "metrics.jsonl")]
+    if tensor > 2:
+        assert all(r["traffic"]["kv_all_gather"] > 0 and r["traffic"]["kv_all_reduce"] > 0 for r in results)
+    out = d / ("cli_sft" + ("" if tensor == 2 else str(tensor)))
+    sft = [json.loads(x) for x in open(out / "metrics.jsonl")]
     assert [x["step"] for x in sft] == [1, 2] and all(np.isfinite(x["loss"]) for x in sft)
-    assert CheckpointManager(str(d / "cli_sft")).latest() == 2
+    assert CheckpointManager(str(out)).latest() == 2
+    return d

@@ -369,13 +369,13 @@ def test_save_callbacks_export_and_queue_the_ports_eval(tmp_path):
 _CLI_BASE = ["--model_name", "m", "--dataset_name_train", "d.jsonl", "--img_folder", "i", "--device", "cpu"]
 
 
-@pytest.mark.parametrize("extra,env", [(["--fsdp", "2"], None), (["--tensor", "4"], None),
+@pytest.mark.parametrize("extra,env", [(["--fsdp", "2"], None), (["--tensor", "3"], None),
                                        (["--num_processes", "2"], None),
                                        (["--coordinator_address", "localhost:1234", "--num_processes", "2",
                                          "--process_id", "0"], None), ([], "2")])
 def test_cli_refuses_mesh_flags_and_multi_process_launches(monkeypatch, tmp_path, extra, env):
-    """--tensor 4 is refused, naming the head counts of the model's config.json (the
-    tiny config's 2 key/value heads do not split 4 ways); --fsdp 2 in a world of one
+    """--tensor 3 is refused, naming the head counts of the model's config.json (the
+    tiny config's 4 query heads do not split 3 ways); --fsdp 2 in a world of one
     process fails on the mesh's size, as the JAX package's make_mesh does; a
     multi-process launch (--num_processes with torchrun's RANK and MASTER_ADDR, the
     JAX CLI's three flags, or WORLD_SIZE) reaches the rendezvous with the arguments it
@@ -389,7 +389,7 @@ def test_cli_refuses_mesh_flags_and_multi_process_launches(monkeypatch, tmp_path
             model.mkdir()
             (model / "config.json").write_text(json.dumps(hf_config_dict(CFG)))
             argv = [str(model) if a == "m" else a for a in _CLI_BASE]
-            with pytest.raises(SystemExit, match=r"--tensor 4: a tensor axis of 4 does not divide the head counts "
+            with pytest.raises(SystemExit, match=r"--tensor 3: a tensor axis of 3 does not divide the head counts "
                                                  r"\(decoder num_attention_heads 4, decoder num_key_value_heads 2"):
                 CLI.main(argv + extra)
         else:

@@ -45,7 +45,9 @@ class KVCache:
     (B,) int32 tensor of valid entries per row. The cache owns ONE such tensor for
     its lifetime: the forwards advance it with `add_`, the Generator's prefills set
     it with `copy_`, so a decode step that is captured once and replayed keeps
-    reading the tensor it captured. `clone()` and `grown()` give the copy its own.
+    reading the tensor it captured. `clone()` and `grown()` give the copy its own;
+    `rows()` is a view of some rows whose writes, `length` included, land in this
+    cache.
 
     The kv-head-major layout keeps (T, D) minor, as the reference; the kernels read
     any prefix view of it through strides.
@@ -99,6 +101,14 @@ class KVCache:
         return KVCache([fn(t) for t in self.k], [fn(t) for t in self.v], self.length.clone(),
                        [fn(t) for t in self.kscale] if self.quantized else None,
                        [fn(t) for t in self.vscale] if self.quantized else None)
+
+    def rows(self, rows: slice) -> "KVCache":
+        """The cache of rows `rows` as views of this one's tensors (contiguous, as the
+        batch dimension leads): a forward into it writes these rows in place."""
+        def r(ts):
+            return [t[rows] for t in ts] if ts is not None else None
+
+        return KVCache(r(self.k), r(self.v), self.length[rows], r(self.kscale), r(self.vscale))
 
     def clone(self) -> "KVCache":
         return self._map(torch.clone)
@@ -253,6 +263,7 @@ def _attn_layer(
         _separate_layout(tp, p, "wqkv")
         p, split = tp.block(p, cols=("wq", "wk", "wv"), rows=("wo",))
         if split:
+            p = tp.share_kv_head(p, cfg.num_key_value_heads)  # this rank's KV head whole, where ranks share one
             x = tp.f(x)
     q, k, v = _project_qkv(p, cfg, x, cos, sin)
 

@@ -20,7 +20,10 @@ is no DDP or FSDP wrapper: the step calls these explicitly.
   all-gathers its pieces, so its gradient is whole on every rank. A block whose
   column and row matrices are not all split (the decoder's under LoRA, whose wrapped
   matrices the rules leave whole) runs whole, its split leaves gathered over tensor by
-  GatherShard.
+  GatherShard. Where the tensor axis exceeds the decoder's KV head count, a rank's
+  query heads read one KV head of which it holds a piece: `ShareKVHead` joins the
+  pieces of wk, wv, bk and bv over the rank's KV-replica group (Mesh.kv_group) and
+  sums the group's gradients of the whole head in the backward.
 - `reduce_gradients`: the sum over the data axis. A leaf split on fsdp or tensor sums
   its piece over the data group. A leaf every rank holds whole sums over the data
   group too, but where fsdp or tensor is above 1 it goes over the world with the
@@ -45,28 +48,30 @@ from .mesh import Mesh, _axes, groups_of, join_pieces, map_with_spec, split, tak
 
 BUCKET_BYTES = 256 << 20  # the largest flat buffer one all-reduce of gradients takes
 # bytes of the tensors this process handed to each kind of collective (a gather's
-# full output, an all-reduce's buffer), for the caller to read and reset per step
+# full output, an all-reduce's buffer), for the caller to read and reset per step;
+# ShareKVHead's own under "kv_all_gather" and "kv_all_reduce"
 traffic = collections.Counter()
 
 
-def all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+def all_gather_dim(t: torch.Tensor, dim: int, group, kind: str = "all_gather") -> torch.Tensor:
     """The pieces of `t` from every rank of `group`, concatenated along `dim` in rank
-    order (`t` itself where group is None)."""
+    order (`t` itself where group is None); its bytes counted under traffic[kind]."""
     if group is None:
         return t
     n = dist.get_world_size(group)
     x = t.movedim(dim, 0).contiguous()
     out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, x, group=group)
-    traffic["all_gather"] += out.numel() * out.element_size()
+    traffic[kind] += out.numel() * out.element_size()
     return out.movedim(0, dim).contiguous()
 
 
-def all_reduce(t: torch.Tensor, group, op=None) -> torch.Tensor:
-    """`t` summed (or reduced by `op`) over `group`, in place; `t` where group is None."""
+def all_reduce(t: torch.Tensor, group, op=None, kind: str = "all_reduce") -> torch.Tensor:
+    """`t` summed (or reduced by `op`) over `group`, in place; `t` where group is None;
+    its bytes counted under traffic[kind]."""
     if group is not None:
         dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op, group=group)
-        traffic["all_reduce"] += t.numel() * t.element_size()
+        traffic[kind] += t.numel() * t.element_size()
     return t
 
 
@@ -166,6 +171,28 @@ class SliceLocal(torch.autograd.Function):
         return full, None, None, None, None
 
 
+class ShareKVHead(torch.autograd.Function):
+    """A KV head shared by the r tensor ranks of `group`, each of which stores the
+    r-th piece of it along `dim` (its JAX-layout piece of wk, wv, bk or bv). Forward:
+    the pieces all-gathered into the whole head, in rank order. Backward: each rank's
+    gradient of the whole head comes from its own query heads only, so the head's
+    gradient is their sum over the group; the rank keeps its piece of that sum (a
+    reduce-scatter, run as an all-reduce of the whole head's gradient, which every
+    backend here runs on CPU and CUDA tensors alike). Nothing is counted twice: no
+    query head lies on two ranks."""
+
+    @staticmethod
+    def forward(ctx, piece, dim, group):
+        ctx.dim, ctx.group = dim, group
+        ctx.n, ctx.index = dist.get_world_size(group), dist.get_rank(group)
+        return all_gather_dim(piece, dim, group, "kv_all_gather")
+
+    @staticmethod
+    def backward(ctx, grad):
+        whole = all_reduce(grad.contiguous().clone(), ctx.group, kind="kv_all_reduce")
+        return take_piece(whole, ctx.dim, ctx.n, ctx.index).contiguous(), None, None
+
+
 def f(x: torch.Tensor, group) -> torch.Tensor:
     """Megatron's f over `group` (the identity where group is None)."""
     return x if group is None else _Copy.apply(x, group)
@@ -200,6 +227,21 @@ class TensorParallel:
 
     def g(self, x: torch.Tensor) -> torch.Tensor:
         return g(x, self.group)
+
+    def share_kv_head(self, p: dict, kv_heads: int) -> dict:
+        """A split attention block's leaves with this rank's KV head whole: where the
+        tensor axis exceeds `kv_heads`, the pieces of wk, wv, bk and bv joined over the rank's
+        KV-replica group of r = size / kv_heads ranks (ShareKVHead); `p` itself where
+        each rank holds whole KV heads (r = 1)."""
+        r = self.size // kv_heads if self.size > kv_heads else 1
+        if r == 1:
+            return p
+        group = self.mesh.kv_group(r)
+        out = dict(p)
+        for n in ("wk", "wv", "bk", "bv"):
+            if n in p:
+                out[n] = ShareKVHead.apply(p[n], tensor_dim(self.specs[n], self.mesh), group)
+        return out
 
     def block(self, p: dict, cols: Sequence[str], rows: Sequence[str], col_biases: Sequence[str] = ()):
         """(leaves, split) of a block whose column-split matrices are among `cols` and

@@ -13,7 +13,10 @@ on the same three axes, with one torch.distributed process group per axis
 - ``tensor`` — megatron-style intra-layer sharding: each rank holds its own heads and
                its own slice of the MLP widths (column-split q/k/v, gate, up; row-split
                o, down), and the forward all-reduces twice a layer
-               (parallel/collectives.py::TensorParallel)
+               (parallel/collectives.py::TensorParallel). Where the tensor axis is
+               larger than the decoder's key/value head count, each KV head is read by
+               a run of r = tensor / Hkv ranks, which hold a piece of it each and join
+               it in the forward over their KV-replica group (`Mesh.kv_group`)
 
 A spec is the port's counterpart of a `PartitionSpec`: a tuple with one entry per
 leading dimension, each an axis name, a tuple of axis names, or None (not split);
@@ -55,10 +58,12 @@ class Mesh:
         f = (self.rank // tensor) % fsdp
         d = self.rank // (tensor * fsdp)
         self.coordinate: Dict[str, int] = {"data": d, "fsdp": f, "tensor": t}
+        self._kv_groups: Dict[int, object] = {}
         if device_mesh is not None:
             coord = tuple(device_mesh.get_coordinate())
             if coord != (d, f, t):
                 raise RuntimeError(f"rank {rank}: the device mesh puts it at {coord}, the layout at {(d, f, t)}")
+            self._kv_groups = _kv_replica_groups(self.shape, self.rank)
 
     def group(self, axis: str):
         """The process group of this rank's `axis`, None where that axis has size 1
@@ -69,6 +74,19 @@ class Mesh:
             raise RuntimeError(f"a collective over the {axis} axis of a mesh this process did not join "
                                f"({self.shape})")
         return self.device_mesh.get_group(axis)
+
+    def kv_group(self, r: int):
+        """The KV-replica group of this rank: the run of `r` tensor ranks, starting at a
+        multiple of r, that read one shared KV head (None where r is 1, the tensor
+        group where r is the whole axis)."""
+        if r == 1:
+            return None
+        if r == self.shape["tensor"]:
+            return self.group("tensor")
+        if r not in self._kv_groups:
+            raise RuntimeError(f"no KV-replica group of {r} ranks on {self}: r must divide the tensor axis, "
+                               f"and the mesh must be joined")
+        return self._kv_groups[r]
 
     def world_group(self):
         """The group of every rank of the mesh (None for a mesh of one rank)."""
@@ -82,6 +100,25 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"
+
+
+def _kv_replica_groups(shape: Dict[str, int], rank: int) -> Dict[int, object]:
+    """r -> this rank's group of r consecutive tensor ranks, for every r with
+    1 < r < tensor that divides tensor. dist.new_group is collective over the world:
+    every rank creates every group, in the same order, when the mesh is built (never
+    lazily inside a forward, where ranks could reach it in different orders)."""
+    import torch.distributed as dist
+
+    t, out = shape["tensor"], {}
+    for r in range(2, t):
+        if t % r:
+            continue
+        for base in range(0, shape["data"] * shape["fsdp"] * t, r):  # runs never straddle a tensor group
+            ranks = list(range(base, base + r))
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                out[r] = group
+    return out
 
 
 def make_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1, world_size: Optional[int] = None) -> Mesh:
@@ -281,15 +318,22 @@ def local_slice(x, spec: Spec, mesh: Mesh):
 
 
 def check_tensor_heads(cfg, tensor: int) -> None:
-    """Refuse a tensor axis that does not divide the decoder's query or key/value head
-    counts or the ViT's, naming them: each rank computes whole heads of its own."""
+    """Refuse, on the host, a tensor axis the model's heads cannot split on, naming the
+    counts. The axis must divide the decoder's query heads and the ViT's heads (each
+    rank computes whole query heads of its own); the decoder's key/value heads must
+    divide by it or divide it (where they are fewer, the tensor / Hkv ranks that read
+    one KV head share it: parallel.collectives.ShareKVHead). A width that does not
+    split is no refusal: param_shardings leaves that leaf whole, as the JAX rules do
+    (at 3B and tensor 8 the ViT's MLP, width 3420), and its block runs whole on every
+    rank (TensorParallel.block)."""
     t = int(tensor)
-    heads = {"decoder num_attention_heads": cfg.text.num_attention_heads,
-             "decoder num_key_value_heads": cfg.text.num_key_value_heads,
-             "ViT num_heads": cfg.vision.num_heads}
-    if t > 1 and any(h % t for h in heads.values()):
-        raise ValueError(f"a tensor axis of {t} does not divide the head counts "
-                         f"({', '.join(f'{k} {v}' for k, v in heads.items())}): each rank computes whole heads")
+    if t <= 1:
+        return
+    H, Hkv, Hv = cfg.text.num_attention_heads, cfg.text.num_key_value_heads, cfg.vision.num_heads
+    if H % t or Hv % t or (Hkv % t and t % Hkv):
+        raise ValueError(f"a tensor axis of {t} does not divide the head counts (decoder num_attention_heads {H}, "
+                         f"decoder num_key_value_heads {Hkv}, ViT num_heads {Hv}): each rank computes whole query "
+                         f"heads, and key/value heads must divide by {t} or divide it")
 
 
 def shard_params(params, mesh: Mesh, rules: Sequence[Tuple[str, Spec]] = DEFAULT_RULES):

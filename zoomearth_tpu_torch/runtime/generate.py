@@ -22,9 +22,13 @@ held equal to it by exact-equality tests. `Generator` runs on the params' device
   works on a copy whenever the reference would not have donated its input (an
   explicit grow_to marks a reusable prefix holder);
 - `HostCopy` is the asynchronous token readback (`generate(block=False)` hands the
-  device buffer to a caller that reads it later).
+  device buffer to a caller that reads it later);
+- two opt-in memory levers of the reference: `right_size_cache` (a stage-1 cache at
+  its own bucket, grown by the continuation) and `prefill_split_rows` (the embeds
+  path's prefill in row slices, each written straight into its rows of the full
+  cache).
 
-Not ported: the split-row prefill, `right_size_cache` and the ZOOMEARTH_* switches.
+Not ported: the ZOOMEARTH_* switches.
 """
 
 from __future__ import annotations
@@ -227,20 +231,35 @@ class HostCopy:
 class Generator:
     """Generation engine over a parameter tree on one device."""
 
-    def __init__(self, params, cfg: VLMConfig, max_cache_len: int = 4096, cache_dtype=None):
+    def __init__(self, params, cfg: VLMConfig, max_cache_len: int = 4096, cache_dtype=None,
+                 right_size_cache: bool = False, prefill_split_rows: int = 0):
         self.params = params
         self.cfg = cfg
         self.max_cache_len = max_cache_len
         self.cache_dtype = torch_dtype(cache_dtype or cfg.dtype)
+        # right_size_cache: allocate each run_prefill's cache at the smallest cache
+        # bucket holding its prompt bucket plus budget instead of max_cache_len;
+        # run_chunk_prefill grows it when a continuation needs more. It saves the
+        # stage-1 cache's unused tail (decode already reads only its attend prefix), but
+        # the growth holds the old and the grown cache at once (KVCache.grown copies),
+        # which raises the peak at the stage-2 transition: opt-in, for callers whose
+        # limit is the stage-1 allocation and who do not pipeline.
+        self.right_size_cache = right_size_cache
+        # prefill_split_rows: run_prefill's prefill in slices of this many rows when B
+        # exceeds it and divides by it (precomputed-embeds batches only). It bounds the
+        # prefill's activation transients: the gate and up products and their SwiGLU
+        # product are B*S*intermediate elements each, which at large B outgrow the
+        # cache they feed; slices of R rows cut that part of the peak by B/R.
+        self.prefill_split_rows = prefill_split_rows
         self.device = params["text"]["embed"]["weight"].device
         self._stop = torch.as_tensor((cfg.tokens.eos, cfg.tokens.endoftext), device=self.device)
         self.graphs = StepGraphs(self.device)  # one captured step per decode call (see _drive)
         self.decode_steps = collections.Counter()  # steps taken, by "solo" and "pair"
         self._calls = 0
 
-    def new_cache(self, batch: int) -> KVCache:
-        """Fresh full-size cache in this generator's layout."""
-        return KVCache.create(self.cfg.text, batch, self.max_cache_len, self.cache_dtype, self.device)
+    def new_cache(self, batch: int, max_len: Optional[int] = None) -> KVCache:
+        """Fresh cache in this generator's layout, full-size unless `max_len` is given."""
+        return KVCache.create(self.cfg.text, batch, max_len or self.max_cache_len, self.cache_dtype, self.device)
 
     @staticmethod
     def _attend_bucket(need: int, alloc: int):
@@ -269,24 +288,54 @@ class Generator:
 
     # -- composable stages ------------------------------------------------------
 
-    @torch.inference_mode()
-    def run_prefill(self, batch: PreparedBatch, *, max_new: int = 0):
-        """Stage-1 prefill into a fresh cache. Returns (first_logits, cache, attend):
-        attend is the decode read span for this stage (run_decode's attend=)."""
-        B, S = batch.input_ids.shape
-        cache = self.new_cache(B)
-        lengths = self._tensor(batch.lengths, torch.int32)
-        attn_positions = torch.arange(S, device=self.device)[None].expand(B, S)
-        vis, win_mode = self._vision_kwargs(batch)
-        logits, cache = vlm_forward(
-            self.params, self.cfg, self._tensor(batch.input_ids, torch.int64),
-            self._tensor(batch.position_ids, torch.int32),
+    def _prefill(self, cache: KVCache, ids, pos, lengths, vis: dict, win_mode: int):
+        """Prefill `ids` (R, S) into the fresh `cache` (R rows; a row view of a larger
+        cache is written through) and set its length. Returns the last-token logits."""
+        R, S = ids.shape
+        attn_positions = torch.arange(S, device=self.device)[None].expand(R, S)
+        logits, _ = vlm_forward(
+            self.params, self.cfg, ids, pos,
             attn_positions=attn_positions, attn_valid=attn_positions < lengths[:, None],
             cache=cache, update_cache_len=False, logit_index=lengths - 1,
             win_mode=win_mode, **vis,
         )
         cache.length.copy_(lengths)
-        return logits, cache, self._attend_bucket(S + max_new, self.max_cache_len)
+        return logits
+
+    @torch.inference_mode()
+    def run_prefill(self, batch: PreparedBatch, *, max_new: int = 0):
+        """Stage-1 prefill into a fresh cache. Returns (first_logits, cache, attend):
+        attend is the decode read span for this stage (run_decode's attend=). max_new
+        sizes the attend bucket and, with right_size_cache, the allocation.
+
+        With prefill_split_rows = R, an embeds batch (vision_meta None) of B > R rows,
+        B a multiple of R, is prefilled R rows at a time, each slice with its own rows'
+        vision embeddings, straight into those rows of the full cache (row views: k, v,
+        the int8 scales and `length` are written through, so the cache keeps its one
+        `length` tensor). Every other batch is prefilled in one pass."""
+        B, S = batch.input_ids.shape
+        T1 = self.max_cache_len
+        if self.right_size_cache:
+            T1 = next((b for b in DEFAULT_CACHE_BUCKETS if S + max_new <= b <= self.max_cache_len), T1)
+        cache = self.new_cache(B, T1)
+        ids = self._tensor(batch.input_ids, torch.int64)
+        pos = self._tensor(batch.position_ids, torch.int32)
+        lengths = self._tensor(batch.lengths, torch.int32)
+        vis, win_mode = self._vision_kwargs(batch)
+        R = self.prefill_split_rows
+        if R and B > R and B % R == 0 and batch.vision_meta is None and batch.pixel_values is not None:
+            n_img = (np.asarray(batch.input_ids) == self.cfg.tokens.image_pad).sum(axis=1)
+            offs = np.concatenate([[0], np.cumsum(n_img)])
+            parts = []
+            for h in range(B // R):
+                rows = slice(h * R, (h + 1) * R)
+                emb = vis["vision_embeds"][int(offs[h * R]):int(offs[(h + 1) * R])]
+                parts.append(self._prefill(cache.rows(rows), ids[rows], pos[:, rows], lengths[rows],
+                                           {"vision_embeds": emb} if emb.shape[0] else {}, 0))
+            logits = torch.cat(parts)
+        else:
+            logits = self._prefill(cache, ids, pos, lengths, vis, win_mode)
+        return logits, cache, self._attend_bucket(S + max_new, T1)
 
     @torch.inference_mode()
     def run_chunk_prefill(self, cache: KVCache, batch: PreparedBatch, keep_len, *, max_new: int,

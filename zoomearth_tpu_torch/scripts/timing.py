@@ -67,6 +67,13 @@ def flush_l2() -> None:
     _flush_buf.zero_()
 
 
+def release_flush_buffer() -> None:
+    """Drop the flush buffer (the next flush makes it anew), so that the caching
+    allocator can hand its memory back to the card."""
+    global _flush_buf
+    _flush_buf = None
+
+
 def flush_l2_by_reading() -> None:
     """Evict the L2 cache with lines that need no write-back: read the flush buffer
     (one reduction over L2_FLUSH_BYTES on the current CUDA device)."""
