@@ -248,10 +248,11 @@ identical (`eager_and_captured`; the engine's chunks through whole engine runs i
    against their plain versions row by row (each query and head within one bf16 step
    of its own largest value) and timed (beside one SDPA call) at exactly those forms.
    Two planted faults must fail that check: K2 run with every row's last 64 keys
-   dropped, and K3 fed kv_len - 64. The stages again, warm, through utils/profiling.PhaseTimer with device
-   synchronization (anyres tiling, InternViT over the 40 tiles, the prefill, decode ms
-   a step), the peak memory, and one utils/profiling.trace of a warm prefill, whose
-   Chrome trace must hold the annotated region and device kernels.
+   dropped, and K3 fed kv_len - 64. The stages again, warm, through utils/profiling.tracer
+   (anyres tiling on the host clock; InternViT over the 40 tiles, the prefill and decode ms a
+   step from CUDA events, with no synchronization between them), the peak memory, and one
+   utils/profiling.trace of a warm prefill, whose Chrome trace must hold the annotated region,
+   device kernels and the tracer's host and device spans of the prefill.
 
 The second-to-last line is {"kernels": [...]} (every case of each kernel with its
 time, its plain version's, the library call's where there is one, its bound and the
@@ -3986,7 +3987,7 @@ def run_internvl(card):
     from zoomearth_tpu_torch.ops import flash_causal as K2
     from zoomearth_tpu_torch.ops import flash_decode as K3
     from zoomearth_tpu_torch.runtime.generate import GenerationConfig
-    from zoomearth_tpu_torch.utils.profiling import PhaseTimer, annotate, trace
+    from zoomearth_tpu_torch.utils.profiling import annotate, trace, tracer
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4056,23 +4057,27 @@ def run_internvl(card):
         f"{launches[names[2]] // L} decode steps x {L} layers); answer lengths {[len(t) for t in texts]}; "
         f"captured decode: {graph_line(runner.generator, graphs0)}")
 
-    # the stages again, warm, each timed between device synchronizations
-    timer = PhaseTimer()
+    # the stages again, warm, through the tracer: the tiling on the host clock, InternViT on the
+    # device (CUDA events, no synchronization between the stages), the prefill and the decode
+    # call as the Generator's own device spans
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    with timer.phase("anyres_tiles"):
+    tracer.start()
+    with tracer.span("anyres_tiles"):
         patches, counts = runner.tile_images(images)
-    with timer.phase("internvit", sync=True), torch.inference_mode():
+    with tracer.span("internvit", device=True), torch.inference_mode():
         embeds = internvit_embeds(params["vision"], cfg.vision, torch.as_tensor(patches, device="cuda"))
     vit_peak = torch.cuda.max_memory_allocated()
     batch = runner.prepare(questions, embeds, counts)
-    with timer.phase("prefill", sync=True):
-        logits, cache, attend = runner.generator.run_prefill(batch, max_new=NEW_TOKENS)
+    logits, cache, attend = runner.generator.run_prefill(batch, max_new=NEW_TOKENS)
     before = K3.decode_attention_cuda.launches
-    with timer.phase("decode", sync=True):
-        tokens, cache = runner.generator.run_decode(logits, cache, batch.next_pos, gen, attend=attend)
+    tokens, cache = runner.generator.run_decode(logits, cache, batch.next_pos, gen, attend=attend)
     steps = (K3.decode_attention_cuda.launches - before) // L
     peak = torch.cuda.max_memory_allocated()
+    tracer.stop()
+    s = {n: sum(b - a for m, a, b, _ in tracer.spans if m == n) for n in ("anyres_tiles",)}
+    s.update({n: sum(b - a for m, a, b in tracer.device if m == n) for n in ("internvit", "prefill", "decode")})
+    assert all(s.values()), f"a stage was not traced: {s}"
     logits2, cache2, _ = runner.generator.run_prefill(batch, max_new=NEW_TOKENS)
     eager_and_captured(f"InternVL (run_decode), bf16 cache, attend {attend}", card, lambda: runner.generator.solo_step(
         logits2, cache2.clone(), batch.next_pos, gen, attend=attend), NEW_TOKENS)
@@ -4083,17 +4088,17 @@ def run_internvl(card):
                                                                 cfg.text.hidden_size), (counts, embeds.shape)
     assert int(batch.lengths.max()) <= 2048 and S == 2048, (batch.lengths, S)
     assert logits.shape == (B, cfg.text.vocab_size) and bool(torch.isfinite(logits).all()), "non-finite logits"
-    s = timer.summary()
     log(f"  prompt lengths {sorted(set(batch.lengths.tolist()))} tokens ({n_tiles} tiles, "
         f"{embeds.shape[0]} image tokens) in the {S} bucket; attend span {attend}")
-    log(f"  stages (warm, synchronized): anyres tiles (host) {s['anyres_tiles']['total_s']:.4f} s; InternViT over "
-        f"{n_tiles} tiles {s['internvit']['total_s']:.4f} s; prefill B={B} S={S} {s['prefill']['total_s']:.4f} s; decode "
-        f"{steps} steps {s['decode']['total_s']:.4f} s = {1e3 * s['decode']['total_s'] / max(steps, 1):.2f} ms/step "
-        f"| {card}")
+    log(f"  stages (warm; the tiles on the host clock, the rest device time from CUDA events): anyres tiles "
+        f"{s['anyres_tiles']:.4f} s; InternViT over {n_tiles} tiles {s['internvit']:.4f} s; prefill B={B} S={S} "
+        f"{s['prefill']:.4f} s; decode {steps} steps {s['decode']:.4f} s = {1e3 * s['decode'] / max(steps, 1):.2f} "
+        f"ms/step | {card}")
     log(f"  peak memory {peak / 2**30:.3f} GiB ({vit_peak / 2**30:.3f} GiB during InternViT; {base / 2**30:.3f} GiB "
         f"allocated before, the weights {2 * param_count(params) / 2**30:.3f} GiB of it) | {card}")
 
-    # one trace of a warm prefill
+    # one trace of a warm prefill: the profiler's events and the tracer's, the Generator's prefill span on
+    # the device track among them
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tdir:
         with trace(tdir):
             with annotate("internvl_prefill"):
@@ -4105,11 +4110,14 @@ def run_internvl(card):
     dev_events = [e for e in events if e.get("cat") == "kernel"]
     assert any(e.get("name") == "internvl_prefill" for e in events), "the annotated region is not in the trace"
     assert dev_events, "the trace holds no device kernel"
+    traced = [e for e in events if e.get("cat") == "tracer" and e.get("name") == "prefill"]
+    assert len(traced) == 2, f"the prefill's host and device spans are not in the trace: {traced}"
     by_name = {}
     for e in dev_events:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e.get("dur", 0.0)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    log(f"  trace of a warm prefill ({files[0]}): {len(dev_events)} device kernels, {sum(by_name.values()) / 1e3:.3f} ms "
+    log(f"  trace of a warm prefill ({files[0]}): the tracer's prefill span {[round(e['dur'] / 1e3, 4) for e in traced]}"
+        f" ms (host, device); {len(dev_events)} device kernels from the profiler, {sum(by_name.values()) / 1e3:.3f} ms "
         f"of device kernel time; largest: {[(n[:60], round(d / 1e3, 4)) for n, d in top]} (ms) | {card}")
     del logits, cache, tokens, embeds, batch, runner, params
     gc.collect()

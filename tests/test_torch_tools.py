@@ -2,7 +2,7 @@
 (train/rec.py), data generation (train/datagen.py, cli/generate.py) over the port's
 ServingEngine and over its OpenAI endpoint, the benchmark registry and queue drainer
 (eval/benchmarks.py, cli/run_benchmarks.py) with the benchmark callback that now
-queues through it, and the phase timer and trace (utils/profiling.py). Host outputs
+queues through it, and the trace (utils/profiling.py; its tracer: test_torch_tracing.py). Host outputs
 are held exactly equal; generated tokens only at temperature 0 (torch and JAX draw
 different random numbers). Every wait has a timeout of its own.
 """
@@ -30,7 +30,6 @@ from zoomearth_tpu.train import callbacks as JCB
 from zoomearth_tpu.train import datagen as JDG
 from zoomearth_tpu.train import rec as JREC
 from zoomearth_tpu.cli.run_benchmarks import main as jax_drain
-from zoomearth_tpu.utils import profiling as JPF
 from zoomearth_tpu_torch.agent.processor import Processor
 from zoomearth_tpu_torch.cli.infer import build_parser as infer_parser
 from zoomearth_tpu_torch.cli.run_benchmarks import main as drain
@@ -355,23 +354,6 @@ def test_queue_drainer_failures_equal_reference(tmp_path, case):
 # ---------------------------------------------------------------------------
 # profiling
 # ---------------------------------------------------------------------------
-
-def test_phase_timer_summary_and_report_equal_reference():
-    ours, theirs = PF.PhaseTimer(), JPF.PhaseTimer()
-    for t in (ours, theirs):
-        for name in ("decode", "prefill", "decode"):
-            with t.phase(name):
-                pass
-        t.totals.update({"decode": 1.234567891, "prefill": 0.00004999})
-    assert ours.summary() == theirs.summary()
-    assert ours.summary()["decode"] == {"total_s": 1.2346, "count": 2, "mean_s": 0.6173}
-    assert ours.report() == theirs.report() and json.loads(ours.report())["prefill"]["count"] == 1
-    with ours.phase("synced", sync=True):  # no CUDA device in use: nothing to wait for
-        pass
-    assert ours.counts["synced"] == 1
-    ours.reset()
-    assert ours.summary() == {}
-
 
 def test_trace_writes_a_chrome_trace_with_the_annotated_region_on_the_cpu(tmp_path):
     log_dir = tmp_path / "trace"

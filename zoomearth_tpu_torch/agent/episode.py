@@ -18,6 +18,7 @@ import numpy as np
 
 from ..image.geometry import cut_image, extract_answer, extract_bboxes, resize_image
 from ..runtime.generate import GenerationConfig, Generator, prepare_batch, prepare_continuation
+from ..utils.profiling import tracer
 from . import prompts as PT
 from .processor import Processor
 
@@ -57,14 +58,15 @@ def _stage1_inputs(generator, processor, questions, images, stage1_max_size):
     """Encode one wave's stage-1 prompts: returns (texts, resized, scales, encoded,
     prepared batch)."""
     cfg = generator.cfg
-    stage1_texts = [PT.stage1_prompt(q) for q in questions]
-    resized, scales = [], []
-    for img in images:
-        small = resize_image(img, stage1_max_size)
-        resized.append(small)
-        scales.append(max(img.width, img.height) / max(small.width, small.height))
-    encoded = [processor.encode(t, [im]) for t, im in zip(stage1_texts, resized)]
-    batch = prepare_batch(cfg, [ids for ids, _ in encoded], [imgs for _, imgs in encoded])
+    with tracer.span("episode.stage1_inputs"):
+        stage1_texts = [PT.stage1_prompt(q) for q in questions]
+        resized, scales = [], []
+        for img in images:
+            small = resize_image(img, stage1_max_size)
+            resized.append(small)
+            scales.append(max(img.width, img.height) / max(small.width, small.height))
+        encoded = [processor.encode(t, [im]) for t, im in zip(stage1_texts, resized)]
+        batch = prepare_batch(cfg, [ids for ids, _ in encoded], [imgs for _, imgs in encoded])
     return stage1_texts, resized, scales, encoded, batch
 
 
@@ -79,50 +81,55 @@ def _stage2_continuation(
     nothing)."""
     cfg = generator.cfg
     tk = processor.tokenizer
-    stage1_out = [tk.decode(t).strip() for t in out_tokens]
-    n = len(questions)
-    results: List[Optional[EpisodeResult]] = [None] * n
-    s2_idx = []
-    full_chunks: List[List[int]] = [[] for _ in range(n)]
-    full_imgs: List[list] = [[] for _ in range(n)]
-    full_keep = [0] * n
-    full_start = [0] * n
-    for i, out1 in enumerate(stage1_out):
-        boxes = extract_bboxes(out1, scales[i])
-        if not boxes:
+    with tracer.span("episode.stage2_inputs"):
+        with tracer.span("text.decode"):
+            stage1_out = [tk.decode(t).strip() for t in out_tokens]
+        n = len(questions)
+        results: List[Optional[EpisodeResult]] = [None] * n
+        s2_idx = []
+        full_chunks: List[List[int]] = [[] for _ in range(n)]
+        full_imgs: List[list] = [[] for _ in range(n)]
+        full_keep = [0] * n
+        full_start = [0] * n
+        for i, out1 in enumerate(stage1_out):
+            with tracer.span("text.decode"):
+                boxes = extract_bboxes(out1, scales[i])
+            if not boxes:
+                results[i] = EpisodeResult(
+                    question=questions[i], stage1=out1, stage2="",
+                    answer1=extract_answer(out1), answer2=None, bbox=None, error=True,
+                )
+                continue
+            bbox = boxes[0]
+            crop = resize_image(cut_image(images[i], bbox, crop_min_size), crop_max_size)
+            s2_idx.append(i)
             results[i] = EpisodeResult(
                 question=questions[i], stage1=out1, stage2="",
-                answer1=extract_answer(out1), answer2=None, bbox=None, error=True,
+                answer1=extract_answer(out1), answer2=None, bbox=bbox, error=False,
             )
-            continue
-        bbox = boxes[0]
-        crop = resize_image(cut_image(images[i], bbox, crop_min_size), crop_max_size)
-        s2_idx.append(i)
-        results[i] = EpisodeResult(
-            question=questions[i], stage1=out1, stage2="",
-            answer1=extract_answer(out1), answer2=None, bbox=bbox, error=False,
-        )
-        # split on the UNSTRIPPED decode so tokens<->text stays bijective
-        raw = tk.decode(out_tokens[i], skip_special_tokens=False)
-        pre_text = raw.split("<answer>")[0]
-        kept, residual = split_kept_tokens(tk, out_tokens[i], pre_text)
-        crop_prepped = processor.preprocess_images([crop])
-        chunk_ids = tk.encode(residual) if residual else []
-        chunk_ids += processor.expand_image_pads(
-            tk.encode(PT.VISION_TOKENS), [crop_prepped[0][1]]
-        )
-        full_chunks[i] = chunk_ids
-        full_imgs[i] = crop_prepped
-        full_keep[i] = len(encoded[i][0]) + len(kept)
-        full_start[i] = int(batch.next_pos[i]) + len(kept)
-    for i in range(n):
-        if not full_chunks[i]:  # inert placeholder for non-s2 rows
-            full_chunks[i] = [cfg.tokens.pad]
-            full_keep[i] = len(encoded[i][0])
-            full_start[i] = int(batch.next_pos[i])
-    bc = prepare_continuation(cfg, full_chunks, full_imgs, full_start)
-    inert = np.ones((n,), bool)
-    inert[s2_idx] = False
+            # split on the UNSTRIPPED decode so tokens<->text stays bijective
+            with tracer.span("text.decode"):
+                raw = tk.decode(out_tokens[i], skip_special_tokens=False)
+                pre_text = raw.split("<answer>")[0]
+                kept, residual = split_kept_tokens(tk, out_tokens[i], pre_text)
+            crop_prepped = processor.preprocess_images([crop])
+            with tracer.span("text.tokenize"):
+                chunk_ids = tk.encode(residual) if residual else []
+                chunk_ids += processor.expand_image_pads(
+                    tk.encode(PT.VISION_TOKENS), [crop_prepped[0][1]]
+                )
+            full_chunks[i] = chunk_ids
+            full_imgs[i] = crop_prepped
+            full_keep[i] = len(encoded[i][0]) + len(kept)
+            full_start[i] = int(batch.next_pos[i]) + len(kept)
+        for i in range(n):
+            if not full_chunks[i]:  # inert placeholder for non-s2 rows
+                full_chunks[i] = [cfg.tokens.pad]
+                full_keep[i] = len(encoded[i][0])
+                full_start[i] = int(batch.next_pos[i])
+        bc = prepare_continuation(cfg, full_chunks, full_imgs, full_start)
+        inert = np.ones((n,), bool)
+        inert[s2_idx] = False
     return results, bc, np.asarray(full_keep, np.int32), inert, s2_idx
 
 
@@ -171,9 +178,10 @@ def run_episodes_pipelined(
     def on_complete(w, out1, out2):
         results, s2_idx = state.pop(w)
         tk = processor.tokenizer
-        for i in s2_idx:
-            text2 = tk.decode(out2[i]).strip()
-            results[i] = dataclasses.replace(results[i], stage2=text2, answer2=extract_answer(text2))
+        with tracer.span("text.decode"):
+            for i in s2_idx:
+                text2 = tk.decode(out2[i]).strip()
+                results[i] = dataclasses.replace(results[i], stage2=text2, answer2=extract_answer(text2))
         out[w] = results
 
     run_paired_waves(

@@ -16,6 +16,7 @@ import numpy as np
 
 from ..config import VLMConfig
 from ..image.preprocess import num_vision_tokens, preprocess_image_u8
+from ..utils.profiling import tracer
 
 IGNORE_INDEX = -100
 
@@ -41,17 +42,18 @@ class Processor:
         if self.max_pixels is not None:
             kw["max_pixels"] = self.max_pixels
         v = self.cfg.vision
-        return [
-            preprocess_image_u8(
-                img,
-                patch_size=v.patch_size,
-                temporal_patch_size=v.temporal_patch_size,
-                merge_size=v.spatial_merge_size,
-                compact=self.compact_patches,
-                **kw,
-            )
-            for img in images
-        ]
+        with tracer.span("processor.preprocess"):
+            return [
+                preprocess_image_u8(
+                    img,
+                    patch_size=v.patch_size,
+                    temporal_patch_size=v.temporal_patch_size,
+                    merge_size=v.spatial_merge_size,
+                    compact=self.compact_patches,
+                    **kw,
+                )
+                for img in images
+            ]
 
     def expand_image_pads(self, ids: List[int], grids: Sequence[Sequence[int]]) -> List[int]:
         """Replace each single image_pad token with the per-image token count."""
@@ -73,8 +75,9 @@ class Processor:
     def encode(self, text: str, images: Sequence = ()) -> Tuple[List[int], List[Tuple[np.ndarray, Tuple[int, int, int]]]]:
         """Prompt text (one <|image_pad|> per image) -> (expanded ids, [(pv, grid)...])."""
         prepped = self.preprocess_images(images)
-        ids = self.tokenizer.encode(text)
-        ids = self.expand_image_pads(ids, [g for _, g in prepped])
+        with tracer.span("text.tokenize"):
+            ids = self.tokenizer.encode(text)
+            ids = self.expand_image_pads(ids, [g for _, g in prepped])
         return ids, prepped
 
     def encode_with_labels(

@@ -16,6 +16,8 @@ import json
 import re
 from typing import Optional, Sequence, Tuple
 
+from ..utils.profiling import tracer
+
 Box = Tuple[int, int, int, int]
 
 
@@ -157,17 +159,21 @@ def center_distance(a: Sequence[float], b: Sequence[float]) -> float:
 
 def cut_image(image, bbox: Sequence[float], min_size: int = 512):
     """Crop `image` to the (possibly expanded) window around bbox. Reference demo.py:30-70."""
-    return image.crop(crop_window(bbox, image.width, image.height, min_size))
+    with tracer.span("image.crop"):
+        return image.crop(crop_window(bbox, image.width, image.height, min_size))
 
 
 def resize_image(image, max_size: int = 1024, min_side: Optional[int] = None):
-    """Cap the longest side at max_size (BICUBIC). Reference demo.py:86-93."""
+    """Cap the longest side at max_size (BICUBIC). Reference demo.py:86-93. A resample is
+    traced as `image.resize` and counts its source pixels in `image.resize_src_px`."""
     from PIL import Image
 
     w, h = image.size
     scale = resize_scale(w, h, max_size, min_side)
     if scale < 1:
-        image = image.resize((int(w * scale), int(h * scale)), Image.BICUBIC)
+        with tracer.span("image.resize"):
+            image = image.resize((int(w * scale), int(h * scale)), Image.BICUBIC)
+        tracer.count("image.resize_src_px", w * h)
     return image
 
 

@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 
 from ..config import VLMConfig
+from ..utils.profiling import tracer
 from .decoder import KVCache, decoder_forward, logits_from_hidden
 from .vit import vit_forward
 
@@ -45,13 +46,14 @@ def compute_vision_embeds(params, cfg: VLMConfig, pixel_values, vision_meta, win
     """Run just the vision tower: packed patches -> (N_merged, E) merged embeddings in
     image order. vision_meta holds device tensors (vit.meta_to_device). tp: the
     TensorParallel view of the whole tree on a tensor mesh (parallel/collectives.py),
-    None elsewhere."""
-    return vit_forward(
-        params["vision"], cfg.vision, pixel_values,
-        vision_meta["perm"], vision_meta["inv_perm_merged"],
-        vision_meta["seg_window"], vision_meta["seg_full"], vision_meta["pos_ids"],
-        win_mode=win_mode, win_plan=_win_plan(vision_meta), tp=None if tp is None else tp.at("vision"),
-    )
+    None elsewhere. Traced as the device span `vision`."""
+    with tracer.span("vision", device=True):
+        return vit_forward(
+            params["vision"], cfg.vision, pixel_values,
+            vision_meta["perm"], vision_meta["inv_perm_merged"],
+            vision_meta["seg_window"], vision_meta["seg_full"], vision_meta["pos_ids"],
+            win_mode=win_mode, win_plan=_win_plan(vision_meta), tp=None if tp is None else tp.at("vision"),
+        )
 
 
 def vlm_forward(

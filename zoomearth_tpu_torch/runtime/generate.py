@@ -2,8 +2,8 @@
 runtime/generate.py).
 
 The host-side packing (`bucket`, `GenerationConfig`, `PreparedBatch`,
-`prepare_batch`, `prepare_continuation`) is a verbatim copy of the reference's,
-held equal to it by exact-equality tests. `Generator` runs on the params' device:
+`prepare_batch`, `prepare_continuation`) is a copy of the reference's, held equal to
+it by exact-equality tests. `Generator` runs on the params' device:
 
 - prefill and chunk prefill are one eager forward each (their attention is K2);
 - decode is one step function over fixed device buffers (`DecodeState`: logits,
@@ -26,7 +26,10 @@ held equal to it by exact-equality tests. `Generator` runs on the params' device
 - two opt-in memory levers of the reference: `right_size_cache` (a stage-1 cache at
   its own bucket, grown by the continuation) and `prefill_split_rows` (the embeds
   path's prefill in row slices, each written straight into its rows of the full
-  cache).
+  cache);
+- the tracer (utils/profiling.py) times the packing as the host span `batch.pack`,
+  and each prefill, chunk prefill and decode call (its step loop) as the device spans
+  `prefill`, `chunk_prefill` and `decode`.
 
 Not ported: the ZOOMEARTH_* switches.
 """
@@ -47,6 +50,7 @@ from ..models.rope import mrope_position_ids_batch
 from ..models.vit import meta_to_device, vision_metadata
 from ..models.vlm import embed_tokens, vlm_forward
 from ..ops.sampling import greedy, sample
+from ..utils.profiling import tracer
 from .graphs import StepGraphs
 
 DEFAULT_LENGTH_BUCKETS = (128, 256, 384, 512, 768, 1024, 1536, 2048)
@@ -95,36 +99,37 @@ def prepare_batch(
     images_per_seq[b] is a list of (pixel_values, grid_thw) per image of sequence b, in
     order of appearance. Pads input ids with cfg.tokens.pad on the right.
     """
-    B = len(token_lists)
-    lengths = np.asarray([len(t) for t in token_lists], dtype=np.int32)
-    S = bucket(int(lengths.max()), length_buckets)
-    ids = np.full((B, S), cfg.tokens.pad, dtype=np.int32)
-    for b, toks in enumerate(token_lists):
-        ids[b, : len(toks)] = toks
+    with tracer.span("batch.pack"):
+        B = len(token_lists)
+        lengths = np.asarray([len(t) for t in token_lists], dtype=np.int32)
+        S = bucket(int(lengths.max()), length_buckets)
+        ids = np.full((B, S), cfg.tokens.pad, dtype=np.int32)
+        for b, toks in enumerate(token_lists):
+            ids[b, : len(toks)] = toks
 
-    grids_per_seq = [[g for _, g in imgs] for imgs in images_per_seq]
-    pos, next_pos = mrope_position_ids_batch(
-        ids,
-        grids_per_seq,
-        image_pad_id=cfg.tokens.image_pad,
-        merge_size=cfg.vision.spatial_merge_size,
-        attention_mask=(ids != cfg.tokens.pad).astype(np.int32)
-        if any(len(t) != S for t in token_lists)
-        else None,
-    )
+        grids_per_seq = [[g for _, g in imgs] for imgs in images_per_seq]
+        pos, next_pos = mrope_position_ids_batch(
+            ids,
+            grids_per_seq,
+            image_pad_id=cfg.tokens.image_pad,
+            merge_size=cfg.vision.spatial_merge_size,
+            attention_mask=(ids != cfg.tokens.pad).astype(np.int32)
+            if any(len(t) != S for t in token_lists)
+            else None,
+        )
 
-    all_pv = [pv for imgs in images_per_seq for pv, _ in imgs]
-    all_grids = [g for gs in grids_per_seq for g in gs]
-    pixel_values = None
-    meta_dev = None
-    if all_pv:
-        pv = np.concatenate(all_pv, axis=0)
-        P = bucket(pv.shape[0], patch_buckets)
-        meta = vision_metadata(all_grids, cfg.vision, pad_to=P)
-        if P > pv.shape[0]:
-            pv = np.concatenate([pv, np.zeros((P - pv.shape[0], pv.shape[1]), pv.dtype)])
-        pixel_values = pv
-        meta_dev = _meta_dict(meta)
+        all_pv = [pv for imgs in images_per_seq for pv, _ in imgs]
+        all_grids = [g for gs in grids_per_seq for g in gs]
+        pixel_values = None
+        meta_dev = None
+        if all_pv:
+            pv = np.concatenate(all_pv, axis=0)
+            P = bucket(pv.shape[0], patch_buckets)
+            meta = vision_metadata(all_grids, cfg.vision, pad_to=P)
+            if P > pv.shape[0]:
+                pv = np.concatenate([pv, np.zeros((P - pv.shape[0], pv.shape[1]), pv.dtype)])
+            pixel_values = pv
+            meta_dev = _meta_dict(meta)
     return PreparedBatch(ids, lengths, pos, next_pos, pixel_values, meta_dev)
 
 
@@ -161,34 +166,35 @@ def prepare_continuation(
     prefix's next position). Unlike prepare_batch, position ids are per-row offset."""
     from ..models.rope import mrope_chunk_position_ids
 
-    B = len(chunk_token_lists)
-    lengths = np.asarray([len(t) for t in chunk_token_lists], dtype=np.int32)
-    S = bucket(int(lengths.max()), length_buckets)
-    ids = np.full((B, S), cfg.tokens.pad, dtype=np.int32)
-    pos = np.ones((3, B, S), dtype=np.int32)
-    next_pos = np.zeros((B,), np.int32)
-    for b, toks in enumerate(chunk_token_lists):
-        ids[b, : len(toks)] = toks
-        grids = [g for _, g in images_per_seq[b]]
-        p, nxt = mrope_chunk_position_ids(
-            np.asarray(toks), grids, int(start_positions[b]),
-            image_pad_id=cfg.tokens.image_pad, merge_size=cfg.vision.spatial_merge_size,
-        )
-        pos[:, b, : len(toks)] = p
-        next_pos[b] = nxt
+    with tracer.span("batch.pack"):
+        B = len(chunk_token_lists)
+        lengths = np.asarray([len(t) for t in chunk_token_lists], dtype=np.int32)
+        S = bucket(int(lengths.max()), length_buckets)
+        ids = np.full((B, S), cfg.tokens.pad, dtype=np.int32)
+        pos = np.ones((3, B, S), dtype=np.int32)
+        next_pos = np.zeros((B,), np.int32)
+        for b, toks in enumerate(chunk_token_lists):
+            ids[b, : len(toks)] = toks
+            grids = [g for _, g in images_per_seq[b]]
+            p, nxt = mrope_chunk_position_ids(
+                np.asarray(toks), grids, int(start_positions[b]),
+                image_pad_id=cfg.tokens.image_pad, merge_size=cfg.vision.spatial_merge_size,
+            )
+            pos[:, b, : len(toks)] = p
+            next_pos[b] = nxt
 
-    all_pv = [pv for imgs in images_per_seq for pv, _ in imgs]
-    all_grids = [g for imgs in images_per_seq for _, g in imgs]
-    pixel_values = None
-    meta_dev = None
-    if all_pv:
-        pv = np.concatenate(all_pv, axis=0)
-        P = bucket(pv.shape[0], patch_buckets)
-        meta = vision_metadata(all_grids, cfg.vision, pad_to=P)
-        if P > pv.shape[0]:
-            pv = np.concatenate([pv, np.zeros((P - pv.shape[0], pv.shape[1]), pv.dtype)])
-        pixel_values = pv
-        meta_dev = _meta_dict(meta)
+        all_pv = [pv for imgs in images_per_seq for pv, _ in imgs]
+        all_grids = [g for imgs in images_per_seq for _, g in imgs]
+        pixel_values = None
+        meta_dev = None
+        if all_pv:
+            pv = np.concatenate(all_pv, axis=0)
+            P = bucket(pv.shape[0], patch_buckets)
+            meta = vision_metadata(all_grids, cfg.vision, pad_to=P)
+            if P > pv.shape[0]:
+                pv = np.concatenate([pv, np.zeros((P - pv.shape[0], pv.shape[1]), pv.dtype)])
+            pixel_values = pv
+            meta_dev = _meta_dict(meta)
     return PreparedBatch(ids, lengths, pos, next_pos, pixel_values, meta_dev)
 
 
@@ -313,29 +319,30 @@ class Generator:
         vision embeddings, straight into those rows of the full cache (row views: k, v,
         the int8 scales and `length` are written through, so the cache keeps its one
         `length` tensor). Every other batch is prefilled in one pass."""
-        B, S = batch.input_ids.shape
-        T1 = self.max_cache_len
-        if self.right_size_cache:
-            T1 = next((b for b in DEFAULT_CACHE_BUCKETS if S + max_new <= b <= self.max_cache_len), T1)
-        cache = self.new_cache(B, T1)
-        ids = self._tensor(batch.input_ids, torch.int64)
-        pos = self._tensor(batch.position_ids, torch.int32)
-        lengths = self._tensor(batch.lengths, torch.int32)
-        vis, win_mode = self._vision_kwargs(batch)
-        R = self.prefill_split_rows
-        if R and B > R and B % R == 0 and batch.vision_meta is None and batch.pixel_values is not None:
-            n_img = (np.asarray(batch.input_ids) == self.cfg.tokens.image_pad).sum(axis=1)
-            offs = np.concatenate([[0], np.cumsum(n_img)])
-            parts = []
-            for h in range(B // R):
-                rows = slice(h * R, (h + 1) * R)
-                emb = vis["vision_embeds"][int(offs[h * R]):int(offs[(h + 1) * R])]
-                parts.append(self._prefill(cache.rows(rows), ids[rows], pos[:, rows], lengths[rows],
-                                           {"vision_embeds": emb} if emb.shape[0] else {}, 0))
-            logits = torch.cat(parts)
-        else:
-            logits = self._prefill(cache, ids, pos, lengths, vis, win_mode)
-        return logits, cache, self._attend_bucket(S + max_new, T1)
+        with tracer.span("prefill", device=True):
+            B, S = batch.input_ids.shape
+            T1 = self.max_cache_len
+            if self.right_size_cache:
+                T1 = next((b for b in DEFAULT_CACHE_BUCKETS if S + max_new <= b <= self.max_cache_len), T1)
+            cache = self.new_cache(B, T1)
+            ids = self._tensor(batch.input_ids, torch.int64)
+            pos = self._tensor(batch.position_ids, torch.int32)
+            lengths = self._tensor(batch.lengths, torch.int32)
+            vis, win_mode = self._vision_kwargs(batch)
+            R = self.prefill_split_rows
+            if R and B > R and B % R == 0 and batch.vision_meta is None and batch.pixel_values is not None:
+                n_img = (np.asarray(batch.input_ids) == self.cfg.tokens.image_pad).sum(axis=1)
+                offs = np.concatenate([[0], np.cumsum(n_img)])
+                parts = []
+                for h in range(B // R):
+                    rows = slice(h * R, (h + 1) * R)
+                    emb = vis["vision_embeds"][int(offs[h * R]):int(offs[(h + 1) * R])]
+                    parts.append(self._prefill(cache.rows(rows), ids[rows], pos[:, rows], lengths[rows],
+                                               {"vision_embeds": emb} if emb.shape[0] else {}, 0))
+                logits = torch.cat(parts)
+            else:
+                logits = self._prefill(cache, ids, pos, lengths, vis, win_mode)
+            return logits, cache, self._attend_bucket(S + max_new, T1)
 
     @torch.inference_mode()
     def run_chunk_prefill(self, cache: KVCache, batch: PreparedBatch, keep_len, *, max_new: int,
@@ -347,47 +354,48 @@ class Generator:
         a REUSABLE prefix holder: the holder is then never written (the chunk goes into
         a copy), as the reference never donates it. Without grow_to, a cache of the
         right size is consumed and written in place."""
-        B, S = batch.input_ids.shape
-        T_old = cache.max_len
-        keep_host = np.asarray(keep_len.cpu() if isinstance(keep_len, torch.Tensor) else keep_len)
-        # pad tokens write to the drop slot, so size to keep + ACTUAL chunk + budget
-        need = int((keep_host + np.asarray(batch.lengths)).max()) + max_new
-        T2 = T_old
-        if need > T_old:
-            T2 = self.max_cache_len
-            for b in DEFAULT_CACHE_BUCKETS:
-                if need <= b <= self.max_cache_len:
-                    T2 = b
-                    break
-            T2 = max(T2, T_old)
-        if grow_to is not None:
-            T2 = max(min(grow_to, self.max_cache_len), T2)
-        if T2 > T_old:
-            cache = cache.grown(T2)
-        elif grow_to is not None:
-            cache = cache.clone()
-        keep = self._tensor(keep_host, torch.int32)
-        chunk_lens = self._tensor(batch.lengths, torch.int32)
-        iota = torch.arange(S, device=self.device)[None]
-        attn_positions = keep[:, None] + iota
-        attn_valid = iota < chunk_lens[:, None]
-        # pad tokens write to slot T2 -> dropped. The kept (row, slot) pairs come from
-        # the host arrays, once for every layer, so no layer waits for the device.
-        host_pos = keep_host.astype(np.int64)[:, None] + np.arange(S)[None]
-        host_pos = np.where(np.arange(S)[None] < np.asarray(batch.lengths)[:, None], host_pos, T2)
-        write_pos = self._tensor(host_pos, torch.int64)
-        index = write_index(host_pos, T2, self.device)
-        cache.length.copy_(keep)
-        vis, win_mode = self._vision_kwargs(batch)
-        logits, cache = vlm_forward(
-            self.params, self.cfg, self._tensor(batch.input_ids, torch.int64),
-            self._tensor(batch.position_ids, torch.int32),
-            attn_positions=attn_positions, attn_valid=attn_valid, cache=cache,
-            update_cache_len=False, logit_index=chunk_lens - 1, write_pos=write_pos,
-            write_index=index, win_mode=win_mode, **vis,
-        )
-        cache.length.copy_(keep + chunk_lens)
-        return logits, cache, self._attend_bucket(need, T2)
+        with tracer.span("chunk_prefill", device=True):
+            B, S = batch.input_ids.shape
+            T_old = cache.max_len
+            keep_host = np.asarray(keep_len.cpu() if isinstance(keep_len, torch.Tensor) else keep_len)
+            # pad tokens write to the drop slot, so size to keep + ACTUAL chunk + budget
+            need = int((keep_host + np.asarray(batch.lengths)).max()) + max_new
+            T2 = T_old
+            if need > T_old:
+                T2 = self.max_cache_len
+                for b in DEFAULT_CACHE_BUCKETS:
+                    if need <= b <= self.max_cache_len:
+                        T2 = b
+                        break
+                T2 = max(T2, T_old)
+            if grow_to is not None:
+                T2 = max(min(grow_to, self.max_cache_len), T2)
+            if T2 > T_old:
+                cache = cache.grown(T2)
+            elif grow_to is not None:
+                cache = cache.clone()
+            keep = self._tensor(keep_host, torch.int32)
+            chunk_lens = self._tensor(batch.lengths, torch.int32)
+            iota = torch.arange(S, device=self.device)[None]
+            attn_positions = keep[:, None] + iota
+            attn_valid = iota < chunk_lens[:, None]
+            # pad tokens write to slot T2 -> dropped. The kept (row, slot) pairs come from
+            # the host arrays, once for every layer, so no layer waits for the device.
+            host_pos = keep_host.astype(np.int64)[:, None] + np.arange(S)[None]
+            host_pos = np.where(np.arange(S)[None] < np.asarray(batch.lengths)[:, None], host_pos, T2)
+            write_pos = self._tensor(host_pos, torch.int64)
+            index = write_index(host_pos, T2, self.device)
+            cache.length.copy_(keep)
+            vis, win_mode = self._vision_kwargs(batch)
+            logits, cache = vlm_forward(
+                self.params, self.cfg, self._tensor(batch.input_ids, torch.int64),
+                self._tensor(batch.position_ids, torch.int32),
+                attn_positions=attn_positions, attn_valid=attn_valid, cache=cache,
+                update_cache_len=False, logit_index=chunk_lens - 1, write_pos=write_pos,
+                write_index=index, win_mode=win_mode, **vis,
+            )
+            cache.length.copy_(keep + chunk_lens)
+            return logits, cache, self._attend_bucket(need, T2)
 
     def _decode_state(self, logits, pos, steps: int, done0) -> DecodeState:
         """Fresh buffers for one decode call: a copy of the first logits, done0 (or no
@@ -488,11 +496,12 @@ class Generator:
         key = (kind, self._calls)
         self._calls += 1
         try:
-            for i in range(steps):
-                if i % DONE_CHECK_EVERY == 0 and bool(st.done.all()):
-                    break
-                self.graphs.run(key, step, (rng,) if rng is not None else ())
-                self.decode_steps[kind] += 1
+            with tracer.span("decode", device=True):
+                for i in range(steps):
+                    if i % DONE_CHECK_EVERY == 0 and bool(st.done.all()):
+                        break
+                    self.graphs.run(key, step, (rng,) if rng is not None else ())
+                    self.decode_steps[kind] += 1
         finally:
             self.graphs.release(key)
 

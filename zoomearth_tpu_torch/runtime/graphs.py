@@ -19,6 +19,10 @@ replayed:
   draw next), and the launch tally recorded during its capture, which every replay
   adds to the kernels' counts (`ops._cuda.count_launch`).
 
+The tracer (utils/profiling.py) times each run that runs the step, eager or
+replayed, as the device span `graph.step`, and each capture as the host span
+`graph.capture`; nothing is traced inside the step function itself.
+
 What a captured step reads must be a device tensor at a fixed address: a host array
 copied in during capture would replay the bytes of the capture forever, and nothing
 in the step may wait for the host (a capture that does raises). The callers copy host
@@ -35,6 +39,7 @@ from typing import Callable, Dict, Hashable, Optional, Sequence
 import torch
 
 from ..ops import _cuda
+from ..utils.profiling import tracer
 
 
 class CapturedStep:
@@ -53,7 +58,7 @@ class CapturedStep:
         # "thread_local": another thread's CUDA calls (a server's handlers, the pump's
         # caller) do not invalidate this thread's capture; a sync on this thread does.
         stream.wait_stream(torch.cuda.current_stream())
-        with _cuda.recording() as tally, torch.cuda.stream(stream):
+        with tracer.span("graph.capture"), _cuda.recording() as tally, torch.cuda.stream(stream):
             self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
                 fn()
@@ -98,10 +103,12 @@ class StepGraphs:
         if step is None:
             if key not in self._steps or self.device.type != "cuda":
                 self._steps[key] = None
-                fn()
+                with tracer.span("graph.step", device=True):
+                    fn()
                 return
             step = self._steps[key] = self._capture(fn, generators)
-        step.replay()
+        with tracer.span("graph.step", device=True):
+            step.replay()
 
     def release(self, key: Hashable) -> None:
         """Stop replaying `key`: the buffers its step reads are about to die."""
