@@ -56,16 +56,34 @@ def split_kept_tokens(tokenizer, completion_tokens: List[int], pre_answer_text: 
 
 def _stage1_inputs(generator, processor, questions, images, stage1_max_size):
     """Encode one wave's stage-1 prompts: returns (texts, resized, scales, encoded,
-    prepared batch)."""
+    prepared batch).
+
+    Rows that show the same image object (questions about one tile) share its shrink,
+    scale and patches: each distinct image is resized and preprocessed once a call.
+    `images` keeps every object alive for the call, so `id` is an exact key. Rows that
+    reuse an earlier row's image are counted in `episode.stage1_images_reused`."""
     cfg = generator.cfg
+    tk = processor.tokenizer
     with tracer.span("episode.stage1_inputs"):
         stage1_texts = [PT.stage1_prompt(q) for q in questions]
-        resized, scales = [], []
-        for img in images:
-            small = resize_image(img, stage1_max_size)
+        shared = {}  # id(image) -> (shrunk image, scale, (pv, grid))
+        resized, scales, encoded = [], [], []
+        reused = 0
+        for text, img in zip(stage1_texts, images):
+            if id(img) in shared:
+                reused += 1
+            else:
+                small = resize_image(img, stage1_max_size)
+                scale = max(img.width, img.height) / max(small.width, small.height)
+                shared[id(img)] = (small, scale, processor.preprocess_images([small])[0])
+            small, scale, prepped = shared[id(img)]
+            with tracer.span("text.tokenize"):
+                ids = processor.expand_image_pads(tk.encode(text), [prepped[1]])
             resized.append(small)
-            scales.append(max(img.width, img.height) / max(small.width, small.height))
-        encoded = [processor.encode(t, [im]) for t, im in zip(stage1_texts, resized)]
+            scales.append(scale)
+            encoded.append((ids, [prepped]))
+        if reused:
+            tracer.count("episode.stage1_images_reused", reused)
         batch = prepare_batch(cfg, [ids for ids, _ in encoded], [imgs for _, imgs in encoded])
     return stage1_texts, resized, scales, encoded, batch
 
