@@ -24,7 +24,11 @@ identical (`eager_and_captured`; the engine's chunks through whole engine runs i
    shapes, in bf16; the int8 variants also in the forms the int8 KV cache gives them
    (K2 over the 4096-row int8 cache at prefill and, untimed, at chunk prefill; K3 over
    the [:, :, :attend_len] views of its values and of its fp32 scales, which must go
-   in without a copy): max abs error against a stated tolerance, and the times (CUDA
+   in without a copy); Kimi-VL's cases: K5 (latent-attention decode, B = 96 over the
+   [:, :, :1280] view of a 1536-slot latent cache), K2 at key width 192 and value width
+   128 (prefill and the chunk over a kept prefix) and K1 at MoonViT's head width 72 (run
+   zero-padded at 80), their bounds counted at the live widths: max abs error against a
+   stated tolerance, and the times (CUDA
    events, timed in turns: plain, kernel, library, library, kernel, plain, ...; median
    of 10 each after 2 warm-ups each; L2 flushed before every call), per call and on
    the device (CUDA graph replays). The library call is one
@@ -253,6 +257,18 @@ identical (`eager_and_captured`; the engine's chunks through whole engine runs i
    step from CUDA events, with no synchronization between them), the peak memory, and one
    utils/profiling.trace of a warm prefill, whose Chrome trace must hold the annotated region,
    device kernels and the tracer's host and device spans of the prefill.
+14. kimi — the third family, Kimi-VL, at its published widths (vocabulary 163840, hidden
+   2048, latent attention with 16 heads over a 512 + 64 latent, 64 routed experts of
+   1408 with 6 chosen and 2 shared, MoonViT heads of 72) cut in depth to 3 decoder layers
+   (layer 0 dense, two routed) and 2 MoonViT blocks, random bf16 weights from seed 0:
+   run_inference(mode="pipelined") over 24 samples in waves of 8, budgets 64 / 48, forced
+   bbox, with the plain versions of K1, K2 and K5 made to raise for the phase. Every
+   record must be written; the launch counts, zeroed just before the run, must show K5
+   once per layer per solo step and twice per pair step (captured replays counted), K3
+   never, K1 and K2 in whole blocks and layers on the tensor-core variant only, and the
+   grouped expert products. Then K5 is held row by row against its plain version at the
+   inputs of the run's first K5 call (layer 0's absorbed queries over the first wave's
+   stage-1 latents, through the attend view), kept as the run made them.
 
 The second-to-last line is {"kernels": [...]} (every case of each kernel with its
 time, its plain version's, the library call's where there is one, its bound and the
@@ -263,8 +279,8 @@ kernel, then its dk/dv kernel, and its launches are the training phase's; the
 `launches_grpo` of K1, K2, K3 and the backward kernels are the GRPO phase's, their
 `launches_parallel` the parallel phase's ranks' together, the `launches_split_prefill` of K2
 and K3 the split-prefill phase's, the
-`launches_internvl` of K2 and K3 the InternVL phase's); the last is the device contract
-line.
+`launches_internvl` of K2 and K3 the InternVL phase's, the `launches_kimi` of K1, K2 and
+K5 the Kimi-VL phase's); the last is the device contract line.
 """
 
 from __future__ import annotations
@@ -287,6 +303,7 @@ PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM, dense bf16 tensor-core rat
 LIBRARY = " (library call)"  # a case's library yardstick among an entry point's timed cases
 SAMPLES, BATCH, NEW_TOKENS = 8, 8, 64
 PIPE_SAMPLES, PIPE_NEW_TOKENS_2 = 24, 48  # the pipelined phase: three waves of BATCH, budgets NEW_TOKENS / 48
+KIMI_LAYERS, KIMI_BLOCKS = 3, 2  # the [kimi] phase's depth: layer 0 dense, two routed layers; two MoonViT blocks
 SERVE_EPISODES, SERVE_SLOTS, SERVE_SEQ_LEN, SERVE_CHUNK = 16, 8, 2048, 8  # the serving phase (budgets as pipelined)
 SERVE_WAIT_S = 240  # the longest one episodes run may take; on the H100 it has taken 13 to 28 s
 DATAGEN_PROMPTS = ["describe the harbour", "count the ships in the tile", "name the terrain", "where is the runway?"]
@@ -448,6 +465,76 @@ def case(label, kernel, plain, card, work, library=None, nbytes=None, tol=None, 
                       (ms[2], dev[2]) if library is not None else None, nbytes and nbytes / dev[1] / 1e6)
 
 
+def check_kimi_kernels(card, randn):
+    """Kimi-VL's kernel cases at its main path's shapes, as check_kernels' cases: K5
+    over a wave's latent cache, K2 at key width 192 and value width 128 (stage-1
+    prefill and the stage-2 chunk over a kept prefix), and K1 at MoonViT's head width
+    72 run at 80 (zero-padded, q pre-scaled by sqrt(80 / 72)), each bound counted at
+    the live widths. Returns {kernel name: [case rows]}."""
+    import torch
+    import torch.nn.functional as F
+
+    from portbench.work import kimi_vl as KW
+    from zoomearth_tpu_torch.ops import flash_attention as K1
+    from zoomearth_tpu_torch.ops import flash_causal as K2
+    from zoomearth_tpu_torch.ops import flash_mla_decode as K5
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    # K5: one wave's stage-2 decode, B=96 rows of a 1536-slot latent cache read through its
+    # attend 1280 prefix view, 1000..1280 live slots a row
+    B, T, A = 96, 1536, 1280
+    q = randn(B, 16, 576)
+    cache = randn(B, 1, T, 576)
+    view = cache[:, :, :A]
+    kvl = torch.linspace(1000, A, B, device=dev).round().to(torch.int32)
+    mask = (torch.arange(A, device=dev)[None] < kvl[:, None])[:, None, None]
+    e5 = case(f"K5 MLA decode B={B} attend {A} of T={T}, kv_len 1000..1280",
+              lambda: K5.mla_decode_cuda(q, view, kvl, 192 ** -0.5),
+              lambda: K5.flash_mla_decode_plain(q, view, kvl, 192 ** -0.5), card,
+              K5.work(kvl, A, 16, 576, 512),
+              lambda: F.scaled_dot_product_attention(q[:, :, None], view, view[..., :512], attn_mask=mask,
+                                                     scale=192 ** -0.5, enable_gqa=True)[:, :, 0])
+    del cache, view, mask
+
+    def causal_mask(pos, kvl, T):
+        slot = torch.arange(T, device=dev)
+        return ((slot[None, None] <= pos[:, :, None]) & (slot[None, None] < kvl[:, None, None]))[:, None]
+
+    # K2 at 192 / 128: (a) a stage-1 prefill of 8 rows of 768 tokens; (b) the stage-2 chunk of
+    # 384 tokens over kept prefixes of 700..900 slots; k = [k_n | k_r], k_r one copy a slot for all heads
+    e2 = []
+    for label, B, S, T, lo, hi in (("prefill B=8 S=768 T=768", 8, 768, 768, 0, 0),
+                                   ("chunk B=8 S=384 T=1280, kept 700..900", 8, 384, 1280, 700, 900)):
+        qm = randn(B, S, 16, 192)
+        kv = randn(B, T, 16, 256)
+        k = torch.cat([kv[..., :128], randn(B, T, 1, 64).expand(B, T, 16, 64)], -1).transpose(1, 2)
+        v = kv[..., 128:].transpose(1, 2)
+        keep = torch.linspace(lo, hi, B, device=dev).round().long()
+        pos = keep[:, None] + torch.arange(S, device=dev)[None]
+        kl = (keep + S).clamp(max=T).to(torch.int32)
+        m = causal_mask(pos, kl, T)
+        e2.append(case(f"K2 MLA {label}", lambda qm=qm, k=k, v=v, pos=pos, kl=kl: K2.causal_attention_cuda(
+                           qm, k, v, pos, kl),
+                       lambda qm=qm, k=k, v=v, pos=pos, kl=kl: K2.flash_causal_attention_plain(qm, k, v, pos, kl),
+                       card, KW.mla_prefill_work(pos, kl, 16, 16, 192, 128, T, 64),
+                       lambda qm=qm, k=k, v=v, m=m: F.scaled_dot_product_attention(
+                           qm.transpose(1, 2), k, v, attn_mask=m).transpose(1, 2)))
+        del qm, kv, k, v, m
+    # K1 at 72 run at 80: the stage-1 MoonViT block at B=8 (8 images of 36 x 36 patches)
+    S, H = 10368, 16
+    seg = torch.arange(8, device=dev, dtype=torch.int32).repeat_interleave(1296)
+    qkv = randn(S, 3, H, 72)
+    q72, k72, v72 = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    qp, kp, vp = (F.pad(t, (0, 8)) for t in ((q72.float() * (80 / 72) ** 0.5).to(bf), k72, v72))
+    sm = seg[:, None] == seg[None, :]
+    e1 = case(f"K1 segment S={S} H={H} D=72 run at 80", lambda: K1.segment_attention_cuda(qp, kp, vp, seg)[..., :72],
+              lambda: K1.flash_segment_attention_plain(qp, kp, vp, seg)[..., :72], card, K1.work(seg, H, 72, 2),
+              lambda: sdpa(q72[None].transpose(1, 2), k72[None].transpose(1, 2), v72[None].transpose(1, 2),
+                           sm)[0].transpose(0, 1))
+    return {"flash_mla_decode": [e5], "flash_causal_attention": e2, "flash_segment_attention": [e1]}
+
+
 def check_kernels(card):
     """Each kernel against its plain version at main-path shapes; returns ({kernel
     name: (source, TPU kernel it replaces, [case rows])}, {kernel name: untimed checks})."""
@@ -570,6 +657,11 @@ def check_kernels(card):
                    K3.work(kvl4, 1280, H, Hkv, D, 1), None, K3.read_bytes(kvl4, 1280, Hkv, D, 1)))
     rows["flash_decode_attention"] = ("zoomearth_tpu_torch/csrc/flash_decode.cu",
                                       "zoomearth_tpu/ops/flash_decode.py:94", e3)
+    log("[kernels] Kimi-VL: K5 over the latent cache, K2 at key width 192 and value width 128, K1 at head width 72")
+    kimi = check_kimi_kernels(card, randn)
+    rows["flash_mla_decode"] = ("zoomearth_tpu_torch/csrc/flash_mla_decode.cu", None, kimi.pop("flash_mla_decode"))
+    for name, cases in kimi.items():
+        rows[name][2].extend(cases)
     log("[kernels] training: K1 and K2 forward with lse off and on, and their backward kernels, at the SFT path's shapes")
     forwards, backwards = check_training_kernels(card, randn)
     for name, cases in forwards.items():
@@ -806,6 +898,8 @@ SFT_RUNS, SFT_PATCHES = (5476, 1296), 8192
 SFT_TOKENS = 2048
 BWD_NOTE = ("no TPU counterpart: the reference's Pallas kernel has no VJP (jax.grad through its pallas_call raises "
             "NotImplementedError), so the JAX package trains through XLA's autodiff of the plain attention")
+NOTES = {"flash_mla_decode": "no TPU counterpart: the JAX package has no latent attention (Kimi-VL runs in the port "
+                             "alone), so the CPU tests hold K5's plain version against the plain fp32 reference"}
 
 
 def check_training_kernels(card, randn, heads=(16, 16, 2)):
@@ -4172,6 +4266,124 @@ def run_internvl(card):
             rows, checks)
 
 
+def run_kimi(card):
+    """[kimi] (module docstring, phase 14): Kimi-VL at its published widths cut in
+    depth, through the pipelined evaluation path, with the launch counts zeroed just
+    before the run and read from it. Returns ({kernel name: {"launches_kimi": n}},
+    {kernel name: [untimed checks]})."""
+    import dataclasses
+
+    import torch
+
+    from portbench.harness.weights import make_weights
+    from zoomearth_tpu_torch.agent import episode as EP
+    from zoomearth_tpu_torch.agent import prompts as PT
+    from zoomearth_tpu_torch.agent.processor import Processor
+    from zoomearth_tpu_torch.config import KimiVLConfig
+    from zoomearth_tpu_torch.eval.infer import run_inference
+    from zoomearth_tpu_torch.models import mla, moe
+    from zoomearth_tpu_torch.models.kimi_vl import hf_leaves, params_from_hf
+    from zoomearth_tpu_torch.ops import flash_attention as K1
+    from zoomearth_tpu_torch.ops import flash_causal as K2
+    from zoomearth_tpu_torch.ops import flash_decode as K3
+    from zoomearth_tpu_torch.ops import flash_mla_decode as K5
+    from zoomearth_tpu_torch.runtime.generate import GenerationConfig, Generator
+    from zoomearth_tpu_torch.train.data import LRSGROSample
+
+    full = KimiVLConfig()
+    cfg = dataclasses.replace(full, text=dataclasses.replace(full.text, num_hidden_layers=KIMI_LAYERS),
+                              vision=dataclasses.replace(full.vision, depth=KIMI_BLOCKS))
+    L = cfg.text.num_hidden_layers
+    t0 = time.time()
+    params = params_from_hf(make_weights(hf_leaves(cfg), 0, torch.device("cuda"), torch.bfloat16), cfg)
+    torch.cuda.synchronize()
+    log(f"  weights drawn in {time.time() - t0:.1f} s; vocabulary {cfg.text.vocab_size}, "
+        f"{cfg.text.n_routed_experts} routed experts of {cfg.text.moe_intermediate_size}, latent "
+        f"{cfg.text.kv_lora_rank} + {cfg.text.qk_rope_head_dim}, MoonViT heads of {cfg.vision.head_dim}")
+    generator = Generator(params, cfg, max_cache_len=2048)
+    processor = Processor(legible_tokenizer(cfg.tokens), cfg)
+    # the byte-level tokenizer's prompt: Kimi-VL's turn markers around the question and a cut instruction
+    kimi_prompt = PT.kimi_stage1_prompt
+    PT.kimi_stage1_prompt = lambda q: PT.KIMI_PREFIX + q + PT.INSTRUCTION_EVAL[:80] + PT.KIMI_ASSISTANT
+    EP.extract_bboxes = lambda text, scale=1.0: [[2200, 2200, 2380, 2350]]  # random weights emit no bbox
+    tiles = {f"tile{i}.png": synthetic_tile(100 + i) for i in range(4)}
+    samples = [LRSGROSample(question_id=str(i), image_name=f"tile{i % 4}.png", category="object",
+                            question=f"what is near the marked area {i}?", higher_level="perception",
+                            ground_truth="ship", bbox=[2200, 2200, 2380, 2350], type="object")
+               for i in range(PIPE_SAMPLES)]
+    gen1 = GenerationConfig(max_new_tokens=NEW_TOKENS, temperature=0.0)
+    gen2 = GenerationConfig(max_new_tokens=PIPE_NEW_TOKENS_2, temperature=0.0)
+    kernels = {"flash_segment_attention": K1.segment_attention_cuda, "flash_causal_attention": K2.causal_attention_cuda,
+               "flash_mla_decode": K5.mla_decode_cuda, "flash_decode_attention": K3.decode_attention_cuda,
+               "grouped_mm": moe.grouped_mm}
+
+    def refused(*a, **kw):
+        raise AssertionError("a plain version was reached on the card")
+
+    plains = [(K1, "flash_segment_attention_plain"), (K2, "flash_causal_attention_plain"),
+              (K5, "flash_mla_decode_plain")]
+    kept = [getattr(m, n) for m, n in plains]
+    for m, n in plains:
+        setattr(m, n, refused)
+    # the inputs of the run's first K5 call (layer 0 at the first decode call's eager step), kept
+    first, dispatch = [], mla.flash_mla_decode
+
+    def shadow(q, cache, kv_len, scale, dv=K5.DV):
+        if not first:
+            first.append((q.clone(), cache.clone(), kv_len.clone(), scale))
+        return dispatch(q, cache, kv_len, scale, dv)
+
+    mla.flash_mla_decode = shadow
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+            path = os.path.join(out_dir, "kimi.jsonl")
+            for k in kernels.values():
+                k.launches = 0
+                if hasattr(k, "variants"):
+                    k.variants = dict.fromkeys(k.variants, 0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            graphs0, before = graph_counts(generator), dict(generator.decode_steps)
+            t0 = time.time()
+            run_inference(generator, processor, samples, path, batch_size=BATCH, gen=gen1, stage2_gen=gen2,
+                          image_loader=lambda s: tiles[s.image_name], mode="pipelined")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = {n: k.launches for n, k in kernels.items()}
+            variants = {n: dict(k.variants) for n, k in kernels.items() if hasattr(k, "variants")}
+            steps = {k: generator.decode_steps[k] - before.get(k, 0) for k in ("pair", "solo")}
+            peak = torch.cuda.max_memory_allocated()
+            graphs = graph_line(generator, graphs0)
+            records = [json.loads(line) for line in open(path)]
+    finally:
+        mla.flash_mla_decode = dispatch
+        for (m, n), f in zip(plains, kept):
+            setattr(m, n, f)
+        PT.kimi_stage1_prompt = kimi_prompt
+    # K5 against its plain version at the path's own first call: layer 0's absorbed queries over the stage-1 latents
+    q, lat, kvl, scale = first[0]
+    held = held_on_path(f"K5 at the [kimi] path's first call, layer 0, B={q.shape[0]}, attend {lat.shape[2]}, kv_len "
+                        f"{sorted(set(kvl.tolist()))}", K5.mla_decode_cuda(q, lat, kvl, scale),
+                        K5.flash_mla_decode_plain(q, lat, kvl, scale))
+    assert len(records) == PIPE_SAMPLES and all(r["error"] is False and isinstance(r["stage2"], str)
+                                                for r in records), "a Kimi-VL record is missing or failed"
+    # K5 once per layer per solo step and twice per pair step (one a wave), captured replays counted; no K3
+    assert launches["flash_mla_decode"] == L * (2 * steps["pair"] + steps["solo"]) > 0, (launches, steps)
+    assert launches["flash_decode_attention"] == 0, launches
+    # K1 once per MoonViT block a tower call; K2 once per layer a prefill or chunk call; all on the tensor cores
+    assert launches["flash_segment_attention"] > 0 and launches["flash_segment_attention"] % KIMI_BLOCKS == 0
+    assert launches["flash_causal_attention"] > 0 and launches["flash_causal_attention"] % L == 0
+    assert all(v == {"mma": launches[n], "fma": 0} for n, v in variants.items()), variants
+    # three grouped products per routed layer a forward: at least the decode steps' (one forward a pair step)
+    assert launches["grouped_mm"] >= 3 * (L - 1) * (steps["pair"] + steps["solo"]) > 0, (launches, steps)
+    log(f"  {len(records)} records in {wall:.2f} s; decode steps {steps}; {graphs} | {card}")
+    log(f"  launches of the run: {launches}; K1/K2 by variant: {variants}; peak memory {peak / 2**30:.2f} GiB "
+        f"| {card}")
+    del generator, params, first
+    return ({n: {"launches_kimi": launches[n]} for n in ("flash_segment_attention", "flash_causal_attention",
+                                                          "flash_mla_decode")}, {"flash_mla_decode": [held]})
+
+
 def main(argv=()) -> int:
     import torch
 
@@ -4268,16 +4480,24 @@ def main(argv=()) -> int:
         rows[name][2].extend(cases)
     for name, held in internvl_checks.items():
         untimed[name] = untimed.get(name, []) + held
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[kimi] Kimi-VL at its published widths, {KIMI_LAYERS} decoder layers (one dense, the rest routed) and "
+        f"{KIMI_BLOCKS} MoonViT blocks, random bf16 weights, run_inference(mode='pipelined') over {PIPE_SAMPLES} "
+        f"samples in waves of {BATCH}; the plain versions of K1, K2 and K5 refused for the phase")
+    kimi, kimi_checks = run_kimi(card)
+    for name, held in kimi_checks.items():
+        untimed[name] = untimed.get(name, []) + held
 
     kernels = []
     for name, (source, replaces, cases) in rows.items():
         checks = untimed.get(name, [])
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            **({"note": BWD_NOTE} if replaces is None else {}),
-            "launches": launches[name], **pipelined.get(name, {}), **split.get(name, {}), **serving.get(name, {}),
+            **({"note": NOTES.get(name, BWD_NOTE)} if replaces is None else {}),
+            "launches": launches.get(name, 0), **pipelined.get(name, {}), **split.get(name, {}), **serving.get(name, {}),
             **training.get(name, {}),
-            **grpo.get(name, {}), **parallel.get(name, {}), **internvl.get(name, {}),
+            **grpo.get(name, {}), **parallel.get(name, {}), **internvl.get(name, {}), **kimi.get(name, {}),
             "max_abs_err": max(c["max_abs_err"] for c in cases + checks),
             **{key: cases[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
                                               "library_device_ms", "share_of_bound")},

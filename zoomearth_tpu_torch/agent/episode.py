@@ -17,6 +17,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from ..image.geometry import cut_image, extract_answer, extract_bboxes, resize_image
+from ..runtime.families import family
 from ..runtime.generate import GenerationConfig, Generator, prepare_batch, prepare_continuation
 from ..utils.profiling import tracer
 from . import prompts as PT
@@ -64,8 +65,9 @@ def _stage1_inputs(generator, processor, questions, images, stage1_max_size):
     reuse an earlier row's image are counted in `episode.stage1_images_reused`."""
     cfg = generator.cfg
     tk = processor.tokenizer
+    stage1_prompt = family(cfg).prompts()[0]
     with tracer.span("episode.stage1_inputs"):
-        stage1_texts = [PT.stage1_prompt(q) for q in questions]
+        stage1_texts = [stage1_prompt(q) for q in questions]
         shared = {}  # id(image) -> (shrunk image, scale, (pv, grid))
         resized, scales, encoded = [], [], []
         reused = 0
@@ -134,7 +136,7 @@ def _stage2_continuation(
             with tracer.span("text.tokenize"):
                 chunk_ids = tk.encode(residual) if residual else []
                 chunk_ids += processor.expand_image_pads(
-                    tk.encode(PT.VISION_TOKENS), [crop_prepped[0][1]]
+                    tk.encode(family(cfg).prompts()[1]), [crop_prepped[0][1]]
                 )
             full_chunks[i] = chunk_ids
             full_imgs[i] = crop_prepped
@@ -269,7 +271,7 @@ def run_episodes(
         bbox = boxes[0]
         crop = resize_image(cut_image(images[i], bbox, crop_min_size), crop_max_size)
         s2_idx.append(i)
-        s2_texts.append(PT.stage2_prompt(stage1_texts[i], out1))
+        s2_texts.append(PT.stage2_prompt(stage1_texts[i], out1, family(cfg).prompts()[1]))
         s2_images.append([resized[i], crop])
         results[i] = EpisodeResult(
             question=questions[i], stage1=out1, stage2="",

@@ -102,7 +102,23 @@ def text_rl_prompt(question: str) -> str:
     )
 
 
-def stage2_prompt(prompt1: str, stage1_output: str) -> str:
+def stage2_prompt(prompt1: str, stage1_output: str, vision_tokens: str = VISION_TOKENS) -> str:
     """Continue the assistant turn with the pre-<answer> reasoning and a second image
     (infer.py:227)."""
-    return prompt1 + stage1_output.split("<answer>")[0] + VISION_TOKENS
+    return prompt1 + stage1_output.split("<answer>")[0] + vision_tokens
+
+
+# Kimi-VL's chat format (its tokenizer's chat template): a turn is
+# <|im_ROLE|>ROLE<|im_middle|>...<|im_end|>, an image <|media_start|>image<|media_content|>
+# <|media_pad|><|media_end|>. The ZoomEarth instruction is the same text.
+KIMI_VISION_TOKENS = "<|media_start|>image<|media_content|><|media_pad|><|media_end|>"
+KIMI_PREFIX = ("<|im_system|>system<|im_middle|>You are a helpful assistant<|im_end|>"
+               "<|im_user|>user<|im_middle|>" + KIMI_VISION_TOKENS)
+KIMI_ASSISTANT = "<|im_end|><|im_assistant|>assistant<|im_middle|>"
+
+
+def kimi_stage1_prompt(question: str) -> str:
+    """stage1_prompt in Kimi-VL's chat format: the same question and instruction, the
+    user turn closed and the assistant turn opened with Kimi-VL's markers."""
+    return KIMI_PREFIX + question + INSTRUCTION_EVAL.rsplit("<|im_end|>", 1)[0] + KIMI_ASSISTANT
+

@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Sequence
+from typing import Optional, Sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -312,3 +312,206 @@ def databank_id(vocab_size: int, slot: int) -> int:
     """Reserve special-token ids at the top of a (tiny) vocab, mirroring Qwen's layout
     where specials sit at the end of the vocab."""
     return vocab_size - 16 + slot
+
+
+@dataclasses.dataclass(frozen=True)
+class MoonViTConfig:
+    """Kimi-VL's vision tower (MoonViT, models/moonvit.py): a native-resolution ViT with
+    a learned 64 x 64 position grid resized to each image, 2D RoPE, LayerNorm blocks
+    with a GELU (tanh) MLP, and a 2 x 2 patch merge into an MLP projector. Patches are
+    one frame of 14 x 14 x 3 (temporal_patch_size 1 for the processor's patchify)."""
+
+    depth: int = 27
+    hidden_size: int = 1152
+    intermediate_size: int = 4304
+    num_heads: int = 16
+    in_channels: int = 3
+    patch_size: int = 14
+    init_pos_emb_height: int = 64
+    init_pos_emb_width: int = 64
+    merge_kernel_size: Sequence[int] = (2, 2)
+    layer_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    out_hidden_size: int = 2048  # the decoder's hidden size
+    image_mean: float = 0.5  # the image processor's per-channel mean and std
+    image_std: float = 0.5
+    temporal_patch_size: int = 1
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def patch_dim(self) -> int:
+        return self.in_channels * self.patch_size**2
+
+    @property
+    def spatial_merge_size(self) -> int:
+        return self.merge_kernel_size[0]
+
+    @property
+    def merge_unit(self) -> int:
+        return self.merge_kernel_size[0] * self.merge_kernel_size[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class KimiTextConfig:
+    """The DeepSeek-V3-style decoder of Kimi-VL (models/mla.py, models/moe.py): latent
+    attention (MLA, no q low-rank) in every layer, a dense SwiGLU in the first
+    `first_k_dense_replace` layers and routed experts (sigmoid noaux_tc router with a
+    score-correction bias, shared experts) after them. Field names are the HF config's."""
+
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    num_key_value_heads: int = 16
+    n_shared_experts: int = 2
+    n_routed_experts: int = 64
+    routed_scaling_factor: float = 2.446
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    qk_nope_head_dim: int = 128
+    topk_method: str = "noaux_tc"
+    n_group: int = 1
+    topk_group: int = 1
+    num_experts_per_tok: int = 6
+    moe_layer_freq: int = 1
+    first_k_dense_replace: int = 1
+    norm_topk_prob: bool = True
+    scoring_func: str = "sigmoid"
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 800000.0
+    tie_word_embeddings: bool = False
+    max_position_embeddings: int = 131072
+
+    @property
+    def q_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """Values a token keeps per layer in the latent cache: [c (kv_lora_rank) | k_r]."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    def __post_init__(self):
+        # what models/mla.py and models/moe.py compute; a config asking for another variant is refused
+        if (self.q_lora_rank is not None or self.scoring_func != "sigmoid" or self.topk_method != "noaux_tc"
+                or self.n_group != 1 or self.topk_group != 1):
+            raise NotImplementedError(
+                f"KimiTextConfig: the port runs q without a low rank and one group of sigmoid noaux_tc routing "
+                f"(q_lora_rank={self.q_lora_rank}, scoring_func={self.scoring_func!r}, topk_method="
+                f"{self.topk_method!r}, n_group={self.n_group}, topk_group={self.topk_group})")
+
+    def is_moe_layer(self, i: int) -> bool:
+        return i >= self.first_k_dense_replace and i % self.moe_layer_freq == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class KimiTokens:
+    """Kimi-VL's special ids. The runtime reads image_pad (the media placeholder), pad,
+    eos and endoftext (both stop a row: <|im_end|> ends an assistant turn, [EOS] the
+    text); `strings()` is the byte-level tokenizer's map of special strings."""
+
+    media_pad: int = 163605
+    media_start: int = 163602
+    media_content: int = 163603
+    media_end: int = 163604
+    im_user: int = 163587
+    im_assistant: int = 163588
+    im_system: int = 163594
+    im_middle: int = 163601
+    im_end: int = 163586
+    bos: int = 163584
+    endoftext: int = 163585
+    pad: int = 163839
+
+    @property
+    def image_pad(self) -> int:
+        return self.media_pad
+
+    @property
+    def eos(self) -> int:
+        return self.im_end
+
+    def strings(self) -> dict:
+        return {"<|media_pad|>": self.media_pad, "<|media_start|>": self.media_start,
+                "<|media_content|>": self.media_content, "<|media_end|>": self.media_end,
+                "<|im_user|>": self.im_user, "<|im_assistant|>": self.im_assistant,
+                "<|im_system|>": self.im_system, "<|im_middle|>": self.im_middle, "<|im_end|>": self.im_end,
+                "[BOS]": self.bos, "[EOS]": self.endoftext, "[PAD]": self.pad}
+
+
+@dataclasses.dataclass(frozen=True)
+class KimiVLConfig:
+    """Kimi-VL-A3B-Instruct: MoonViT + the MLA / MoE decoder, with plain 1D positions
+    (image tokens take sequential positions; no M-RoPE). 16.4 B parameters, 2.8 B
+    active a token."""
+
+    vision: MoonViTConfig = dataclasses.field(default_factory=MoonViTConfig)
+    text: KimiTextConfig = dataclasses.field(default_factory=KimiTextConfig)
+    tokens: KimiTokens = dataclasses.field(default_factory=KimiTokens)
+    dtype: str = "bfloat16"
+
+    @staticmethod
+    def tiny(vocab_size: int = 512) -> "KimiVLConfig":
+        """Tiny config for CPU tests: every kind of layer (MoonViT blocks with a head
+        width off the kernels' grid, one dense and two MoE decoder layers, MLA with
+        narrow latent and rotary parts), fp32."""
+        vision = MoonViTConfig(depth=2, hidden_size=48, intermediate_size=64, num_heads=2,
+                               init_pos_emb_height=8, init_pos_emb_width=8, out_hidden_size=64)
+        text = KimiTextConfig(
+            vocab_size=vocab_size, hidden_size=64, intermediate_size=96, moe_intermediate_size=16,
+            num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=4, n_shared_experts=1,
+            n_routed_experts=8, kv_lora_rank=32, qk_rope_head_dim=16, v_head_dim=16, qk_nope_head_dim=16,
+            num_experts_per_tok=3, max_position_embeddings=4096,
+        )
+        tokens = KimiTokens(**{name: databank_id(vocab_size, slot) for slot, name in enumerate(
+            ("media_pad", "media_start", "media_content", "media_end", "im_user", "im_assistant", "im_system",
+             "im_middle", "im_end", "bos", "endoftext", "pad"))})
+        return KimiVLConfig(vision=vision, text=text, tokens=tokens, dtype="float32")
+
+    @staticmethod
+    def from_dict(cfg: dict) -> "KimiVLConfig":
+        """From a Kimi-VL config.json (text keys under `text_config`, or at the top level
+        as the benchmark's configuration file has them) and its `vision_config`; special
+        ids from `special_token_ids` where given."""
+        t = cfg.get("text_config", cfg)
+        text = KimiTextConfig(**{f.name: t[f.name] for f in dataclasses.fields(KimiTextConfig) if f.name in t})
+        v = cfg.get("vision_config", {})
+        names = {f.name for f in dataclasses.fields(MoonViTConfig)}
+        vkw = {k: v[k] for k in names if k in v}
+        if "num_hidden_layers" in v:
+            vkw["depth"] = v["num_hidden_layers"]
+        if "num_attention_heads" in v:
+            vkw["num_heads"] = v["num_attention_heads"]
+        if "merge_kernel_size" in vkw:
+            vkw["merge_kernel_size"] = tuple(vkw["merge_kernel_size"])
+        vkw["out_hidden_size"] = text.hidden_size
+        tokens = KimiTokens(**cfg.get("special_token_ids", {}))
+        if "media_placeholder_token_id" in cfg:
+            tokens = dataclasses.replace(tokens, media_pad=cfg["media_placeholder_token_id"])
+        return KimiVLConfig(vision=MoonViTConfig(**vkw), text=text, tokens=tokens,
+                            dtype=cfg.get("torch_dtype", t.get("torch_dtype", "bfloat16")))
+
+    @staticmethod
+    def from_file(path: str) -> "KimiVLConfig":
+        """From a config.json file, or a checkpoint directory that holds one."""
+        if os.path.isdir(path):
+            path = os.path.join(path, "config.json")
+        with open(path) as f:
+            return KimiVLConfig.from_dict(json.load(f))
+
+
+def is_kimi(cfg) -> bool:
+    """Whether a model config is Kimi-VL's (MoonViT, 1D positions, MLA / MoE decoder)."""
+    return isinstance(cfg, KimiVLConfig)
+
+
+def is_mla(text_cfg) -> bool:
+    """Whether a decoder config runs latent attention (and keeps a latent cache)."""
+    return isinstance(text_cfg, KimiTextConfig)

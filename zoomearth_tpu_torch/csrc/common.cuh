@@ -214,7 +214,7 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// The split merge shared by K3, K4 and P2. All three split the key axis of each (row, kv
+// The split merge shared by K3, K4, K5 and P2. All four split the key axis of each (row, kv
 // head) pair across blocks; each block leaves, per query head g of the pair, its
 // softmax state over its keys: m (max logit), l (sum of e^(logit - m)) and acc[D]
 // (sum of e^(logit - m) v), all fp32, in one scratch buffer laid out as
@@ -224,10 +224,11 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 // e^(m_s - M) l_s, 1e-30), M = max_s m_s, over the splits the pair walked: the
 // first ceil(walked / split_len), with walked = len[pair / len_div] * len_mul, or
 // dead_len where that is 0 (dead_len 0: such a pair walked nothing and gets 0).
-// G <= SPLIT_MAXG, D a multiple of 4 up to 128.
+// G <= SPLIT_MAXG, D a multiple of 4 up to SPLIT_MAXD (K5's 16 heads of 512 dims).
 // Implemented in split_merge.cu.
 // ---------------------------------------------------------------------------
-constexpr int SPLIT_MAXG = 8;
+constexpr int SPLIT_MAXG = 16;
+constexpr int SPLIT_MAXD = 512;
 
 struct SplitPartials {
   float* m;

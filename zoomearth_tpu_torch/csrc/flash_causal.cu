@@ -208,7 +208,58 @@ static int launch_causal_mma(const void* q, const void* k, const void* v, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Latent attention's expanded form (models/mla.py): bf16 keys of width D = 192 against
+// values of width DV = 128, the same core with the value tile and the output DV wide
+// (mma.sync: wgmma takes one width for both here). Every query head has its own
+// keys (H == Hkv, G == 1). One block an SM: its shared memory (181 KB) takes most of one.
+// ---------------------------------------------------------------------------
+template <int D, int DV>
+__global__ void __launch_bounds__(FM_THREADS, 1)
+    flash_causal_mla_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v, const int* __restrict__ positions,
+                            const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ out, int S, int T, int G,
+                            long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_sh,
+                            long long k_st, long long v_sb, long long v_sh, long long v_st, float scale) {
+  extern __shared__ __align__(16) unsigned char fm_smem[];
+  __shared__ int pos_s[FM_ROWS];
+  CausalPolicy<__nv_bfloat16> pol;
+  pol.init(blockIdx.x, q, k, v, positions, kv_len, pos_s, S, T, G, q_sb, q_ss, q_sh, k_sb, k_sh, k_st, v_sb, v_sh,
+           v_st);
+  const int kh = blockIdx.y, b = blockIdx.z;
+  pol.D = DV;  // the output's row width
+  pol.ksb = pol.vsb = nullptr;
+  pol.ob = out + ((long long)b * S * pol.H + (long long)kh * G) * DV;
+  pol.lseb = nullptr;
+  flash_mma_block<D, __nv_bfloat16, CausalPolicy<__nv_bfloat16>, DV>(pol, fm_smem, scale * LOG2E);
+}
+
 }  // namespace zt
+
+// K2 for latent attention's expanded form: q (B, S, H, 192), k (B, Hkv, T, 192) and
+// v (B, Hkv, T, 128), bf16 with unit stride on the last dim, bases and strides whole
+// 16-byte multiples; positions (B, S) and kv_len (B,) contiguous int32; out a
+// contiguous (B, S, H, 128) bf16 tensor. G = H / Hkv divides FM_ROWS. No lse.
+extern "C" int zt_flash_causal_mla(const void* q, const void* k, const void* v, const int* positions,
+                                   const int* kv_len, void* out, int B, int S, int H, int Hkv, int T, int D,
+                                   int DV, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                                   long long k_sh, long long k_st, long long v_sb, long long v_sh, long long v_st,
+                                   float scale, void* stream) {
+  using namespace zt;
+  cudaGetLastError();
+  if (D != 192 || DV != 128 || Hkv <= 0 || H % Hkv != 0 || FM_ROWS % (H / Hkv) != 0) return ZT_UNSUPPORTED;
+  const int G = H / Hkv;
+  constexpr int smem = fm_smem_bytes<192, false, 128>();
+  static const int allowed = fm_allow_smem(flash_causal_mla_kernel<192, 128>, smem);  // once
+  if (allowed != 0) return allowed;
+  const int bq = FM_ROWS / G;
+  const dim3 grid((S + bq - 1) / bq, Hkv, B);
+  flash_causal_mla_kernel<192, 128><<<grid, FM_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), positions, kv_len, static_cast<__nv_bfloat16*>(out), S, T, G, q_sb, q_ss,
+      q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, scale);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Query rows per block of the variant these dtypes and head dim get: FM_ROWS (the
 // tensor-core variant: bf16 q, bf16 or int8 k/v), CAU_ROWS (fp32 FMA: fp32 q) or

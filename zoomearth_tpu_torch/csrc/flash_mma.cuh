@@ -1,6 +1,8 @@
 // The tensor-core flash-attention core shared by K1 (flash_segment.cu) and K2
 // (flash_causal.cu): bf16 queries against bf16 or int8 keys/values, head dim a
-// multiple of 16 up to 128.
+// multiple of 16 up to 128; and, for latent attention's expanded form, bf16 keys of
+// width D = 192 against values of width DV = 128 (mma.sync; the value tile and the
+// output are DV wide).
 //
 // A block of FM_WARPS warps owns FM_ROWS = 128 query rows, 16 per warp, and walks
 // the key range [lo, hi) its policy names in tiles of FM_BKV keys:
@@ -110,11 +112,12 @@ struct FmLayout {
   }
 };
 
-// dynamic shared memory of one block, in bytes
-template <int D, bool QUANT>
+// dynamic shared memory of one block, in bytes (DV: the value width, D where not given)
+template <int D, bool QUANT, int DV = D>
 constexpr int fm_smem_bytes() {
-  constexpr int row = FmLayout<D, fm_wgmma<D>()>::row_elems;
-  constexpr int tile = 2 * FM_BKV * row * 2;  // a bf16 k tile and v tile
+  constexpr bool WG = fm_wgmma<D>() && DV == D;
+  constexpr int row = FmLayout<D, WG>::row_elems;
+  constexpr int tile = FM_BKV * (row + FmLayout<DV, WG>::row_elems) * 2;  // a bf16 k tile and v tile
   return FM_ROWS * row * 2 + (QUANT ? tile + FM_STAGES * 2 * FM_BKV * D : FM_STAGES * tile) +
          FM_STAGES * 2 * FM_BKV * 4;
 }
@@ -304,18 +307,20 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[DT][4], const unsigned (&a)[
   if constexpr (DT == 16) wgmma_rs_n128(o, a, desc_v);
 }
 
-template <int D, typename KT, typename Policy>
+template <int D, typename KT, typename Policy, int DV = D>
 __device__ __forceinline__ void flash_mma_block(Policy& pol, unsigned char* smem, float scale) {
   constexpr bool QUANT = sizeof(KT) == 1;
-  constexpr bool WG = fm_wgmma<D>();
+  constexpr bool WG = fm_wgmma<D>() && DV == D;
   using L = FmLayout<D, WG>;
+  using LV = FmLayout<DV, WG>;       // the value tile's
   constexpr int VPR = D / 8;          // 16-byte vectors per bf16 row
   constexpr int NT = FM_BKV / 8;      // n8 tiles of the logits
-  constexpr int DT = D / 8;           // n8 tiles of the output
+  constexpr int DT = DV / 8;          // n8 tiles of the output
   constexpr int HALF = FM_BKV * L::row_elems;  // bf16 elements of a k tile; the v tile follows it
-  constexpr int TILE = 2 * HALF;
+  constexpr int TILE = HALF + FM_BKV * LV::row_elems;
   constexpr int RAW = 2 * FM_BKV * D;  // bytes of a raw int8 k tile and v tile
-  static_assert(D % 16 == 0 && FM_BKV % 16 == 0 && FM_STAGES >= 2, "tile shapes");
+  static_assert(D % 16 == 0 && DV % 16 == 0 && FM_BKV % 16 == 0 && FM_STAGES >= 2, "tile shapes");
+  static_assert(!QUANT || DV == D, "int8 k/v share one width");
 
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* tiles = qs + FM_ROWS * L::row_elems;  // FM_STAGES bf16 tiles, or one for int8 K/V
@@ -342,7 +347,17 @@ __device__ __forceinline__ void flash_mma_block(Policy& pol, unsigned char* smem
           const bool ok = t0 + row < hi;
           const int t = ok ? t0 + row : lo;
           cp_async16_z<Policy::kCopiesThroughL1>(kd + L::off(row, vec), pol.k_row(t) + vec * 8, ok);
-          cp_async16_z<Policy::kCopiesThroughL1>(vd + L::off(row, vec), pol.v_row(t) + vec * 8, ok);
+          if constexpr (DV == D)
+            cp_async16_z<Policy::kCopiesThroughL1>(vd + L::off(row, vec), pol.v_row(t) + vec * 8, ok);
+        }
+        if constexpr (DV != D) {  // the narrower value rows
+          for (int e = tid; e < FM_BKV * (DV / 8); e += FM_THREADS) {
+            int row, vec;
+            LV::chunk(e, row, vec);
+            const bool ok = t0 + row < hi;
+            const int t = ok ? t0 + row : lo;
+            cp_async16_z<Policy::kCopiesThroughL1>(vd + LV::off(row, vec), pol.v_row(t) + vec * 8, ok);
+          }
         }
       } else {
         constexpr int VPQ = D / 16;  // 16-byte vectors per int8 row
@@ -517,7 +532,7 @@ __device__ __forceinline__ void flash_mma_block(Policy& pol, unsigned char* smem
 #pragma unroll
       for (int jp = 0; jp < NT / 2; ++jp) fm_pin(pa[jp]);  // P's registers were read until the wait
     } else {
-      mma_rows_pv<DT, NT / 2, L::LD>(o, pa, vt, lane);
+      mma_rows_pv<DT, NT / 2, LV::LD>(o, pa, vt, lane);
     }
   }
   cp_async_wait<0>();  // q, when the range was empty; no copy outlives the block

@@ -13,10 +13,11 @@
 //
 // What bounds it: latency. It reads pairs x walked splits x G x (D + 2) fp32 values
 // that the first pass has just written (L2-resident). So every load of a block is
-// issued at once: one block per (pair, query head), each warp takes every
-// MERGE_GROUPS-th split; each warp finds the head's max and sum over all splits by
-// itself (lanes across splits, one online-softmax pass), then lane j sums dims
-// 4j .. 4j + 3 over its warp's splits, and the warps' sums meet in shared memory.
+// issued at once: one block per (pair, query head, 128 dims of D), each warp takes
+// every MERGE_GROUPS-th split; each warp finds the head's max and sum over all splits
+// by itself (lanes across splits, one online-softmax pass), then lane j sums dims
+// 4j .. 4j + 3 of the block's 128 over its warp's splits, and the warps' sums meet in
+// shared memory. K3, K4 and P2 (D <= 128) have one block of dims; K5 (D = 512) four.
 #include "common.cuh"
 
 namespace zt {
@@ -50,8 +51,8 @@ __global__ void __launch_bounds__(MERGE_THREADS)
   const float Mall = warp_max(M);
   L = fmaxf(warp_sum(L * expf(M - Mall)), 1e-30f);
 
-  // this warp's splits, dims 4 lane .. 4 lane + 3
-  const int d = 4 * lane;
+  // this warp's splits, dims 128 z + 4 lane .. + 3
+  const int d = 128 * blockIdx.z + 4 * lane;
   float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
   if (d < D) {
 #pragma unroll 4
@@ -83,8 +84,8 @@ __global__ void __launch_bounds__(MERGE_THREADS)
 int launch_split_merge(const float* part, const int* len, int len_div, int len_mul, int dead_len,
                        int split_len, int nsplit, void* out, int out_dtype, int pairs, int G, int D,
                        cudaStream_t stream) {
-  if (G > SPLIT_MAXG || D % 4 != 0 || D > 4 * 32) return ZT_UNSUPPORTED;
-  const dim3 grid(pairs, G);
+  if (G > SPLIT_MAXG || D % 4 != 0 || D > SPLIT_MAXD) return ZT_UNSUPPORTED;
+  const dim3 grid(pairs, G, (D + 127) / 128);
   if (out_dtype == F32) {
     split_merge_kernel<float><<<grid, MERGE_THREADS, 0, stream>>>(part, len, len_div, len_mul, dead_len,
                                                                   split_len, nsplit, static_cast<float*>(out), G, D);

@@ -12,6 +12,12 @@ written in place and K3 has no backward). `decoder_forward_pair` is the co-batch
 caches; an int8 cache (`KVCache.create(dtype=torch.int8)`) sends both kernels through
 their int8 entries.
 
+Kimi-VL's decoder (config.is_mla) runs through the same functions: `_attn_layer` and
+the pair decode hand each layer to models/mla.py (latent attention over a LatentCache,
+1D rotary from `_rotary`), and `_mlp` hands its routed-expert layers
+(`cfg.is_moe_layer(i)`) to models/moe.py (both imported where they are called:
+models/mla.py imports this module).
+
 Params: embed.weight; layers[i].{input_ln,post_ln}.scale, .attn.{wq,bq,wk,bk,wv,bv,wo}
 (or the fused .attn.{wqkv,bqkv,wo}), .mlp.{wg,wu,wd} (or fused .mlp.{wgu,wd});
 final_ln.scale; lm_head.weight when untied. Matrices are (in, out); each may be a
@@ -30,7 +36,7 @@ import torch.nn.functional as F
 from ..ops.flash_causal import flash_causal_attention
 from ..ops.flash_decode import flash_decode_attention
 from ..ops.quant import qdot
-from ..config import TextConfig
+from ..config import TextConfig, is_mla
 from .rope import apply_rotary, mrope_cos_sin
 from .vit import rms_norm
 
@@ -257,6 +263,13 @@ def _attn_layer(
     index=None,  # write_index(write_pos, T), shared by every layer of the forward
     tp=None,  # parallel.collectives.TensorParallel at this layer's attn (no-cache path only)
 ):
+    if is_mla(cfg):
+        if tp is not None:
+            raise NotImplementedError("decoder: no tensor-parallel forward through latent attention")
+        from . import mla
+
+        return mla.attention(p, cfg, x, cos, sin, positions, attn_valid, cache_kv, cache_len, write_pos,
+                             attend_len, index)
     B, S, _ = x.shape
     split = False
     if tp is not None:
@@ -289,9 +302,16 @@ def _separate_layout(tp, p, fused: str) -> None:
         raise ValueError(f"{tp.path}: a tensor-parallel forward takes the separate layout, not the fused {fused!r}")
 
 
-def _mlp(p, x, tp=None):
-    """SwiGLU; with `tp` on this rank's slice of the width when the block's matrices
-    are split (then all-reduced over tensor)."""
+def _mlp(p, x, tp=None, cfg=None, i: int = 0):
+    """Layer i's MLP: SwiGLU; with `tp` on this rank's slice of the width when the
+    block's matrices are split (then all-reduced over tensor). A latent-attention
+    config's routed-expert layers (cfg.is_moe_layer(i)) go to models.moe."""
+    if is_mla(cfg) and cfg.is_moe_layer(i):
+        if tp is not None:
+            raise NotImplementedError("decoder: no tensor-parallel forward through routed experts")
+        from .moe import moe_forward
+
+        return moe_forward(p, cfg, x)
     split = False
     if tp is not None:
         _separate_layout(tp, p, "wgu")
@@ -304,6 +324,17 @@ def _mlp(p, x, tp=None):
         return qdot(F.silu(gu[..., :F_]) * gu[..., F_:], p["wd"])
     out = qdot(F.silu(qdot(x, p["wg"])) * qdot(x, p["wu"]), p["wd"])
     return tp.g(out) if split else out
+
+
+def _rotary(cfg, position_ids):
+    """cos/sin of a forward: M-RoPE over the head dim, or for latent attention the 1D
+    rotary over its rope dims from the first position plane (Kimi-VL's positions are
+    sequential; the three planes are equal)."""
+    if is_mla(cfg):
+        from .mla import rope_cos_sin
+
+        return rope_cos_sin(position_ids[0], cfg)
+    return mrope_cos_sin(position_ids, cfg.head_dim, cfg.mrope_section, cfg.rope_theta)
 
 
 def decoder_forward(
@@ -341,7 +372,7 @@ def decoder_forward(
         attn_valid = torch.ones((B, S), dtype=torch.bool, device=dev)
     if cache is not None and write_pos is not None and S > 1 and index is None:
         index = write_index(write_pos, cache.max_len)  # once, for every layer's k, v and scales
-    cos, sin = mrope_cos_sin(position_ids, cfg.head_dim, cfg.mrope_section, cfg.rope_theta)
+    cos, sin = _rotary(cfg, position_ids)
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["input_ln"]["scale"], cfg.rms_norm_eps)
@@ -354,7 +385,7 @@ def decoder_forward(
         )
         x = x + attn_out
         h = rms_norm(x, layer["post_ln"]["scale"], cfg.rms_norm_eps)
-        x = x + _mlp(layer["mlp"], h, None if tp is None else tp.at("layers", i, "mlp"))
+        x = x + _mlp(layer["mlp"], h, None if tp is None else tp.at("layers", i, "mlp"), cfg, i)
     x = rms_norm(x, params["final_ln"]["scale"], cfg.rms_norm_eps)
     if cache is not None and update_cache_len:
         cache.length.add_(S)
@@ -382,18 +413,25 @@ def decoder_forward_pair(
     Ba = cache_a.k[0].shape[0]
     B, S, _ = inputs_embeds.shape
     assert S == 1, "pair decode is single-token only"
-    cos, sin = mrope_cos_sin(position_ids, cfg.head_dim, cfg.mrope_section, cfg.rope_theta)
+    cos, sin = _rotary(cfg, position_ids)
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["input_ln"]["scale"], cfg.rms_norm_eps)
-        q, k, v = _project_qkv(layer["attn"], cfg, h, cos, sin)
-        out = torch.cat([
-            _decode_write_attend(q[:Ba], k[:Ba], v[:Ba], cache_a.layer(i), cache_a.length, attend_a),
-            _decode_write_attend(q[Ba:], k[Ba:], v[Ba:], cache_b.layer(i), cache_b.length, attend_b),
-        ])
-        x = x + qdot(out.reshape(B, S, -1), layer["attn"]["wo"])
+        if is_mla(cfg):
+            from . import mla
+
+            x = x + mla.pair_attention(layer["attn"], cfg, h, cos, sin, [
+                (slice(0, Ba), cache_a.k[i], cache_a.length, attend_a),
+                (slice(Ba, B), cache_b.k[i], cache_b.length, attend_b)])
+        else:
+            q, k, v = _project_qkv(layer["attn"], cfg, h, cos, sin)
+            out = torch.cat([
+                _decode_write_attend(q[:Ba], k[:Ba], v[:Ba], cache_a.layer(i), cache_a.length, attend_a),
+                _decode_write_attend(q[Ba:], k[Ba:], v[Ba:], cache_b.layer(i), cache_b.length, attend_b),
+            ])
+            x = x + qdot(out.reshape(B, S, -1), layer["attn"]["wo"])
         h = rms_norm(x, layer["post_ln"]["scale"], cfg.rms_norm_eps)
-        x = x + _mlp(layer["mlp"], h)
+        x = x + _mlp(layer["mlp"], h, None, cfg, i)
     x = rms_norm(x, params["final_ln"]["scale"], cfg.rms_norm_eps)
     cache_a.length.add_(1)
     cache_b.length.add_(1)

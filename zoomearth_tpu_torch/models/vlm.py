@@ -11,9 +11,10 @@ from typing import Optional
 
 import torch
 
-from ..config import VLMConfig
+from ..config import VLMConfig, is_kimi
 from ..utils.profiling import tracer
 from .decoder import KVCache, decoder_forward, logits_from_hidden
+from .moonvit import moonvit_forward
 from .vit import vit_forward
 
 
@@ -46,8 +47,13 @@ def compute_vision_embeds(params, cfg: VLMConfig, pixel_values, vision_meta, win
     """Run just the vision tower: packed patches -> (N_merged, E) merged embeddings in
     image order. vision_meta holds device tensors (vit.meta_to_device). tp: the
     TensorParallel view of the whole tree on a tensor mesh (parallel/collectives.py),
-    None elsewhere. Traced as the device span `vision`."""
+    None elsewhere. Kimi-VL's configs run MoonViT (models/moonvit.py) over its own
+    metadata (moonvit.meta_to_device). Traced as the device span `vision`."""
     with tracer.span("vision", device=True):
+        if is_kimi(cfg):
+            if tp is not None:
+                raise NotImplementedError("vision: no tensor-parallel forward through MoonViT")
+            return moonvit_forward(params["vision"], cfg.vision, pixel_values, vision_meta)
         return vit_forward(
             params["vision"], cfg.vision, pixel_values,
             vision_meta["perm"], vision_meta["inv_perm_merged"],

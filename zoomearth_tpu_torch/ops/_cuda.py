@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("common.cuh", "flash_mma.cuh", "flash_policy.cuh", "decode_split.cuh", "flash_bwd.cuh", "flash_segment.cu",
            "flash_causal.cu", "flash_segment_bwd.cu", "flash_causal_bwd.cu", "flash_decode.cu", "paged_decode.cu",
-           "probe_stream.cu", "probe_bigmm.cu", "split_merge.cu")
+           "probe_stream.cu", "probe_bigmm.cu", "split_merge.cu", "flash_mla_decode.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -100,6 +100,8 @@ _SIGNATURES = {
     "zt_flash_segment_bwd": [_P] * 13 + [_I] * 3 + [_L] * 6 + [_F, _I, _P],
     "zt_flash_causal_bwd": [_P] * 14 + [_I] * 8 + [_L] * 15 + [_F, _I, _P],
     "zt_flash_decode": [_P] * 8 + [_I] * 7 + [_L] * 10 + [_F, _I, _I, _P],
+    "zt_flash_mla_decode": [_P] * 5 + [_I] * 4 + [_L] * 4 + [_F, _P],
+    "zt_flash_causal_mla": [_P] * 6 + [_I] * 7 + [_L] * 9 + [_F, _P],
     "zt_decode_split_tile": [],
     "zt_paged_decode": [_P] * 7 + [_I] * 8 + [_L] * 4 + [_F, _I, _P],
     "zt_probe_stream": [_P] * 4 + [_I] * 7 + [_I, _I, _P],

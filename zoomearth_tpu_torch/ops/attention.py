@@ -89,7 +89,7 @@ def _gqa_sdpa(q, k, v, mask, scale):
         logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,bktd->bskgd", probs.to(v.dtype), v)
-    return out.reshape(B, S, H, D)
+    return out.reshape(B, S, H, v.shape[-1])
 
 
 def causal_attention(q, k, v, *, positions=None, kv_positions=None, valid=None, scale=None):

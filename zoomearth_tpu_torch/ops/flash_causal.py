@@ -6,8 +6,10 @@ what bounds it and what its design does about it). It has two variants, chosen
 inside the C entry point from the dtypes alone (`zt_flash_causal_variant`): "mma", the
 tensor-core flash core (csrc/flash_mma.cuh: wgmma at D = 128, mma.sync at the smaller
 head dims) with 128 (head, position) rows a block, for bf16 queries against bf16 or
-int8 K/V (the model's path); and "fma", fp32 arithmetic with 64 rows a block, for
-fp32 queries, which bf16 products would cost their precision. Here:
+int8 K/V (the model's path), and for latent attention's expanded form at key width
+192 and value width 128 (`zt_flash_causal_mla`: v narrower than q and k, bf16, no
+lse); and "fma", fp32 arithmetic with 64 rows a block, for fp32 queries, which bf16
+products would cost their precision. Here:
 
 - `flash_causal_attention` dispatches by device: CPU -> plain version, CUDA ->
   kernel (or raises). There is no fallback and no size threshold. Where a gradient
@@ -45,6 +47,7 @@ from .flash_attention import BWD_ROWS
 ROWS = 128  # (head, query) rows per block of the tensor-core variant (FM_ROWS in csrc/flash_mma.cuh)
 ROWS_FMA = 64  # of the fp32 variant (CAU_ROWS in csrc/flash_causal.cu); G = H / Hkv must divide both
 TILE = 64  # keys per tile of the tensor-core variant (FM_BKV)
+MLA_WIDTHS = (192, 128)  # the (key, value) widths of the one instantiation whose value width differs
 BWD_TILE = 32  # (position, head) rows per tile of the backward's dk/dv kernels (BWD_TILE in csrc/flash_bwd.cuh)
 BWD_BLOCKS_PER_SM = 4  # the backward's dk/dv blocks to aim for, per SM of the card: its FMA variant
 BWD_BLOCKS_PER_SM_MMA = 3  # and its tensor-core variant (one resident block an SM; 1-6 tried on the H100, 3 fastest)
@@ -188,6 +191,8 @@ def causal_attention_cuda(q, k, v, positions, kv_len, ks=None, vs=None, return_l
     _cuda.require_cuda(name, q, k, v, positions, kv_len, ks, vs)
     B, S, H, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
+    if v.shape[3] != k.shape[3] and not return_lse and ks is None:
+        return _causal_mla_cuda(name, q, k, v, positions, kv_len)
     if v.shape != k.shape or v.dtype != k.dtype or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"{name}: k/v must be (B, Hkv, T, D) of one dtype")
     if H % Hkv or ROWS_FMA % (H // Hkv):
@@ -220,6 +225,31 @@ def causal_attention_cuda(q, k, v, positions, kv_len, ks=None, vs=None, return_l
     _cuda.check(rc, name)
     _cuda.count_launch(causal_attention_cuda, variant, int8=quant)
     return (out, lse) if return_lse else out
+
+
+def _causal_mla_cuda(name, q, k, v, positions, kv_len):
+    """K2 at key width 192 and value width 128 (latent attention's expanded form): the
+    tensor-core core with a DV-wide value tile and output, bf16, no lse. Counted as a
+    K2 launch of the "mma" variant."""
+    B, S, H, D = q.shape
+    Hkv, T, DV = k.shape[1], k.shape[2], v.shape[3]
+    if (D, DV) != MLA_WIDTHS or k.shape[3] != D or v.shape[:3] != k.shape[:3] or k.shape[0] != B:
+        raise ValueError(f"{name}: a value width apart from the key width runs at {MLA_WIDTHS} only "
+                         f"(q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)})")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)) or H % Hkv or ROWS % (H // Hkv):
+        raise ValueError(f"{name}: key width {D} with value width {DV} takes bf16 q/k/v and H / Hkv dividing {ROWS}")
+    _cuda.require_aligned16(name, q, k, v)
+    out = torch.empty((B, S, H, DV), dtype=q.dtype, device=q.device)
+    positions = positions.to(torch.int32).contiguous()
+    kv_len = kv_len.to(torch.int32).contiguous()
+    rc = _cuda.lib().zt_flash_causal_mla(
+        _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(positions), _cuda.ptr(kv_len), _cuda.ptr(out),
+        B, S, H, Hkv, T, D, DV, q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), D**-0.5, _cuda.stream(q.device),
+    )
+    _cuda.check(rc, name)
+    _cuda.count_launch(causal_attention_cuda, "mma")
+    return out
 
 
 causal_attention_cuda.launches = 0

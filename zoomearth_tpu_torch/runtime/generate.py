@@ -27,6 +27,11 @@ it by exact-equality tests. `Generator` runs on the params' device:
   its own bucket, grown by the continuation) and `prefill_split_rows` (the embeds
   path's prefill in row slices, each written straight into its rows of the full
   cache);
+- every family takes the same stages; what differs (positions, the tower's metadata,
+  the cache kind) is the config's family's hook (runtime/families.py): Kimi-VL's
+  packing gives plain sequential positions and MoonViT's metadata, `new_cache` a
+  LatentCache. The prefill and the chunk prefill pass the slots their queries see as
+  attend_len, the span latent attention expands (a KV cache's prefill takes none);
 - the tracer (utils/profiling.py) times the packing as the host span `batch.pack`,
   and each prefill, chunk prefill and decode call (its step loop) as the device spans
   `prefill`, `chunk_prefill` and `decode`.
@@ -46,11 +51,10 @@ import torch
 from ..config import VLMConfig
 from ..models.decoder import KVCache, decoder_forward_pair, logits_from_hidden, write_index
 from ..models.params import torch_dtype
-from ..models.rope import mrope_position_ids_batch
-from ..models.vit import meta_to_device, vision_metadata
 from ..models.vlm import embed_tokens, vlm_forward
 from ..ops.sampling import greedy, sample
 from ..utils.profiling import tracer
+from .families import family
 from .graphs import StepGraphs
 
 DEFAULT_LENGTH_BUCKETS = (128, 256, 384, 512, 768, 1024, 1536, 2048)
@@ -108,47 +112,24 @@ def prepare_batch(
             ids[b, : len(toks)] = toks
 
         grids_per_seq = [[g for _, g in imgs] for imgs in images_per_seq]
-        pos, next_pos = mrope_position_ids_batch(
-            ids,
-            grids_per_seq,
-            image_pad_id=cfg.tokens.image_pad,
-            merge_size=cfg.vision.spatial_merge_size,
-            attention_mask=(ids != cfg.tokens.pad).astype(np.int32)
-            if any(len(t) != S for t in token_lists)
-            else None,
-        )
+        pos, next_pos = family(cfg).positions(cfg, ids, grids_per_seq, lengths)
 
-        all_pv = [pv for imgs in images_per_seq for pv, _ in imgs]
         all_grids = [g for gs in grids_per_seq for g in gs]
-        pixel_values = None
-        meta_dev = None
-        if all_pv:
-            pv = np.concatenate(all_pv, axis=0)
-            P = bucket(pv.shape[0], patch_buckets)
-            meta = vision_metadata(all_grids, cfg.vision, pad_to=P)
-            if P > pv.shape[0]:
-                pv = np.concatenate([pv, np.zeros((P - pv.shape[0], pv.shape[1]), pv.dtype)])
-            pixel_values = pv
-            meta_dev = _meta_dict(meta)
+        pixel_values, meta_dev = _pack_images(cfg, [pv for imgs in images_per_seq for pv, _ in imgs], all_grids,
+                                              patch_buckets)
     return PreparedBatch(ids, lengths, pos, next_pos, pixel_values, meta_dev)
 
 
-def _meta_dict(meta) -> dict:
-    """VisionMetadata -> host meta dict for PreparedBatch (numpy arrays; uploaded by
-    the Generator). win_mode is a plain int."""
-    d = {
-        "perm": meta.perm,
-        "inv_perm_merged": meta.inv_perm_merged,
-        "seg_window": meta.seg_window,
-        "seg_full": meta.seg_full,
-        "pos_ids": meta.pos_ids,
-        "win_mode": meta.win_mode,
-    }
-    if meta.win_gidx is not None:
-        d["win_gidx"] = meta.win_gidx
-        d["win_valid"] = meta.win_valid
-        d["win_sidx"] = meta.win_sidx
-    return d
+def _pack_images(cfg: VLMConfig, all_pv, all_grids, patch_buckets):
+    """(pixel values padded to their patch bucket, host vision metadata), or (None,
+    None) without images: the tower's own metadata (the family's `vision_meta`)."""
+    if not all_pv:
+        return None, None
+    pv = np.concatenate(all_pv, axis=0)
+    P = bucket(pv.shape[0], patch_buckets)
+    if P > pv.shape[0]:
+        pv = np.concatenate([pv, np.zeros((P - pv.shape[0], pv.shape[1]), pv.dtype)])
+    return pv, family(cfg).vision_meta(cfg, all_grids, P)
 
 
 def prepare_continuation(
@@ -162,10 +143,9 @@ def prepare_continuation(
 ) -> PreparedBatch:
     """Pack CONTINUATION chunks (e.g. stage-2 vision tokens) for cache-reuse prefill.
 
-    start_positions[b] is the M-RoPE position where row b's chunk begins (the kept
-    prefix's next position). Unlike prepare_batch, position ids are per-row offset."""
-    from ..models.rope import mrope_chunk_position_ids
-
+    start_positions[b] is the position where row b's chunk begins (the kept prefix's
+    next position). Unlike prepare_batch, position ids are per-row offset."""
+    chunk_positions = family(cfg).chunk_positions
     with tracer.span("batch.pack"):
         B = len(chunk_token_lists)
         lengths = np.asarray([len(t) for t in chunk_token_lists], dtype=np.int32)
@@ -175,26 +155,12 @@ def prepare_continuation(
         next_pos = np.zeros((B,), np.int32)
         for b, toks in enumerate(chunk_token_lists):
             ids[b, : len(toks)] = toks
-            grids = [g for _, g in images_per_seq[b]]
-            p, nxt = mrope_chunk_position_ids(
-                np.asarray(toks), grids, int(start_positions[b]),
-                image_pad_id=cfg.tokens.image_pad, merge_size=cfg.vision.spatial_merge_size,
-            )
+            p, nxt = chunk_positions(cfg, toks, [g for _, g in images_per_seq[b]], int(start_positions[b]))
             pos[:, b, : len(toks)] = p
             next_pos[b] = nxt
 
-        all_pv = [pv for imgs in images_per_seq for pv, _ in imgs]
-        all_grids = [g for imgs in images_per_seq for _, g in imgs]
-        pixel_values = None
-        meta_dev = None
-        if all_pv:
-            pv = np.concatenate(all_pv, axis=0)
-            P = bucket(pv.shape[0], patch_buckets)
-            meta = vision_metadata(all_grids, cfg.vision, pad_to=P)
-            if P > pv.shape[0]:
-                pv = np.concatenate([pv, np.zeros((P - pv.shape[0], pv.shape[1]), pv.dtype)])
-            pixel_values = pv
-            meta_dev = _meta_dict(meta)
+        pixel_values, meta_dev = _pack_images(cfg, [pv for imgs in images_per_seq for pv, _ in imgs],
+                                              [g for imgs in images_per_seq for _, g in imgs], patch_buckets)
     return PreparedBatch(ids, lengths, pos, next_pos, pixel_values, meta_dev)
 
 
@@ -265,7 +231,7 @@ class Generator:
 
     def new_cache(self, batch: int, max_len: Optional[int] = None) -> KVCache:
         """Fresh cache in this generator's layout, full-size unless `max_len` is given."""
-        return KVCache.create(self.cfg.text, batch, max_len or self.max_cache_len, self.cache_dtype, self.device)
+        return family(self.cfg).cache.create(self.cfg.text, batch, max_len or self.max_cache_len, self.cache_dtype, self.device)
 
     @staticmethod
     def _attend_bucket(need: int, alloc: int):
@@ -289,21 +255,23 @@ class Generator:
         pv = torch.as_tensor(batch.pixel_values, device=self.device)
         if batch.vision_meta is None:
             return {"vision_embeds": pv}, 0
-        meta = meta_to_device(batch.vision_meta, self.device)
+        meta = family(self.cfg).meta_to_device(batch.vision_meta, self.device)
         return {"pixel_values": pv, "vision_meta": meta}, int(batch.vision_meta["win_mode"])
 
     # -- composable stages ------------------------------------------------------
 
     def _prefill(self, cache: KVCache, ids, pos, lengths, vis: dict, win_mode: int):
         """Prefill `ids` (R, S) into the fresh `cache` (R rows; a row view of a larger
-        cache is written through) and set its length. Returns the last-token logits."""
+        cache is written through) and set its length. Returns the last-token logits.
+        Its queries see the first S slots (attend_len S: what latent attention expands;
+        a KV cache's prefill takes no attend span)."""
         R, S = ids.shape
         attn_positions = torch.arange(S, device=self.device)[None].expand(R, S)
         logits, _ = vlm_forward(
             self.params, self.cfg, ids, pos,
             attn_positions=attn_positions, attn_valid=attn_positions < lengths[:, None],
             cache=cache, update_cache_len=False, logit_index=lengths - 1,
-            win_mode=win_mode, **vis,
+            win_mode=win_mode, attend_len=S, **vis,
         )
         cache.length.copy_(lengths)
         return logits
@@ -387,12 +355,14 @@ class Generator:
             index = write_index(host_pos, T2, self.device)
             cache.length.copy_(keep)
             vis, win_mode = self._vision_kwargs(batch)
+            # the queries see the first max(keep + chunk) slots (what latent attention expands)
+            seen = int((keep_host + np.asarray(batch.lengths)).max())
             logits, cache = vlm_forward(
                 self.params, self.cfg, self._tensor(batch.input_ids, torch.int64),
                 self._tensor(batch.position_ids, torch.int32),
                 attn_positions=attn_positions, attn_valid=attn_valid, cache=cache,
                 update_cache_len=False, logit_index=chunk_lens - 1, write_pos=write_pos,
-                write_index=index, win_mode=win_mode, **vis,
+                write_index=index, win_mode=win_mode, attend_len=seen, **vis,
             )
             cache.length.copy_(keep + chunk_lens)
             return logits, cache, self._attend_bucket(need, T2)

@@ -64,13 +64,14 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import VLMConfig
+from ..config import VLMConfig, is_kimi
 from ..models.decoder import KVCache, write_index
 from ..models.params import torch_dtype, tree_leaves
 from ..models.rope import mrope_chunk_position_ids, mrope_position_ids
 from ..models.vit import meta_to_device, vision_metadata
 from ..models.vlm import compute_vision_embeds, vlm_forward
-from ..runtime.generate import DEFAULT_LENGTH_BUCKETS, HostCopy, _meta_dict, bucket
+from ..runtime.families import meta_dict
+from ..runtime.generate import DEFAULT_LENGTH_BUCKETS, HostCopy, bucket
 from ..runtime.graphs import StepGraphs
 
 # Coarser than the batch Generator's buckets on purpose: admission batches vary in how
@@ -215,6 +216,9 @@ class ServingEngine:
         patch_buckets: Sequence[int] = ENGINE_PATCH_BUCKETS,
         seed: int = 0,
     ):
+        if is_kimi(cfg):
+            raise NotImplementedError("ServingEngine: no slot pool for a latent cache (Kimi-VL); run it through the "
+                                      "Generator (run_inference, run_episodes_pipelined)")
         self.device = params["text"]["embed"]["weight"].device
         # the decode chunks' captured graphs by key (public: their counts are read), the
         # static buffers they read, and the compact chunks' staging rows by row bucket
@@ -886,7 +890,7 @@ class ServingEngine:
                 # the ViT runs once for the batch's images, ahead of the pool prefill
                 vision_embeds = compute_vision_embeds(
                     self.params, cfg, torch.as_tensor(pv, device=self.device),
-                    meta_to_device(_meta_dict(meta), self.device), win_mode=meta.win_mode,
+                    meta_to_device(meta_dict(meta), self.device), win_mode=meta.win_mode,
                 )
                 self._phase_s["prefill_vit_dispatch"] += time.time() - t_vit
 

@@ -35,7 +35,8 @@ class FakeTokenizer:
     """Byte-level tokenizer over a small vocab for tests (no downloaded assets).
 
     Plain bytes map to ids 32..287 (id = 32 + byte); special tokens use the ids reserved
-    by config.SpecialTokens for the tiny config. Vocab must be >= 304.
+    by config.SpecialTokens for the tiny config. Vocab must be >= 304. A token set with
+    its own `strings()` (config.KimiTokens) gives its special strings itself.
     """
 
     SPECIAL = {
@@ -54,9 +55,12 @@ class FakeTokenizer:
 
     def __init__(self, tokens: SpecialTokens):
         self.tokens = tokens
-        self._special_to_id = {
-            s: getattr(tokens, attr) for s, attr in self.SPECIAL.items() if hasattr(tokens, attr)
-        }
+        if hasattr(tokens, "strings"):
+            self._special_to_id = tokens.strings()
+        else:
+            self._special_to_id = {
+                s: getattr(tokens, attr) for s, attr in self.SPECIAL.items() if hasattr(tokens, attr)
+            }
         self._id_to_special = {v: k for k, v in self._special_to_id.items()}
 
     def encode(self, text: str) -> List[int]:
