@@ -6,7 +6,8 @@ rows each get a copy give the same prepared batch, array for array, and both equ
 row-by-row preparation (`processor.encode` of each row's own shrink); through
 `run_episodes_pipelined` and `run_episodes` in both stage-2 modes they give the same
 episodes. With the tracer on, the shared wave resamples and patchifies 3 times, counts
-the 3 tiles' source pixels and 4 reused rows; the copied wave counts no reuse.
+the 3 tiles' source pixels, 4 reused rows and 3 images prepared on the pool; the copied
+wave counts no reuse and 7 pooled images.
 
 This file imports no JAX.
 """
@@ -151,14 +152,17 @@ def _traced_stage1(gen, processor, wave):
     return names, dict(tracer.counters)
 
 
-def test_a_shared_wave_resamples_and_patchifies_each_tile_once_and_counts_the_reuses(setup):
+def test_a_shared_wave_resamples_and_patchifies_each_tile_once_and_counts_the_reuses(setup, monkeypatch):
     params, processor, tiles = setup
+    monkeypatch.setattr(EP, "_usable_cores", lambda: 4)  # the preparation pool's width on every machine
     (shared,), (copied,) = _waves(tiles)
     gen = _generator(params)
     names, counters = _traced_stage1(gen, processor, shared)
     assert names.count("image.resize") == names.count("processor.preprocess") == len(TILE_SIZES)
     assert names.count("text.tokenize") == len(ROWS) and names.count("batch.pack") == 1
-    assert counters == {"image.resize_src_px": sum(w * h for w, h in TILE_SIZES), "episode.stage1_images_reused": 4}
+    assert counters == {"image.resize_src_px": sum(w * h for w, h in TILE_SIZES), "episode.stage1_images_reused": 4,
+                        "episode.prep_pooled": len(TILE_SIZES)}
     names, counters = _traced_stage1(gen, processor, copied)
     assert names.count("image.resize") == names.count("processor.preprocess") == len(ROWS)
-    assert counters == {"image.resize_src_px": sum(TILE_SIZES[k][0] * TILE_SIZES[k][1] for k in ROWS)}
+    assert counters == {"image.resize_src_px": sum(TILE_SIZES[k][0] * TILE_SIZES[k][1] for k in ROWS),
+                        "episode.prep_pooled": len(ROWS)}

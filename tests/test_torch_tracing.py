@@ -45,11 +45,10 @@ from zoomearth_tpu_torch.utils.profiling import tracer
 torch.set_num_threads(1)
 CFG = VLMConfig.tiny()
 HOST_PREP = ("image.resize", "image.crop", "processor.preprocess", "text.tokenize", "text.decode", "batch.pack")
-# each span's callers' spans: it must lie inside one of them
+# each span's callers' spans: it must lie inside one of them, on the same thread
 PARENTS = {
-    "image.resize": {"episode.stage1_inputs", "episode.stage2_inputs"},
     "image.crop": {"episode.stage2_inputs"},
-    "processor.preprocess": {"episode.stage1_inputs", "episode.stage2_inputs"},
+    "episode.prep_pool": {"episode.stage1_inputs", "episode.stage2_inputs"},
     "text.tokenize": {"episode.stage1_inputs", "episode.stage2_inputs"},
     "batch.pack": {"episode.stage1_inputs", "episode.stage2_inputs"},
     "vision": {"prefill", "chunk_prefill"},
@@ -65,9 +64,13 @@ def tracer_off():
     tracer.stop()
 
 
-def _inside(child, parents):
+# spans the preparation pool's threads open: each lies inside a pooled section in time
+POOLED = ("image.resize", "processor.preprocess")
+
+
+def _inside(child, parents, same_thread=True):
     name, a, b, ident = child
-    return any(a >= pa and b <= pb and ident == pi for _, pa, pb, pi in parents)
+    return any(a >= pa and b <= pb and (ident == pi or not same_thread) for _, pa, pb, pi in parents)
 
 
 def _tiles(n, seed, sizes):
@@ -88,6 +91,7 @@ def episodes():
     waves = [([f"what is at site {w}{i}?" for i in range(2)], tiles[2 * w:2 * w + 2]) for w in range(3)]
     g1, g2 = TG.GenerationConfig(max_new_tokens=7), TG.GenerationConfig(max_new_tokens=4)
     with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(EP, "_usable_cores", lambda: 4)  # the pool's width on every machine
         mp.setattr(PT, "stage1_prompt", lambda q: PT.PREFIX + q + "\nAnswer.<|im_end|><|im_start|>assistant\n")
         mp.setattr(EP, "extract_bboxes", lambda text, scale=1.0: [[100, 100, 260, 220]])
 
@@ -135,6 +139,11 @@ def test_the_tracer_records_every_span_nested_in_its_callers(episodes):
     for child, parents in PARENTS.items():
         outside = [s for s in by[child] if not _inside(s, [p for n in parents for p in by[n]])]
         assert not outside, (child, outside[:3])
+    # a wave's two tiles and two crops are prepared on the pool's threads, inside its sections
+    for child in POOLED:
+        outside = [s for s in by[child] if not _inside(s, by["episode.prep_pool"], same_thread=False)]
+        assert not outside and {s[3] for s in by[child]}.isdisjoint({s[3] for s in by["episode.prep_pool"]}), child
+    assert len(by["episode.prep_pool"]) == 6
     # text.decode: in the stage-2 preparation, and once a wave where its episodes complete
     top = [s for s in by["text.decode"] if not _inside(s, by["episode.stage2_inputs"])]
     assert len(top) == 3 and len(by["text.decode"]) > 3
@@ -143,14 +152,14 @@ def test_the_tracer_records_every_span_nested_in_its_callers(episodes):
     assert len(by["graph.step"]) == sum(steps.values())  # one run of the step a decode step
     # the host preparation lies outside the device calls
     device_calls = by["prefill"] + by["chunk_prefill"] + by["decode"]
-    assert not [s for n in HOST_PREP for s in by[n] if _inside(s, device_calls)]
+    assert not [s for n in HOST_PREP for s in by[n] if _inside(s, device_calls, same_thread=False)]
 
 
 def test_the_resize_counter_is_the_source_pixels_of_the_resamples(episodes):
     _, _, spans, counters, _, tiles = episodes
     # stage 1 shrinks each tile to 512 px (a 512 x 300 tile is left as it is); the crops are 512 px windows
     resized = [t for t in tiles if max(t.size) > 512]
-    assert counters == {"image.resize_src_px": sum(t.width * t.height for t in resized)}
+    assert counters == {"image.resize_src_px": sum(t.width * t.height for t in resized), "episode.prep_pooled": 12}
     assert sum(n == "image.resize" for n, _, _, _ in spans) == len(resized) == 5
     # the rule on its own: (size, max_size, min_side) -> resampled?
     cases = [((900, 600), 512, None, True), ((300, 200), 512, None, False), ((512, 512), 512, None, False),

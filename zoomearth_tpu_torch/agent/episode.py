@@ -12,6 +12,9 @@ reuse_cache semantics through the pair-pipelined runner (runtime/pipeline.py).
 from __future__ import annotations
 
 import dataclasses
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -55,35 +58,66 @@ def split_kept_tokens(tokenizer, completion_tokens: List[int], pre_answer_text: 
     return kept, residual
 
 
+_pool: Optional[ThreadPoolExecutor] = None  # the process's preparation threads, made at first use
+_pool_lock = threading.Lock()
+
+
+def _usable_cores() -> int:
+    return len(os.sched_getaffinity(0))
+
+
+def _prep_map(fn, items):
+    """[fn(x) for x in items], in order, on the process's pool of host threads.
+
+    The width is min(len(items), usable cores); at 1 the tasks run inline and no thread
+    starts. `fn` prepares one image (PIL's resample and the native patchify release the
+    GIL) and touches no torch tensor. A pooled section is traced as `episode.prep_pool` on
+    the calling thread and its images counted in `episode.prep_pooled`; the spans that the
+    tasks open are kept per thread, so their per-name totals are thread time."""
+    global _pool
+    if min(len(items), _usable_cores()) <= 1:
+        return [fn(x) for x in items]
+    with _pool_lock:
+        if _pool is None:
+            _pool = ThreadPoolExecutor(_usable_cores(), thread_name_prefix="episode-prep")
+        pool = _pool
+    with tracer.span("episode.prep_pool"):
+        out = list(pool.map(fn, items))
+    tracer.count("episode.prep_pooled", len(items))
+    return out
+
+
 def _stage1_inputs(generator, processor, questions, images, stage1_max_size):
     """Encode one wave's stage-1 prompts: returns (texts, resized, scales, encoded,
     prepared batch).
 
     Rows that show the same image object (questions about one tile) share its shrink,
-    scale and patches: each distinct image is resized and preprocessed once a call.
-    `images` keeps every object alive for the call, so `id` is an exact key. Rows that
-    reuse an earlier row's image are counted in `episode.stage1_images_reused`."""
+    scale and patches: each distinct image is resized and preprocessed once a call, on
+    the preparation pool. `images` keeps every object alive for the call, so `id` is an
+    exact key. Rows that reuse an earlier row's image are counted in
+    `episode.stage1_images_reused`."""
     cfg = generator.cfg
     tk = processor.tokenizer
     stage1_prompt = family(cfg).prompts()[0]
+
+    def prepare(img):
+        small = resize_image(img, stage1_max_size)
+        scale = max(img.width, img.height) / max(small.width, small.height)
+        return small, scale, processor.preprocess_images([small])[0]
+
     with tracer.span("episode.stage1_inputs"):
         stage1_texts = [stage1_prompt(q) for q in questions]
-        shared = {}  # id(image) -> (shrunk image, scale, (pv, grid))
+        distinct = list({id(img): img for img in images}.values())  # first-seen order
+        shared = dict(zip(map(id, distinct), _prep_map(prepare, distinct)))  # id(image) -> (small, scale, (pv, grid))
         resized, scales, encoded = [], [], []
-        reused = 0
         for text, img in zip(stage1_texts, images):
-            if id(img) in shared:
-                reused += 1
-            else:
-                small = resize_image(img, stage1_max_size)
-                scale = max(img.width, img.height) / max(small.width, small.height)
-                shared[id(img)] = (small, scale, processor.preprocess_images([small])[0])
             small, scale, prepped = shared[id(img)]
             with tracer.span("text.tokenize"):
                 ids = processor.expand_image_pads(tk.encode(text), [prepped[1]])
             resized.append(small)
             scales.append(scale)
             encoded.append((ids, [prepped]))
+        reused = len(images) - len(distinct)
         if reused:
             tracer.count("episode.stage1_images_reused", reused)
         batch = prepare_batch(cfg, [ids for ids, _ in encoded], [imgs for _, imgs in encoded])
@@ -98,15 +132,21 @@ def _stage2_continuation(
 
     Returns (partial results [stage2 empty], continuation batch, keep_len, inert
     mask, s2_idx). Rows without a bbox get an inert placeholder chunk (they decode
-    nothing)."""
+    nothing). The bboxes, the kept tokens and the crops are taken row by row on the
+    calling thread (a crop copies its window out of a tile other rows share); each crop's
+    resize and preprocessing runs on the preparation pool."""
     cfg = generator.cfg
     tk = processor.tokenizer
+
+    def prepare(crop):
+        return processor.preprocess_images([resize_image(crop, crop_max_size)])
+
     with tracer.span("episode.stage2_inputs"):
         with tracer.span("text.decode"):
             stage1_out = [tk.decode(t).strip() for t in out_tokens]
         n = len(questions)
         results: List[Optional[EpisodeResult]] = [None] * n
-        s2_idx = []
+        s2_idx, crops, splits = [], [], []
         full_chunks: List[List[int]] = [[] for _ in range(n)]
         full_imgs: List[list] = [[] for _ in range(n)]
         full_keep = [0] * n
@@ -121,7 +161,7 @@ def _stage2_continuation(
                 )
                 continue
             bbox = boxes[0]
-            crop = resize_image(cut_image(images[i], bbox, crop_min_size), crop_max_size)
+            crops.append(cut_image(images[i], bbox, crop_min_size))
             s2_idx.append(i)
             results[i] = EpisodeResult(
                 question=questions[i], stage1=out1, stage2="",
@@ -131,8 +171,8 @@ def _stage2_continuation(
             with tracer.span("text.decode"):
                 raw = tk.decode(out_tokens[i], skip_special_tokens=False)
                 pre_text = raw.split("<answer>")[0]
-                kept, residual = split_kept_tokens(tk, out_tokens[i], pre_text)
-            crop_prepped = processor.preprocess_images([crop])
+                splits.append(split_kept_tokens(tk, out_tokens[i], pre_text))
+        for i, (kept, residual), crop_prepped in zip(s2_idx, splits, _prep_map(prepare, crops)):
             with tracer.span("text.tokenize"):
                 chunk_ids = tk.encode(residual) if residual else []
                 chunk_ids += processor.expand_image_pads(
