@@ -2,9 +2,7 @@
 """Chip smoke for the PyTorch port (zoomearth_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # the smoke: every phase below, then the two JSON lines
-    python3 chip_smoke.py --profile   # device and build, then where the 3B slice's time goes
-    python3 chip_smoke.py --profile-sft [--parent=DIR]   # where a warm 3B SFT micro-step's time goes (and
-                                                         # with DIR's backward kernels: an older tree's csrc)
+    python3 chip_smoke.py --profile-sft   # where a warm 3B SFT micro-step's time goes, by kernel
     python3 chip_smoke.py --tensor-grads=L,B [L,B ...]   # one SFT micro-step's gradients at the 3B widths, L
                                                          # layers and B ViT blocks, fp32 and bf16, one rank
                                                          # against two tensor ranks (1, 1, 2) sharing the card
@@ -2505,23 +2503,17 @@ def run_tensor4_part(card, tmp, tol):
     return d
 
 
-def profile_training(card, parent=None):
+def profile_training(card):
     """`--profile-sft`: where one warm SFT micro-step's time goes, by kernel. The
     training phase's model, samples and processor; gradient accumulation over 8
     micro-steps, so that no optimizer update falls in the window; two micro-steps to
     warm up, then one cut sample's micro-step on the host clock (synchronized) and once
     more under torch.profiler, with the device time of the kernels by group and of every
-    kernel that takes at least 1 % of the total. With `parent` (a directory of kernel
-    sources, such as an older tree's csrc), the same micro-step again with that tree's
-    backward kernels of K1 and K2 bound in place of this checkout's, called through
-    scripts/flash_variants.py (warmed up once first): the before to this tree's after."""
+    kernel that takes at least 1 % of the total."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from zoomearth_tpu_torch.ops import flash_attention as K1
-    from zoomearth_tpu_torch.ops import flash_causal as K2
-    from zoomearth_tpu_torch.scripts import flash_variants as FV
     from zoomearth_tpu_torch.train import sft as TS
     from zoomearth_tpu_torch.train import sft_loop as TL
 
@@ -2540,14 +2532,14 @@ def profile_training(card, parent=None):
         torch.cuda.synchronize()
         return time.time() - t0
 
-    def measured(label):
+    def measured():
         secs = step()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall = step()
         rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         total = sum(ms for _, ms, _ in rows)
-        log(f"  {label}: one micro-step ({batch['input_ids'].shape[1]} tokens, {batch['pixel_values'].shape[0]} "
+        log(f"  one micro-step ({batch['input_ids'].shape[1]} tokens, {batch['pixel_values'].shape[0]} "
             f"patches) {secs:.3f} s on the host clock, synchronized; under the profiler wall {wall:.3f} s, device "
             f"kernel time {total:.1f} ms | {card}")
         if total <= 0:
@@ -2573,28 +2565,7 @@ def profile_training(card, parent=None):
 
     step()
     step()
-    measured("this tree's kernels")
-    if parent is not None:
-        _, lib, _ = FV.compile_variant(f"profile_parent={parent}", ("flash_segment_bwd.cu", "flash_causal_bwd.cu"),
-                                       ("zt_flash_segment_bwd", "zt_flash_causal_bwd"))
-        old = {D: lib.zt_flash_bwd_variant(1, D) if hasattr(lib, "zt_flash_bwd_variant") else lib.zt_flash_bwd_rows(D)
-               for D in (80, 128)}
-        ours = (K1.segment_attention_bwd_cuda, K2.causal_attention_bwd_cuda)
-
-        def k1_bwd(q, k, v, seg, out, dout, lse):
-            return FV.k1_bwd_call(lib, old[q.shape[-1]], q, k, v, seg.to(torch.int32).contiguous(), out.contiguous(),
-                                  dout.contiguous(), lse.contiguous())
-
-        def k2_bwd(q, k, v, pos, kvl, out, dout, lse):
-            return FV.k2_bwd_call(lib, old[q.shape[-1]], q, k, v, pos.to(torch.int32).contiguous(),
-                                  kvl.to(torch.int32).contiguous(), out.contiguous(), dout.to(q.dtype).contiguous(),
-                                  lse.contiguous())
-
-        K1.segment_attention_bwd_cuda, K2.causal_attention_bwd_cuda = k1_bwd, k2_bwd
-        try:
-            measured(f"the backward kernels of {parent}")
-        finally:
-            K1.segment_attention_bwd_cuda, K2.causal_attention_bwd_cuda = ours
+    measured()
 
 
 def check_tiny_parity():
@@ -3723,72 +3694,6 @@ def torch_itemsize(dtype):
     return torch.empty((), dtype=dtype).element_size()
 
 
-def profile_slice(card):
-    """`--profile`: where the slice's time goes. One batch of 8 questions after a
-    warm-up batch: the phases of stage 1 on the host clock (synchronized), then
-    run_inference of the 8 questions without and under torch.profiler, with the
-    device time of the kernels by group and of every kernel that takes at least 1 %
-    of the total."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from zoomearth_tpu_torch.agent import episode as EP
-    from zoomearth_tpu_torch.eval.infer import run_inference
-
-    env = slice_setup()
-    generator, processor, gen = env.generator, env.processor, env.gen
-    batch8 = env.samples[:BATCH]
-    questions, images = [s.question for s in batch8], [env.tiles[s.image_name] for s in batch8]
-
-    def infer(out_dir, name):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        run_inference(generator, processor, batch8, os.path.join(out_dir, name), batch_size=BATCH, gen=gen,
-                      stage2_gen=gen, image_loader=lambda s: env.tiles[s.image_name])
-        torch.cuda.synchronize()
-        return time.time() - t0
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
-        infer(out_dir, "warm.jsonl")
-        t0 = time.time()
-        batch = EP._stage1_inputs(generator, processor, questions, images, 512)[-1]
-        log(f"  stage-1 host prep (resize {BATCH} tiles, tokenize, patchify): {time.time() - t0:.3f} s | {card}")
-        for label, fn in (("stage-1 prefill (ViT + decoder)", lambda: generator.run_prefill(batch, max_new=NEW_TOKENS)),
-                          (f"stage-1 generate (prefill + {NEW_TOKENS} decode steps)", lambda: generator.generate(batch, gen))):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            fn()
-            torch.cuda.synchronize()
-            log(f"  {label}, S={batch.input_ids.shape[1]}: {time.time() - t0:.3f} s | {card}")
-        log(f"  run_inference of {BATCH} questions, no profiler: {infer(out_dir, 'plain.jsonl'):.3f} s | {card}")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall = infer(out_dir, "prof.jsonl")
-    # kernels only: an operator's row repeats the time of the kernels it launched
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    total = sum(ms for _, ms, _ in rows)
-    log(f"  run_inference of {BATCH} questions under the profiler: wall {wall:.3f} s, device kernel time {total:.1f} ms "
-        f"| {card}")
-    if total <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    groups = {"GEMM kernels (nvjet, cutlass, gemv)": ("nvjet", "cutlass", "gemm", "gemv"),
-              "K1 zt::flash_segment": ("zt::flash_segment",), "K2 zt::flash_causal": ("zt::flash_causal",),
-              "K3 zt::flash_decode_split + zt::split_merge": ("zt::flash_decode", "zt::split_merge")}
-    for label, keys in groups.items():
-        hit = [(ms, n) for key, ms, n in rows if any(k in key for k in keys)]
-        ms, n = sum(m for m, _ in hit), sum(c for _, c in hit)
-        log(f"    {ms:9.1f} ms {100 * ms / total:5.1f} % {n:7d} calls {1e3 * ms / max(n, 1):9.1f} us  {label}")
-    rest = [r for r in rows if not any(k in r[0] for keys in groups.values() for k in keys)]
-    ms, n = sum(r[1] for r in rest), sum(r[2] for r in rest)
-    log(f"    {ms:9.1f} ms {100 * ms / total:5.1f} % {n:7d} calls {1e3 * ms / max(n, 1):9.1f} us  every other kernel "
-        f"(elementwise, copies, reductions, indexing)")
-    log("  kernels with at least 1 % of the device time, and every kernel of this repository:")
-    for key, ms, count in sorted(rows, key=lambda r: -r[1]):
-        if ms >= 0.01 * total or "zt::" in key:
-            log(f"    {ms:9.1f} ms {100 * ms / total:5.1f} % {count:7d} calls {1e3 * ms / count:9.1f} us  {key[:100]}")
-
-
 def check_k4_edges():
     """K4 against its plain version and against K3 on the same k/v, untimed, where the
     split pass meets pages: pages of 16 (a 32-slot tile crosses them), 64 and 256; rows
@@ -4407,10 +4312,6 @@ def main(argv=()) -> int:
     spills = [ln.strip() for ln in ptxas.splitlines()
               if "spill stores" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
     log(f"  ptxas: {len(spills)} kernel instantiations with spills" + (f", e.g. {spills[0]}" if spills else ""))
-    if "--profile" in argv:
-        log("[profile] Qwen2.5-VL-3B bf16, one batch of 8 after a warm-up batch")
-        profile_slice(card)
-        return 0
     grads = next((a.split("=", 1)[1] for a in argv if a.startswith("--tensor-grads=")), None)
     if grads is not None:
         depths = [tuple(int(x) for x in d.split(",")) for d in [grads] + [a for a in argv if "," in a and "=" not in a]]
@@ -4419,10 +4320,8 @@ def main(argv=()) -> int:
         run_tensor_grads(card, depths)
         return 0
     if "--profile-sft" in argv:
-        parent = next((a.split("=", 1)[1] for a in argv if a.startswith("--parent=")), None)
-        log("[profile-sft] Qwen2.5-VL-3B bf16, one warm SFT micro-step by kernel"
-            + (f", then with the backward kernels of {parent}" if parent else ""))
-        profile_training(card, parent)
+        log("[profile-sft] Qwen2.5-VL-3B bf16, one warm SFT micro-step by kernel")
+        profile_training(card)
         return 0
 
     log("[kernels] bf16, main-path shapes, kernel vs plain version, timed in turns")

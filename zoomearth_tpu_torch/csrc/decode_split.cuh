@@ -11,7 +11,7 @@
 // and keeps ~64 KB in flight across the card (~11-15 GB/s measured). Once the bytes
 // flow, the next bound is shared memory: every staged byte is read by the threads
 // of each query head that uses it. At B = 32-64 with a third of T = 4096 live, builds
-// with phases left out (ZT_DS_SKIP below; NVIDIA H100 80GB HBM3, 700 W) show the ring
+// with phases left out (NVIDIA H100 80GB HBM3, 700 W; PERF.md) show the ring
 // first: copies and barriers alone take two thirds of the time (1.3-1.6 TB/s of live
 // cache, against the stream probe's 1.75 TB/s for as many bytes), and the three
 // phases, in series behind a barrier each, the rest.
@@ -48,17 +48,9 @@
 //   byte addresses of slot t's k and v rows (D contiguous elements, 16-byte aligned).
 //   The pass calls them only for t < kv_len[b], so a paged policy never reads a
 //   block-table entry past the row's pages.
-//
-// Builds for measurement (scripts/decode_variants.py; the wrappers use the default):
-// ZT_DS_SKIP leaves phases out of every tile and gives wrong answers by design (1: no
-// logits, 2: no softmax step, 4: no p @ v; 7: the copies and the barriers only).
 #pragma once
 
 #include "common.cuh"
-
-#ifndef ZT_DS_SKIP
-#define ZT_DS_SKIP 0
-#endif
 
 namespace zt {
 
@@ -216,7 +208,7 @@ __global__ void __launch_bounds__(K3_THREADS, 3)
     const int n = min(K3_TILE, hi - lo - i * K3_TILE);
 
     // logits: lane = slot, four heads, the row's 16-byte vectors quarter, quarter + 4, ...
-    if ((ZT_DS_SKIP & 1) == 0 && heads && !dead) {  // warp-uniform
+    if (heads && !dead) {  // warp-uniform
       float s[K3_HPT] = {};
       if (lane < n) {
         const KT* kr = reinterpret_cast<const KT*>(kt + lane * rs);
@@ -245,7 +237,7 @@ __global__ void __launch_bounds__(K3_THREADS, 3)
 
     // softmax: warp = head, lane = slot; the tile's online-softmax step (one max and
     // one sum across the warp)
-    if ((ZT_DS_SKIP & 2) == 0 && warp < G) {  // warp-uniform
+    if (warp < G) {  // warp-uniform
       float s = NEG_INF, vscale = 1.f;
       if (lane < n) {
         s = 0.f;
@@ -267,7 +259,7 @@ __global__ void __launch_bounds__(K3_THREADS, 3)
     __syncthreads();
 
     // p @ v: lane = dims 4 lane .., four heads, the tile's slots quarter, quarter + 4, ...
-    if ((ZT_DS_SKIP & 4) == 0 && vown) {
+    if (vown) {
       const float4 al = *reinterpret_cast<const float4*>(alphas + h0);
       const float a4[K3_HPT] = {al.x, al.y, al.z, al.w};
 #pragma unroll

@@ -232,7 +232,7 @@ static int launch_causal_bwd(const CausalBwdArgs<E>& a, cudaStream_t stream) {
 // CausalPolicy; dk/dv under CausalKeysPolicy, the same rule seen from a block of keys.
 // ---------------------------------------------------------------------------
 struct CausalKeysPolicy {
-  static constexpr bool kCopiesThroughL1 = ZT_FM_K2_L1;
+  static constexpr bool kCopiesThroughL1 = true;  // as K2's forward (flash_policy.cuh)
   int t_lo, T, klen, S, H, G, rows, D;  // rows = S G (position, head) rows of the batch row
   int begin, end;                       // this split's query tiles
   const int* qhi;                       // this batch row's n_qtiles bounds

@@ -51,23 +51,13 @@
 
 #include "common.cuh"
 
-#ifndef ZT_FM_BKV
-#define ZT_FM_BKV 64
-#endif
-#ifndef ZT_FM_STAGES
-#define ZT_FM_STAGES 3
-#endif
-#ifndef ZT_FM_WGMMA
-#define ZT_FM_WGMMA 1  // 0: mma.sync at every head dim
-#endif
-
 namespace zt {
 
 constexpr int FM_WARPS = 8;
 constexpr int FM_THREADS = FM_WARPS * 32;
 constexpr int FM_ROWS = FM_WARPS * 16;  // query rows per block
-constexpr int FM_BKV = ZT_FM_BKV;       // keys per tile, a multiple of 16
-constexpr int FM_STAGES = ZT_FM_STAGES;
+constexpr int FM_BKV = 64;    // keys per tile, a multiple of 16
+constexpr int FM_STAGES = 3;  // depth of the tile ring
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -82,7 +72,7 @@ __device__ __forceinline__ float fast_exp2(float x) {
 // Whether head dim D takes the warpgroup products (the model's two head dims).
 template <int D>
 __host__ __device__ constexpr bool fm_wgmma() {
-  return ZT_FM_WGMMA && FM_BKV == 64 && (D == 80 || D == 128);
+  return D == 80 || D == 128;
 }
 
 // Where the 16-byte vector (row, vec) of a bf16 tile of D-wide rows lies in shared

@@ -16,23 +16,14 @@
 
 #include "flash_mma.cuh"
 
-// Tile copies of K1 bypass L1 (cp.async.cg): with two blocks an SM the shared-memory
-// carve-out leaves little L1, and on the card .cg ran 15 % faster there than .ca.
-#ifndef ZT_FM_K1_L1
-#define ZT_FM_K1_L1 0
-#endif
-// K2's are cached in L1 too (cp.async.ca): one block an SM leaves L1 large, and on
-// the card .ca ran 7-14 % faster there than .cg.
-#ifndef ZT_FM_K2_L1
-#define ZT_FM_K2_L1 1
-#endif
-
 namespace zt {
 
 template <typename KT>
 struct CausalPolicy {
   static constexpr bool QUANT = sizeof(KT) == 1;
-  static constexpr bool kCopiesThroughL1 = ZT_FM_K2_L1;
+  // K2's tile copies are cached in L1 too (cp.async.ca): one block an SM leaves L1
+  // large, and on the card .ca ran 7-14 % faster there than .cg.
+  static constexpr bool kCopiesThroughL1 = true;
   int lo, hi;
   int full;  // keys below it are live for every row of the block
   int klen, bq, s0, S, H, D;
@@ -133,7 +124,9 @@ struct CausalPolicy {
 };
 
 struct SegmentPolicy {
-  static constexpr bool kCopiesThroughL1 = ZT_FM_K1_L1;
+  // K1's tile copies bypass L1 (cp.async.cg): with two blocks an SM the shared-memory
+  // carve-out leaves little L1, and on the card .cg ran 15 % faster there than .ca.
+  static constexpr bool kCopiesThroughL1 = false;
   int lo, hi;
   int s0, S, H, D;
   int block_id;  // the block's one segment id, or -1 when its rows span several

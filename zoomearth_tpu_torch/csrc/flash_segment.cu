@@ -190,9 +190,7 @@ extern "C" int zt_flash_segment_variant(int dtype, int D) {
 // The tensor-core variant copies 16-byte vectors: q/k/v bases and strides must be
 // whole 16-byte multiples (the wrapper checks). lse, when not null, is an (S, H) fp32
 // tensor that gets each row's log-sum-exp of the scaled logits (the backward's input;
-// NEG_INF for a row with no live key). It comes last, so that a caller of a build from
-// before it (scripts/flash_variants.py on an older tree) passes an argument the older
-// entry point never reads.
+// NEG_INF for a row with no live key).
 extern "C" int zt_flash_segment(const void* q, const void* k, const void* v, const int* seg,
                                 const int* kv_first, const int* kv_last, void* out, int S, int H,
                                 int D, long long q_ss, long long q_sh, long long k_ss,

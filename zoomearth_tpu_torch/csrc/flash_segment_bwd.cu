@@ -166,7 +166,7 @@ static int launch_segment_bwd(const SegBwdArgs<T>& a, cudaStream_t stream) {
 // SegmentPolicy; dk/dv under SegmentKeysPolicy, the same rule seen from a block of keys.
 // ---------------------------------------------------------------------------
 struct SegmentKeysPolicy {
-  static constexpr bool kCopiesThroughL1 = ZT_FM_K1_L1;
+  static constexpr bool kCopiesThroughL1 = false;  // as K1's forward (flash_policy.cuh)
   int t_lo, S, H, D;
   int first, rows;  // the query rows [first, first + rows) that see these keys
   int begin, end;   // their tiles

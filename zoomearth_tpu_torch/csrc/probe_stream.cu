@@ -17,7 +17,7 @@
 // how many bytes are in flight and how little else a call does. The card moves 3.35
 // TB/s and a read takes on the order of a microsecond under load, so about 3 MB, 25
 // KB per SM, must be in flight before the memory rate can be met at all. Measured
-// (NVIDIA H100 80GB HBM3, 700 W; scripts/decode_variants.py): each further byte costs
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md): each further byte costs
 // what 3.1 TB/s costs (a 50 MB and a 200 MB stream on one card), and a call pays about 5 us
 // beside that for launch, ramp and drain and 2.6-3.1 us for the memset, so the probe's
 // 50 MB stream reaches 1.75 TB/s (2.14 when the L2 was flushed by reading instead of
@@ -26,9 +26,9 @@
 // blocks whose owners of the first rows made 8192 element-wise atomics each, a finish
 // kernel) and took 0.0314 ms where this one takes 0.0288 (0.0275 and 0.0235 with the
 // read flush). How the copies are made does not matter to the time: the bulk copies,
-// the cp.async build and the __ldg build are within 4 % of each other. The bulk copies
-// stay because they cost no registers and no address arithmetic in the threads that
-// add.
+// cp.async copies into the same ring and __ldg loads with no ring measured within 4 %
+// of each other. The bulk copies stay because they cost no registers and no address
+// arithmetic in the threads that add.
 //
 // What the design does about it:
 // - One launch per call (after a memset of the B / rb sums). A persistent grid of
@@ -43,11 +43,10 @@
 //   parity r & 1), add the stage up from shared memory and release it through a
 //   second mbarrier (one arrival per warp; the producer waits for parity (r & 1) ^ 1,
 //   which passes at once in round 0). A block keeps (P1_STAGES - 1) x 2 x P1_TILE
-//   bytes in flight: 96 KB per SM at the defaults, four times the 25 KB above. No
-//   thread spends registers or address arithmetic on the copies. The mbarrier's
-//   completion makes the copied bytes visible to the consumers; the release and
-//   acquire of the second mbarrier order their reads before the next copy into the
-//   stage.
+//   bytes in flight: 96 KB per SM, four times the 25 KB above. No thread spends
+//   registers or address arithmetic on the copies. The mbarrier's completion makes
+//   the copied bytes visible to the consumers; the release and acquire of the second
+//   mbarrier order their reads before the next copy into the stage.
 // - out has few owners: its rb * H rows are the same slots of every chunk, so the
 //   consumer threads of the grid share its 16-byte vectors among themselves, each
 //   reading its vector of every chunk straight from device memory (B * H * D * T /
@@ -56,42 +55,17 @@
 //   no atomics, no finish kernel. They do it while the first copies are in flight.
 // - sums is added with one atomic per block and row block, in an order that changes
 //   from run to run: it is fp32 to about 1e-7 of the summed magnitudes, not bit-stable.
-//
-// Builds for measurement (scripts/decode_variants.py; the wrapper uses the default):
-// ZT_P1_COPY 1 fills the same ring with cp.async 16-byte copies made by every
-// consumer thread, 2 loads with __ldg into registers with no ring; ZT_P1_SKIP leaves
-// parts out and gives wrong answers by design (1: the staged bytes are never read, 2:
-// no out, 4: no memset).
 #include "common.cuh"
-
-#ifndef ZT_P1_COPY
-#define ZT_P1_COPY 0
-#endif
-#ifndef ZT_P1_TILE
-#define ZT_P1_TILE 8192
-#endif
-#ifndef ZT_P1_STAGES
-#define ZT_P1_STAGES 4
-#endif
-#ifndef ZT_P1_BLOCKS_PER_SM
-#define ZT_P1_BLOCKS_PER_SM 2
-#endif
-#ifndef ZT_P1_SKIP
-#define ZT_P1_SKIP 0
-#endif
 
 namespace zt {
 
-constexpr int P1_COPY = ZT_P1_COPY;        // 0: bulk asynchronous copies, 1: cp.async, 2: __ldg
-constexpr int P1_TILE = ZT_P1_TILE;        // bytes of k and of v per tile (a multiple of 16)
-constexpr int P1_STAGES = ZT_P1_STAGES;    // ring depth
-constexpr int P1_BLOCKS_PER_SM = ZT_P1_BLOCKS_PER_SM;
-constexpr int P1_SKIP = ZT_P1_SKIP;
+constexpr int P1_TILE = 8192;  // bytes of k and of v per tile (a multiple of 16)
+constexpr int P1_STAGES = 4;   // ring depth
+constexpr int P1_BLOCKS_PER_SM = 2;
 constexpr int P1_CONSUMERS = 256;
 constexpr int P1_WARPS = P1_CONSUMERS / 32;
-constexpr int P1_THREADS = P1_CONSUMERS + (P1_COPY == 0 ? 32 : 0);  // and the producer warp
-[[maybe_unused]] constexpr int P1_UNROLL = 4;  // __ldg build: 16-byte loads of k and of v in flight per thread
-constexpr int P1_RING_BYTES = P1_COPY == 2 ? 0 : P1_STAGES * 2 * P1_TILE;
+constexpr int P1_THREADS = P1_CONSUMERS + 32;  // and the producer warp
+constexpr int P1_RING_BYTES = P1_STAGES * 2 * P1_TILE;
 static_assert(P1_TILE % 16 == 0 && P1_STAGES >= 2, "tiles are whole 16-byte vectors; the ring needs two stages");
 
 __device__ __forceinline__ void unpack(const uint4& u, float (&x)[4]) {
@@ -151,76 +125,52 @@ __global__ void __launch_bounds__(P1_THREADS, P1_BLOCKS_PER_SM)
     bytes = (int)min((long long)P1_TILE, rbb - in);
   };
 
-  if constexpr (P1_COPY == 0) {
-    if (tid == 0) {
-      for (int s = 0; s < P1_STAGES; ++s) {
-        mbar_init(&full[s], 1);          // the producer's arrival, with the bytes it expects
-        mbar_init(&empty[s], P1_WARPS);  // one arrival per consumer warp
-      }
-      mbar_init_fence();
+  if (tid == 0) {
+    for (int s = 0; s < P1_STAGES; ++s) {
+      mbar_init(&full[s], 1);          // the producer's arrival, with the bytes it expects
+      mbar_init(&empty[s], P1_WARPS);  // one arrival per consumer warp
     }
-    __syncthreads();
-    if (warp == P1_WARPS) {  // the producer warp: one lane starts every copy of the block
-      if (lane == 0) {
-        for (int it = 0; it < cnt; ++it) {
-          const int s = it % P1_STAGES;
-          mbar_wait(&empty[s], ((it / P1_STAGES) & 1) ^ 1);
-          int bb, bytes;
-          long long off;
-          tile(it, bb, off, bytes);
-          mbar_arrive_expect_tx(&full[s], 2 * bytes);
-          bulk_copy_g2s(ring + (size_t)s * 2 * P1_TILE, kb + off, bytes, &full[s]);
-          bulk_copy_g2s(ring + (size_t)s * 2 * P1_TILE + P1_TILE, vb + off, bytes, &full[s]);
-        }
-      }
-      return;
-    }
+    mbar_init_fence();
   }
-
-  // cp.async build: every consumer thread copies its vectors of tile `it` into stage
-  // it % P1_STAGES; one group per call, empty past the last tile
-  auto stage_tile = [&](int it) {
-    if (it < cnt) {
-      int bb, bytes;
-      long long off;
-      tile(it, bb, off, bytes);
-      unsigned char* dst = ring + (size_t)(it % P1_STAGES) * 2 * P1_TILE;
-      for (int i = tid * 16; i < bytes; i += P1_CONSUMERS * 16) {
-        cp_async16(dst + i, kb + off + i);
-        cp_async16(dst + P1_TILE + i, vb + off + i);
+  __syncthreads();
+  if (warp == P1_WARPS) {  // the producer warp: one lane starts every copy of the block
+    if (lane == 0) {
+      for (int it = 0; it < cnt; ++it) {
+        const int s = it % P1_STAGES;
+        mbar_wait(&empty[s], ((it / P1_STAGES) & 1) ^ 1);
+        int bb, bytes;
+        long long off;
+        tile(it, bb, off, bytes);
+        mbar_arrive_expect_tx(&full[s], 2 * bytes);
+        bulk_copy_g2s(ring + (size_t)s * 2 * P1_TILE, kb + off, bytes, &full[s]);
+        bulk_copy_g2s(ring + (size_t)s * 2 * P1_TILE + P1_TILE, vb + off, bytes, &full[s]);
       }
     }
-    cp_async_commit();
-  };
-  if constexpr (P1_COPY == 1) {
-#pragma unroll
-    for (int i = 0; i < P1_STAGES - 1; ++i) stage_tile(i);
+    return;
   }
 
   // out: vector i is dims dv * EPV .. of flattened row f of row block bb; row f is
   // slot s of (row r, kv head h) of the row block in every chunk
-  if constexpr (!(P1_SKIP & 2)) {
-    const int vpr = D / EPV, rows = rb * H, nc = Tlen / chunk;
-    for (long long i = (long long)blockIdx.x * P1_CONSUMERS + tid; i < nout; i += (long long)gridDim.x * P1_CONSUMERS) {
-      const int dv = (int)(i % vpr);
-      const long long fr = i / vpr;
-      const int f = (int)(fr % rows), bb = (int)(fr / rows);
-      const int s = f % chunk, rh = f / chunk;
-      const int h = rh % Hkv, r = rh / Hkv;
-      const long long base = ((((long long)bb * rb + r) * Hkv + h) * Tlen + s) * D + dv * EPV;
-      float a[EPV] = {};
+  const int vpr = D / EPV, rows = rb * H, nc = Tlen / chunk;
+  for (long long i = (long long)blockIdx.x * P1_CONSUMERS + tid; i < nout; i += (long long)gridDim.x * P1_CONSUMERS) {
+    const int dv = (int)(i % vpr);
+    const long long fr = i / vpr;
+    const int f = (int)(fr % rows), bb = (int)(fr / rows);
+    const int s = f % chunk, rh = f / chunk;
+    const int h = rh % Hkv, r = rh / Hkv;
+    const long long base = ((((long long)bb * rb + r) * Hkv + h) * Tlen + s) * D + dv * EPV;
+    float a[EPV] = {};
 #pragma unroll 4
-      for (int c = 0; c < nc; ++c) {
-        const long long e0 = base + (long long)c * chunk * D;
-        float kx[EPV], vx[EPV];
-        unpack(__ldg(reinterpret_cast<const uint4*>(k + e0)), kx);
-        unpack(__ldg(reinterpret_cast<const uint4*>(v + e0)), vx);
+    for (int c = 0; c < nc; ++c) {
+      const long long e0 = base + (long long)c * chunk * D;
+      float kx[EPV], vx[EPV];
+      unpack(__ldg(reinterpret_cast<const uint4*>(k + e0)), kx);
+      unpack(__ldg(reinterpret_cast<const uint4*>(v + e0)), vx);
 #pragma unroll
-        for (int e = 0; e < EPV; ++e) a[e] += kx[e] + vx[e];
-      }
-#pragma unroll
-      for (int e = 0; e < EPV; ++e) out[i * EPV + e] = from_f<OT>(a[e]);
+      for (int e = 0; e < EPV; ++e) a[e] += kx[e] + vx[e];
     }
+#pragma unroll
+    for (int e = 0; e < EPV; ++e) out[i * EPV + e] = from_f<OT>(a[e]);
   }
 
   float total = 0.f;
@@ -248,46 +198,15 @@ __global__ void __launch_bounds__(P1_THREADS, P1_BLOCKS_PER_SM)
       cur = bb;
     }
     const int s = it % P1_STAGES;
-    if constexpr (P1_COPY == 2) {
-      const uint4* kt = reinterpret_cast<const uint4*>(kb + off);
-      const uint4* vt = reinterpret_cast<const uint4*>(vb + off);
-      const int nvec = bytes / 16;
-      for (int i0 = tid; i0 < nvec; i0 += P1_CONSUMERS * P1_UNROLL) {
-        uint4 kr[P1_UNROLL], vr[P1_UNROLL];
-#pragma unroll
-        for (int u = 0; u < P1_UNROLL; ++u) {
-          const int i = i0 + u * P1_CONSUMERS;
-          if (i < nvec) {
-            kr[u] = __ldg(kt + i);
-            vr[u] = __ldg(vt + i);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < P1_UNROLL; ++u)
-          if (i0 + u * P1_CONSUMERS < nvec) total += vec_sum<EPV>(kr[u], vr[u]);
-      }
-    } else {
-      if constexpr (P1_COPY == 0) {
-        mbar_wait(&full[s], (it / P1_STAGES) & 1);
-      } else {
-        cp_async_wait<P1_STAGES - 2>();
-        consumer_sync();  // tile `it` is in; every thread is done with tile it - 1's stage
-        stage_tile(it + P1_STAGES - 1);
-      }
-      if constexpr (!(P1_SKIP & 1)) {
-        const uint4* kt = reinterpret_cast<const uint4*>(ring + (size_t)s * 2 * P1_TILE);
-        const uint4* vt = reinterpret_cast<const uint4*>(ring + (size_t)s * 2 * P1_TILE + P1_TILE);
-        const int nvec = bytes / 16;
+    mbar_wait(&full[s], (it / P1_STAGES) & 1);
+    const uint4* kt = reinterpret_cast<const uint4*>(ring + (size_t)s * 2 * P1_TILE);
+    const uint4* vt = reinterpret_cast<const uint4*>(ring + (size_t)s * 2 * P1_TILE + P1_TILE);
+    const int nvec = bytes / 16;
 #pragma unroll 2
-        for (int i = tid; i < nvec; i += P1_CONSUMERS) total += vec_sum<EPV>(kt[i], vt[i]);
-      }
-      if constexpr (P1_COPY == 0) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[s]);
-      }
-    }
+    for (int i = tid; i < nvec; i += P1_CONSUMERS) total += vec_sum<EPV>(kt[i], vt[i]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
-  if constexpr (P1_COPY == 1) cp_async_wait<0>();
   if (cur >= 0) flush();
 }
 
@@ -309,9 +228,7 @@ static int launch_stream(const void* k, const void* v, float* sums, void* out, i
     smem_allowed = P1_RING_BYTES;
   }
   const int nb = B / rb;
-  if (!(P1_SKIP & 4)) {
-    if ((e = cudaMemsetAsync(sums, 0, sizeof(float) * nb, stream)) != cudaSuccess) return static_cast<int>(e);
-  }
+  if ((e = cudaMemsetAsync(sums, 0, sizeof(float) * nb, stream)) != cudaSuccess) return static_cast<int>(e);
   const long long rbb = (long long)rb * Hkv * T * D * (long long)sizeof(KT);
   const long long tpb = (rbb + P1_TILE - 1) / P1_TILE;
   if (tpb > 0x7fffffffLL) return ZT_UNSUPPORTED;
@@ -323,15 +240,6 @@ static int launch_stream(const void* k, const void* v, float* sums, void* out, i
 }
 
 }  // namespace zt
-
-// How this build streams: 0 the copy (0 bulk asynchronous, 1 cp.async, 2 __ldg), 1 the
-// tile's bytes of k and of v, 2 the ring's stages, 3 the blocks per SM, 4 the parts
-// left out (0 in the build the wrapper uses).
-extern "C" int zt_probe_stream_plan(int what) {
-  using namespace zt;
-  const int plan[5] = {P1_COPY, P1_TILE, P1_STAGES, P1_BLOCKS_PER_SM, P1_SKIP};
-  return what >= 0 && what < 5 ? plan[what] : ZT_UNSUPPORTED;
-}
 
 // k/v (B, Hkv, T, D) contiguous and 16-byte aligned, of the dtype kv_dtype, rows whole
 // 16-byte vectors; sums (B / rb,) fp32 (cleared here); out (B, H, D) contiguous in

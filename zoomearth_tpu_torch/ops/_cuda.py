@@ -55,17 +55,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libzt_kernels_{h.hexdigest()[:16]}.so"
 
 
-def compile_library(path: Path, csrc: Path = CSRC, extra_flags=(), units=None) -> None:
-    """Compile the sources under `csrc` (all of SOURCES, or the `units` named) into
-    the shared library `path`: one nvcc per source, all at once, then one link. The library is linked in a temporary
+def compile_library(path: Path, csrc: Path = CSRC) -> None:
+    """Compile the sources under `csrc` into the shared library `path`: one nvcc per
+    source, all at once, then one link. The library is linked in a temporary
     directory and renamed into place, so concurrent builders never load a
     half-written file. The compiler's output (ptxas register and spill counts) is
     kept beside it as `<library>.log`."""
     path.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=path.parent) as work:
-        units = [s for s in (units or SOURCES) if s.endswith(".cu")]
+        units = [s for s in SOURCES if s.endswith(".cu")]
         objs = [os.path.join(work, s[:-3] + ".o") for s in units]
-        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, *extra_flags, "-c", "-o", o, str(csrc / s)],
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(csrc / s)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for s, o in zip(units, objs)]
         logs = [p.communicate()[0] for p in procs]
@@ -105,24 +105,21 @@ _SIGNATURES = {
     "zt_decode_split_tile": [],
     "zt_paged_decode": [_P] * 7 + [_I] * 8 + [_L] * 4 + [_F, _I, _P],
     "zt_probe_stream": [_P] * 4 + [_I] * 7 + [_I, _I, _P],
-    "zt_probe_stream_plan": [_I],
     "zt_probe_bigmm": [_P] * 7 + [_I] * 8 + [_F, _P],
 }
 
 
-def load_library(path: Path, only=None) -> ctypes.CDLL:
+def load_library(path: Path) -> ctypes.CDLL:
     """Load a kernel library and declare the C signatures of the entry points it has
-    (`only`: the names to declare, for a library built from other sources, whose
-    other entry points may take other arguments)."""
+    (a library built from an older tree's sources may lack the newer ones)."""
     handle = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
-        if (only is None or name in only) and hasattr(handle, name):
+        if hasattr(handle, name):
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    if hasattr(handle, "zt_error_string"):  # lives in flash_segment.cu, which a partial build may leave out
-        handle.zt_error_string.argtypes = [ctypes.c_int]
-        handle.zt_error_string.restype = ctypes.c_char_p
+    handle.zt_error_string.argtypes = [ctypes.c_int]
+    handle.zt_error_string.restype = ctypes.c_char_p
     return handle
 
 
@@ -137,8 +134,7 @@ def lib() -> ctypes.CDLL:
 def check(rc: int, name: str) -> None:
     """Raise if a kernel entry point reported a failed or refused launch."""
     if rc != 0:
-        describe = getattr(lib(), "zt_error_string", None)
-        msg = describe(rc).decode() if describe else "no description in this build"
+        msg = lib().zt_error_string(rc).decode()
         raise RuntimeError(f"{name}: launch failed with code {rc}: {msg}")
 
 

@@ -18,9 +18,7 @@ cache: `flush_l2` writes a buffer of 2.5x the H100's 50 MB L2 before it. Per cal
 the flush runs and is waited for before the start event. On the device, each call
 in a graph follows its own flush, a graph of the flushes alone is timed in the same
 turns, and its time is taken off. A written flush leaves the L2 full of modified
-lines, which the timed call's reads push out to device memory as they come in;
-`flush_l2_by_reading` reads the buffer instead and leaves lines that are dropped for
-nothing. `time_in_turns(fns, flush=...)` takes either.
+lines, which the timed call's reads push out to device memory as they come in.
 """
 
 from __future__ import annotations
@@ -74,22 +72,11 @@ def release_flush_buffer() -> None:
     _flush_buf = None
 
 
-def flush_l2_by_reading() -> None:
-    """Evict the L2 cache with lines that need no write-back: read the flush buffer
-    (one reduction over L2_FLUSH_BYTES on the current CUDA device)."""
-    import torch
-
-    global _flush_buf
-    if _flush_buf is None:
-        _flush_buf = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    _flush_buf.view(torch.int32).max()
-
-
-def cuda_timer(fn, flush=flush_l2) -> float:
+def cuda_timer(fn) -> float:
     """ms of one call of fn on the current CUDA stream, L2 cold (events, synchronized)."""
     import torch
 
-    flush()
+    flush_l2()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
@@ -99,12 +86,12 @@ def cuda_timer(fn, flush=flush_l2) -> float:
     return a.elapsed_time(b)
 
 
-def cuda_graph(fn, reps: int, flush=flush_l2):
+def cuda_graph(fn, reps: int):
     """`reps` back-to-back calls of fn, each after an L2 flush, captured in one CUDA
     graph after one warm-up call on a side stream. fn must not synchronize with the host."""
     import torch
 
-    flush()
+    flush_l2()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -113,17 +100,16 @@ def cuda_graph(fn, reps: int, flush=flush_l2):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         for _ in range(reps):
-            flush()
+            flush_l2()
             fn()
     return graph
 
 
-def time_in_turns(fns, flush=flush_l2):
+def time_in_turns(fns):
     """(ms per call with CUDA events around each call, device ms per call from CUDA
-    graph replays less the flushes), each the median of RUNS in turns, L2 cold
-    (`flush` before every call: flush_l2, or flush_l2_by_reading)."""
-    ms = medians_in_turns(fns, lambda fn: cuda_timer(fn, flush))
+    graph replays less the flushes), each the median of RUNS in turns, L2 cold."""
+    ms = medians_in_turns(fns, cuda_timer)
     reps = max(1, min(MAX_REPS, int(GRAPH_MS / max(ms))))
-    graphs = [cuda_graph(fn, reps, flush) for fn in [lambda: None, *fns]]
-    flush_ms, *dev = medians_in_turns([g.replay for g in graphs], lambda replay: cuda_timer(replay, flush))
+    graphs = [cuda_graph(fn, reps) for fn in [lambda: None, *fns]]
+    flush_ms, *dev = medians_in_turns([g.replay for g in graphs], cuda_timer)
     return ms, [(t - flush_ms) / reps for t in dev]
