@@ -4,7 +4,8 @@ the program keeps in it.
 On the CPU: off, the tracer records nothing, creates no CUDA event and hands out one
 shared no-op span; two tiny-config `run_episodes_pipelined` runs, tracer off and on,
 give the same episodes, and the traced one holds every span of the episode's host
-preparation and of the Generator, each nested in its caller's; `image.resize_src_px`
+preparation and of the Generator, each nested in its caller's, the host preparation
+outside the device calls but for the stage 1 built ahead; `image.resize_src_px`
 counts the source pixels of the resizes that resample and nothing else; `stop()` keeps
 the records and `start()` clears them; counters and spans from many threads lose
 nothing; `trace(dir)` writes the tracer's spans into the Chrome trace, placed among the
@@ -133,7 +134,7 @@ def test_the_tracer_records_every_span_nested_in_its_callers(episodes):
     _, (_, steps), spans, _, device, _ = episodes
     names = {n for n, _, _, _ in spans}
     assert names == set(HOST_PREP) | set(PARENTS) | {"episode.stage1_inputs", "episode.stage2_inputs", "prefill",
-                                                     "chunk_prefill", "decode"}
+                                                     "chunk_prefill", "decode", "episode.stage1_wait"}
     assert device == []  # on the CPU a device span is a host span only
     by = {n: [s for s in spans if s[0] == n] for n in names}
     for child, parents in PARENTS.items():
@@ -150,16 +151,23 @@ def test_the_tracer_records_every_span_nested_in_its_callers(episodes):
     assert len(by["episode.stage1_inputs"]) == len(by["episode.stage2_inputs"]) == 3
     assert len(by["prefill"]) == 3 and len(by["chunk_prefill"]) == 3
     assert len(by["graph.step"]) == sum(steps.values())  # one run of the step a decode step
-    # the host preparation lies outside the device calls
+    # the host preparation lies outside the device calls, but for waves 1 and 2's stage 1, built ahead on the
+    # prefetch thread while the device runs the wave before
     device_calls = by["prefill"] + by["chunk_prefill"] + by["decode"]
-    assert not [s for n in HOST_PREP for s in by[n] if _inside(s, device_calls, same_thread=False)]
+    caller = by["prefill"][0][3]
+    ahead = [s for s in by["episode.stage1_inputs"] if s[3] != caller]
+    assert len(ahead) == 2 and len(by["episode.stage1_wait"]) == 2
+    assert all(s[3] == caller for s in by["episode.stage1_wait"] + by["episode.stage2_inputs"])
+    assert not [s for n in HOST_PREP for s in by[n]
+                if _inside(s, device_calls, same_thread=False) and not _inside(s, ahead, same_thread=False)]
 
 
 def test_the_resize_counter_is_the_source_pixels_of_the_resamples(episodes):
     _, _, spans, counters, _, tiles = episodes
     # stage 1 shrinks each tile to 512 px (a 512 x 300 tile is left as it is); the crops are 512 px windows
     resized = [t for t in tiles if max(t.size) > 512]
-    assert counters == {"image.resize_src_px": sum(t.width * t.height for t in resized), "episode.prep_pooled": 12}
+    assert counters == {"image.resize_src_px": sum(t.width * t.height for t in resized), "episode.prep_pooled": 12,
+                        "episode.stage1_prefetched": 2}
     assert sum(n == "image.resize" for n, _, _, _ in spans) == len(resized) == 5
     # the rule on its own: (size, max_size, min_side) -> resampled?
     cases = [((900, 600), 512, None, True), ((300, 200), 512, None, False), ((512, 512), 512, None, False),

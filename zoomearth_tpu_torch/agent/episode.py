@@ -6,7 +6,9 @@ assistant turn, and stage 2 produces the final <answer>. Stage 2 either re-prefi
 the stitched two-image prompt (reuse_cache=False, the eval default) or continues
 from the stage-1 KV cache with a chunk prefill of the crop's tokens
 (reuse_cache=True). run_episodes_pipelined runs a stream of equal-size waves with
-reuse_cache semantics through the pair-pipelined runner (runtime/pipeline.py).
+reuse_cache semantics through the pair-pipelined runner (runtime/pipeline.py), and
+builds each next wave's stage-1 inputs on a host thread while the device runs the
+current one.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -59,6 +61,7 @@ def split_kept_tokens(tokenizer, completion_tokens: List[int], pre_answer_text: 
 
 
 _pool: Optional[ThreadPoolExecutor] = None  # the process's preparation threads, made at first use
+_prefetch: Optional[ThreadPoolExecutor] = None  # the thread that builds next waves' stage 1, made at first use
 _pool_lock = threading.Lock()
 
 
@@ -85,6 +88,14 @@ def _prep_map(fn, items):
         out = list(pool.map(fn, items))
     tracer.count("episode.prep_pooled", len(items))
     return out
+
+
+def _prefetch_thread() -> ThreadPoolExecutor:
+    global _prefetch
+    with _pool_lock:
+        if _prefetch is None:
+            _prefetch = ThreadPoolExecutor(1, thread_name_prefix="episode-stage1")
+        return _prefetch
 
 
 def _stage1_inputs(generator, processor, questions, images, stage1_max_size):
@@ -211,28 +222,49 @@ def run_episodes_pipelined(
 
     Same semantics as run_episodes(reuse_cache=True) per wave, but wave n's stage-1
     decode runs CO-BATCHED with wave n-1's stage-2 decode, one dense pass per step for
-    both (runtime.pipeline.run_paired_waves): the batch-eval throughput configuration."""
+    both (runtime.pipeline.run_paired_waves): the batch-eval throughput configuration.
+
+    Wave w+1's stage 1 (its loader and `_stage1_inputs`: host work and numpy only) is
+    built on one prefetch thread while the device runs wave w: wave 1's as soon as wave
+    0's is built inline, wave w+1's once wave w-1's stage 2 is prepared, so its images
+    do not queue on the preparation pool ahead of that stage 2's crops, and at most two
+    waves of full-resolution images are alive. The runner's wait for a prefetched build
+    is traced as `episode.stage1_wait`, and the waves built ahead are counted in
+    `episode.stage1_prefetched`. A build that raises raises here when its wave is
+    reached; no build is left running when the call returns or raises."""
     from ..runtime.pipeline import run_paired_waves
 
     state: dict = {}
+    ahead: dict = {}  # wave -> its stage-1 build submitted to the prefetch thread
     out: List[Optional[List[EpisodeResult]]] = [None] * len(waves)
 
-    def build_stage1(w):
+    def stage1(w):
         entry = waves[w]
         questions, images = entry() if callable(entry) else entry
-        texts, resized, scales, encoded, batch = _stage1_inputs(
-            generator, processor, questions, images, stage1_max_size
-        )
-        state[w] = (questions, images, texts, resized, scales, encoded, batch)
-        return batch
+        return (questions, images) + _stage1_inputs(generator, processor, questions, images, stage1_max_size)
+
+    def prefetch(w):
+        if w < len(waves):
+            ahead[w] = _prefetch_thread().submit(stage1, w)
+
+    def build_stage1(w):
+        if w in ahead:
+            with tracer.span("episode.stage1_wait"):
+                state[w] = ahead.pop(w).result()
+            tracer.count("episode.stage1_prefetched")
+        else:  # wave 0: built here, and wave 1's build starts at once
+            state[w] = stage1(w)
+            prefetch(w + 1)
+        return state[w][-1]
 
     def build_stage2(w, out1, base_lengths, base_next):
-        questions, images, texts, resized, scales, encoded, batch = state[w]
+        # (questions, images, texts, resized, scales, encoded, batch): popped, so no name here
+        # keeps wave w's images alive once its crops are cut
         results, bc, keep, inert, s2_idx = _stage2_continuation(
-            generator, processor, questions, images, texts, resized, scales,
-            encoded, batch, out1, crop_min_size, crop_max_size,
+            generator, processor, *state.pop(w), out1, crop_min_size, crop_max_size,
         )
         state[w] = (results, s2_idx)
+        prefetch(w + 2)
         return bc, keep, inert
 
     def on_complete(w, out1, out2):
@@ -244,10 +276,15 @@ def run_episodes_pipelined(
                 results[i] = dataclasses.replace(results[i], stage2=text2, answer2=extract_answer(text2))
         out[w] = results
 
-    run_paired_waves(
-        generator, len(waves), build_stage1, build_stage2,
-        gen1=gen, gen2=stage2_gen or gen, seed=seed, on_complete=on_complete,
-    )
+    try:
+        run_paired_waves(
+            generator, len(waves), build_stage1, build_stage2,
+            gen1=gen, gen2=stage2_gen or gen, seed=seed, on_complete=on_complete,
+        )
+    finally:  # the runner raised before it reached a prefetched wave: end that build first
+        for f in ahead.values():
+            f.cancel()
+        wait(ahead.values())
     return out  # type: ignore[return-value]
 
 
