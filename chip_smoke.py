@@ -51,6 +51,12 @@ identical (`eager_and_captured`; the engine's chunks through whole engine runs i
    scaled_dot_product_attention call (its forward included: the backward needs it);
    then, untimed, the backward kernels at segments of 16-64 rows, a boundary inside a
    block, S no multiple of 32 or 128, and a K2 row with kv_len 0 (zero gradients).
+   Last, untimed at MiMo-V2.5's cell's shapes (zoomearth_tpu_torch/scripts/time_hybrid_attention.py times
+   them): K6 (decode at key width 192 and value width 128, B = 96 over the [:, :, :1280]
+   view of a 1536-slot cache, kv_len 1000..1280) with 8 heads a KV head, the window of
+   128 and sinks, and with 16 heads a KV head; K2 with the band and the sinks over a
+   48-row slice of the 722-token stage-1 prefill and a 48-row chunk over kept prefixes;
+   each launch counter zeroed just before them must show one launch a run.
 4. parity  — the tiny config in fp32 on the card through every kernel (K1/K2's fp32
    variants) against the CPU plain path (which the CPU tests hold against the JAX
    package): logits and greedy tokens. Then in bf16 on the card: prefill through the
@@ -278,7 +284,8 @@ kernel, then its dk/dv kernel, and its launches are the training phase's; the
 `launches_parallel` the parallel phase's ranks' together, the `launches_split_prefill` of K2
 and K3 the split-prefill phase's, the
 `launches_internvl` of K2 and K3 the InternVL phase's, the `launches_kimi` of K1, K2 and
-K5 the Kimi-VL phase's); the last is the device contract line.
+K5 the Kimi-VL phase's; K6's entry holds its untimed checks alone); the last is the device
+contract line.
 """
 
 from __future__ import annotations
@@ -533,6 +540,61 @@ def check_kimi_kernels(card, randn):
     return {"flash_mla_decode": [e5], "flash_causal_attention": e2, "flash_segment_attention": [e1]}
 
 
+def check_mimo_kernels(randn):
+    """MiMo-V2.5's attention kernels against their plain versions at its cell's shapes,
+    untimed (zoomearth_tpu_torch/scripts/time_hybrid_attention.py times them): K6 over a wave's stage-2
+    decode (B=96, attend 1280 of T=1536, kv_len 1000..1280) with 8 heads a KV head, the
+    window of 128 and sinks, and with 16 heads a KV head; K2 with the band and the sinks
+    over a 48-row slice of the 722-token stage-1 prefill and a 48-row stage-2 chunk over
+    kept prefixes of 722..882 slots. Each kernel's launch counter is zeroed just before
+    its runs and must show one launch a run. Returns {kernel name: [checks]}."""
+    import torch
+
+    from zoomearth_tpu_torch.ops import flash_causal as K2
+    from zoomearth_tpu_torch.ops import flash_gqa_decode as K6
+
+    dev = torch.device("cuda")
+    H, window = 64, 128
+    sink = (randn(H).float() * 2).contiguous()
+    # K6: one wave's stage-2 decode over the cache's attend 1280 prefix view
+    B, T, A = 96, 1536, 1280
+    kvl = torch.linspace(1000, A, B, device=dev).round().to(torch.int32)
+    k6 = []
+    K6.gqa_decode_cuda.launches = 0
+    for Hkv, win, s in ((8, window, sink), (4, 0, None)):
+        q = randn(B, H, 192)
+        kv = randn(B, Hkv, T, 320)
+        k, v = kv[:, :, :A, :192], kv[:, :, :A, 192:]
+        out = K6.gqa_decode_cuda(q, k, v, kvl, 192 ** -0.5, win, s)
+        ref = K6.flash_gqa_decode_plain(q, k, v, kvl, 192 ** -0.5, win, s)
+        form = f"{H // Hkv} heads a KV head" + (f", window {win} and sinks" if win else "")
+        k6.append(edge_check(f"K6 {form}, B={B} attend {A} of T={T}, kv_len 1000..1280", out, ref))
+        del kv, out, ref
+    assert K6.gqa_decode_cuda.launches == 2, f"K6: {K6.gqa_decode_cuda.launches} launches for 2 runs"
+    # K2 banded with sinks: a 48-row slice of the stage-1 prefill (722 tokens), then a 48-row
+    # stage-2 chunk of 384 tokens over kept prefixes of 722..882 slots; the plain version 8 rows at a time
+    k2 = []
+    K2.causal_attention_cuda.launches = 0
+    K2.causal_attention_cuda.variants = dict.fromkeys(K2.causal_attention_cuda.variants, 0)
+    for label, B, S, lo, hi in (("prefill B=48 S=722", 48, 722, 0, 0),
+                                ("chunk B=48 S=384, kept 722..882", 48, 384, 722, 882)):
+        q = randn(B, S, H, 192)
+        kv = randn(B, 8, T, 320)
+        k, v = kv[..., :192], kv[..., 192:]
+        keep = torch.linspace(lo, hi, B, device=dev).round().long()
+        pos = keep[:, None] + torch.arange(S, device=dev)[None]
+        kl = (keep + S).to(torch.int32)
+        out = K2.causal_attention_cuda(q, k, v, pos, kl, window=window, sink=sink)
+        ref = torch.cat([K2.band_sink_attention_plain(q[r:r + 8], k[r:r + 8], v[r:r + 8], pos[r:r + 8], kl[r:r + 8],
+                                                      window, sink) for r in range(0, B, 8)])
+        k2.append(edge_check(f"K2 band {window} and sinks, {label}, T={T}, 64 heads over 8", out, ref))
+        del q, kv, out, ref
+    ran = dict(K2.causal_attention_cuda.variants)
+    assert K2.causal_attention_cuda.launches == 2 and ran == {"mma": 2, "fma": 0}, f"K2 band checks ran {ran}"
+    log(f"  launches since zeroed: K6 {K6.gqa_decode_cuda.launches}, K2 {ran}")
+    return {"flash_gqa_decode": k6, "flash_causal_attention": k2}
+
+
 def check_kernels(card):
     """Each kernel against its plain version at main-path shapes; returns ({kernel
     name: (source, TPU kernel it replaces, [case rows])}, {kernel name: untimed checks})."""
@@ -679,9 +741,14 @@ def check_kernels(card):
     for name, cases in {**forwards, **{n: b[2] for n, b in backwards.items()}}.items():
         rows[name][2].extend(cases)
     log("[kernels] untimed checks where the kernels have edges")
-    return rows, {"flash_segment_attention": check_k1_edges(randn),
-                  "flash_causal_attention": check_k2_edges(randn, int8, scales) + check_k2_int8_chunk(randn, cache8),
-                  "flash_decode_attention": check_k3_edges(randn, int8, scales), **check_bwd_edges(randn)}
+    untimed = {"flash_segment_attention": check_k1_edges(randn),
+               "flash_causal_attention": check_k2_edges(randn, int8, scales) + check_k2_int8_chunk(randn, cache8),
+               "flash_decode_attention": check_k3_edges(randn, int8, scales), **check_bwd_edges(randn)}
+    log("[kernels] MiMo-V2.5, untimed at its cell's shapes: K6 at 8 heads a KV head with the window and sinks and "
+        "at 16, K2 with the band and sinks")
+    mimo = check_mimo_kernels(randn)
+    untimed["flash_causal_attention"] += mimo.pop("flash_causal_attention")
+    return rows, {**untimed, **mimo}
 
 
 def assert_scale_views_as_is(ks, vs):
@@ -897,7 +964,12 @@ SFT_TOKENS = 2048
 BWD_NOTE = ("no TPU counterpart: the reference's Pallas kernel has no VJP (jax.grad through its pallas_call raises "
             "NotImplementedError), so the JAX package trains through XLA's autodiff of the plain attention")
 NOTES = {"flash_mla_decode": "no TPU counterpart: the JAX package has no latent attention (Kimi-VL runs in the port "
-                             "alone), so the CPU tests hold K5's plain version against the plain fp32 reference"}
+                             "alone), so the CPU tests hold K5's plain version against the plain fp32 reference",
+         "flash_gqa_decode": "no TPU counterpart: the JAX package has no window, sinks or 192 / 128 heads (MiMo-V2.5 "
+                             "runs in the port alone), so the CPU tests hold K6's plain version against the plain "
+                             "fp32 reference; untimed here, timed by "
+                             "zoomearth_tpu_torch/scripts/time_hybrid_attention.py"}
+UNTIMED_ONLY = {"flash_gqa_decode": "zoomearth_tpu_torch/csrc/flash_gqa_decode.cu"}  # kernels the smoke checks, untimed
 
 
 def check_training_kernels(card, randn, heads=(16, 16, 2)):
@@ -4403,6 +4475,10 @@ def main(argv=()) -> int:
             "cases": cases,
             **({"untimed_checks": checks} if checks else {}),
         })
+    for name, source in UNTIMED_ONLY.items():  # checked here, timed by its own script
+        checks = untimed[name]
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": None, "note": NOTES[name],
+                        "max_abs_err": max(c["max_abs_err"] for c in checks), "untimed_checks": checks})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Optional, Sequence
+from typing import ClassVar, Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +69,16 @@ class TextConfig:
     # M-RoPE: how many rotary freq pairs go to (temporal, height, width).
     # Mirrors reference modeling_qwen2_vl.py:985-1100 (get_rope_index) semantics.
     mrope_section: Sequence[int] = (16, 24, 24)
+
+    # the module of models/ that runs a layer's attention (None: models/decoder.py's GQA)
+    attention_kind: ClassVar[Optional[str]] = None
+
+    def layer_attention(self, i: int):
+        """The config layer i's attention runs by (every layer: this one)."""
+        return self
+
+    def is_moe_layer(self, i: int) -> bool:
+        return False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -407,6 +417,12 @@ class KimiTextConfig:
                 f"(q_lora_rank={self.q_lora_rank}, scoring_func={self.scoring_func!r}, topk_method="
                 f"{self.topk_method!r}, n_group={self.n_group}, topk_group={self.topk_group})")
 
+    attention_kind: ClassVar[str] = "mla"  # models/mla.py
+    experts_held: ClassVar[Optional[Tuple[int, int]]] = None  # every routed expert on this device
+
+    def layer_attention(self, i: int):
+        return self
+
     def is_moe_layer(self, i: int) -> bool:
         return i >= self.first_k_dense_replace and i % self.moe_layer_freq == 0
 
@@ -507,11 +523,187 @@ class KimiVLConfig:
             return KimiVLConfig.from_dict(json.load(f))
 
 
+@dataclasses.dataclass(frozen=True)
+class HybridAttention:
+    """One kind of MiMo-V2.5's attention layers (models/hybrid.py): H query heads over
+    Hkv key/value heads, keys qk_head_dim and values v_head_dim wide, the 1D rotary over
+    the first rope_dim dims of q and k with its own theta; window > 0: the query at
+    position p sees the keys at p - window + 1 .. p (0: every earlier key); sink: a
+    learned logit per head that joins each row's softmax as one more column whose value
+    is 0; the heads' outputs times value_scale before the output product."""
+
+    attention_kind: ClassVar[str] = "hybrid"  # models/hybrid.py
+    num_attention_heads: int
+    num_key_value_heads: int
+    qk_head_dim: int
+    v_head_dim: int
+    rope_dim: int
+    rope_theta: float
+    window: int
+    sink: bool
+    value_scale: float
+
+
+@dataclasses.dataclass(frozen=True)
+class MiMoTextConfig:
+    """MiMo-V2.5's decoder (the MiMo-V2-Flash family): `hybrid_layer_pattern` gives each
+    layer's kind, 0 global (full causal GQA) and 1 sliding-window (with a learned sink
+    per head), each kind with its own heads, widths and rotary theta; `moe_layer_freq`
+    gives each layer's MLP, 0 a dense SwiGLU and 1 routed experts (sigmoid noaux_tc with
+    a score-correction bias, top num_experts_per_tok, no shared expert). Field names are
+    the HF config's. `experts_held` is the range of routed experts this device holds
+    (expert parallelism: the router keeps its n_routed_experts outputs, the layer
+    computes the picks that land on its own experts); None holds them all."""
+
+    vocab_size: int = 152576
+    hidden_size: int = 4096
+    intermediate_size: int = 16384
+    moe_intermediate_size: int = 2048
+    num_hidden_layers: int = 48
+    num_attention_heads: int = 64
+    num_key_value_heads: int = 4
+    head_dim: int = 192
+    v_head_dim: int = 128
+    swa_num_attention_heads: int = 64
+    swa_num_key_value_heads: int = 8
+    swa_head_dim: int = 192
+    swa_v_head_dim: int = 128
+    sliding_window: int = 128
+    hybrid_layer_pattern: Sequence[int] = (0,) + (1, 1, 1, 1, 0) + (1, 1, 1, 1, 1, 0) * 7
+    moe_layer_freq: Sequence[int] = (0,) + (1,) * 47
+    n_routed_experts: int = 256
+    num_experts_per_tok: int = 8
+    n_shared_experts: Optional[int] = None
+    routed_scaling_factor: Optional[float] = None
+    norm_topk_prob: bool = True
+    scoring_func: str = "sigmoid"
+    topk_method: str = "noaux_tc"
+    n_group: int = 1
+    topk_group: int = 1
+    partial_rotary_factor: float = 0.334
+    rope_theta: float = 10000000.0
+    swa_rope_theta: float = 10000.0
+    add_swa_attention_sink_bias: bool = True
+    add_full_attention_sink_bias: bool = False
+    attention_value_scale: float = 0.707
+    attention_bias: bool = False
+    layernorm_epsilon: float = 1e-5
+    tie_word_embeddings: bool = False
+    max_position_embeddings: int = 1048576
+    experts_held: Optional[Tuple[int, int]] = None
+
+    def __post_init__(self):
+        # what models/hybrid.py and models/moe.py compute; a config asking for another variant is refused
+        held = self.experts_held
+        if (self.scoring_func != "sigmoid" or self.topk_method != "noaux_tc" or self.n_group != 1
+                or self.topk_group != 1 or self.attention_bias or self.n_shared_experts
+                or self.add_full_attention_sink_bias
+                or len(self.hybrid_layer_pattern) < self.num_hidden_layers
+                or len(self.moe_layer_freq) < self.num_hidden_layers
+                or (held is not None and not 0 <= held[0] < held[1] <= self.n_routed_experts)):
+            raise NotImplementedError(
+                f"MiMoTextConfig: the port runs one group of sigmoid noaux_tc routing without shared experts, "
+                f"attention without bias, sinks in the window layers only, a kind and an MLP for every layer and "
+                f"a held range inside the router (add_full_attention_sink_bias={self.add_full_attention_sink_bias}, "
+                f"(scoring_func={self.scoring_func!r}, topk_method={self.topk_method!r}, n_group={self.n_group}, "
+                f"topk_group={self.topk_group}, attention_bias={self.attention_bias}, n_shared_experts="
+                f"{self.n_shared_experts}, layers {self.num_hidden_layers} with {len(self.hybrid_layer_pattern)} "
+                f"kinds and {len(self.moe_layer_freq)} MLPs, experts_held={held})")
+        kinds = (HybridAttention(self.num_attention_heads, self.num_key_value_heads, self.head_dim, self.v_head_dim,
+                                 self._rope_dim(self.head_dim), self.rope_theta, 0,
+                                 self.add_full_attention_sink_bias, self.attention_value_scale),
+                 HybridAttention(self.swa_num_attention_heads, self.swa_num_key_value_heads, self.swa_head_dim,
+                                 self.swa_v_head_dim, self._rope_dim(self.swa_head_dim), self.swa_rope_theta,
+                                 self.sliding_window, self.add_swa_attention_sink_bias, self.attention_value_scale))
+        object.__setattr__(self, "_kinds", kinds)
+
+    def _rope_dim(self, head_dim: int) -> int:
+        return int(head_dim * self.partial_rotary_factor)
+
+    @property
+    def rms_norm_eps(self) -> float:
+        return self.layernorm_epsilon
+
+    @property
+    def held(self) -> Tuple[int, int]:
+        """The routed experts this device holds, [first, end)."""
+        return tuple(self.experts_held) if self.experts_held is not None else (0, self.n_routed_experts)
+
+    def layer_attention(self, i: int) -> HybridAttention:
+        """Layer i's attention: the global kind (pattern 0) or the window kind (1)."""
+        return self._kinds[self.hybrid_layer_pattern[i]]
+
+    def is_moe_layer(self, i: int) -> bool:
+        return bool(self.moe_layer_freq[i])
+
+
+@dataclasses.dataclass(frozen=True)
+class MiMoV2Config:
+    """MiMo-V2.5 on the zoom episode: the Qwen2.5-VL vision tower (models/vit.py, a
+    stand-in until the published vision_config is known) with its output at the
+    decoder's width, the hybrid decoder (MiMoTextConfig), plain 1D positions (image
+    tokens take sequential positions), and ChatML's special ids (Qwen's layout)."""
+
+    vision: VisionConfig = dataclasses.field(default_factory=lambda: VisionConfig(out_hidden_size=4096))
+    text: MiMoTextConfig = dataclasses.field(default_factory=MiMoTextConfig)
+    tokens: SpecialTokens = dataclasses.field(default_factory=SpecialTokens)
+    dtype: str = "bfloat16"
+
+    @staticmethod
+    def tiny(vocab_size: int = 512) -> "MiMoV2Config":
+        """Tiny config for CPU tests: both attention kinds (a window of 8, sinks), key
+        width apart from value width, partial rotary, one dense and three routed layers
+        with 16 experts of which this device holds 8, fp32."""
+        vision = dataclasses.replace(VLMConfig.tiny(vocab_size).vision, out_hidden_size=64)
+        text = MiMoTextConfig(
+            vocab_size=vocab_size, hidden_size=64, intermediate_size=96, moe_intermediate_size=16,
+            num_hidden_layers=5, num_attention_heads=4, num_key_value_heads=1, head_dim=24, v_head_dim=16,
+            swa_num_attention_heads=4, swa_num_key_value_heads=2, swa_head_dim=24, swa_v_head_dim=16,
+            sliding_window=8, hybrid_layer_pattern=(0, 1, 1, 0, 1), moe_layer_freq=(0, 1, 1, 1, 1),
+            n_routed_experts=16, num_experts_per_tok=4, partial_rotary_factor=0.334, experts_held=(8, 16),
+            max_position_embeddings=4096)
+        return MiMoV2Config(vision=vision, text=text, tokens=VLMConfig.tiny(vocab_size).tokens, dtype="float32")
+
+    @staticmethod
+    def from_dict(cfg: dict) -> "MiMoV2Config":
+        """From a configuration in the benchmark's layout: the decoder's HF keys at the top
+        level, `vision_config` (Qwen2.5-VL's keys), the special ids (Qwen's key names) and
+        `expert_parallel` ({"size", "rank"}: the devices that share each routed layer and
+        this one's place; `n_routed_experts` then counts the experts held here, the router's
+        width being size x that)."""
+        rope = cfg.get("rope_scaling") or {}
+        if (cfg.get("attention_chunk_size", cfg.get("sliding_window")) != cfg.get("sliding_window")
+                or cfg.get("hybrid_block_size") is not None or rope.get("rope_type", "default") != "default"
+                or cfg.get("attention_projection_layout", "fused_qkv") != "fused_qkv"):
+            raise NotImplementedError(
+                f"MiMoV2Config: the port runs the window as the only local mask (attention_chunk_size equal to "
+                f"sliding_window), no hybrid blocks, the default rotary and the fused q | k | v product "
+                f"(attention_chunk_size={cfg.get('attention_chunk_size')}, hybrid_block_size="
+                f"{cfg.get('hybrid_block_size')}, rope_scaling={rope}, attention_projection_layout="
+                f"{cfg.get('attention_projection_layout')!r})")
+        names = {f.name for f in dataclasses.fields(MiMoTextConfig)}
+        kw = {k: cfg[k] for k in names if k in cfg}
+        for k in ("hybrid_layer_pattern", "moe_layer_freq"):
+            if k in kw:
+                kw[k] = tuple(kw[k])
+        ep = cfg.get("expert_parallel")
+        if ep is not None:
+            held = cfg["n_routed_experts"]
+            kw["n_routed_experts"] = held * ep["size"]
+            kw["experts_held"] = (held * ep["rank"], held * (ep["rank"] + 1))
+        v = cfg.get("vision_config", {})
+        vkw = {f.name: v[f.name] for f in dataclasses.fields(VisionConfig) if f.name in v}
+        if "fullatt_block_indexes" in vkw:
+            vkw["fullatt_block_indexes"] = tuple(vkw["fullatt_block_indexes"])
+        if "in_chans" in v:
+            vkw["in_channels"] = v["in_chans"]
+        vkw["out_hidden_size"] = cfg.get("hidden_size", 4096)
+        sp = cfg.get("special_token_ids", {})
+        tokens = SpecialTokens(**{k: sp[k] for k in (f.name for f in dataclasses.fields(SpecialTokens)) if k in sp})
+        return MiMoV2Config(vision=VisionConfig(**vkw), text=MiMoTextConfig(**kw), tokens=tokens,
+                            dtype=cfg.get("torch_dtype", "bfloat16"))
+
+
 def is_kimi(cfg) -> bool:
     """Whether a model config is Kimi-VL's (MoonViT, 1D positions, MLA / MoE decoder)."""
     return isinstance(cfg, KimiVLConfig)
-
-
-def is_mla(text_cfg) -> bool:
-    """Whether a decoder config runs latent attention (and keeps a latent cache)."""
-    return isinstance(text_cfg, KimiTextConfig)

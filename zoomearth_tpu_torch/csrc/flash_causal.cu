@@ -234,7 +234,64 @@ __global__ void __launch_bounds__(FM_THREADS, 1)
   flash_mma_block<D, __nv_bfloat16, CausalPolicy<__nv_bfloat16>, DV>(pol, fm_smem, scale * LOG2E);
 }
 
+// ---------------------------------------------------------------------------
+// MiMo-V2.5's window layers (models/hybrid.py): the same 192 / 128 core under
+// BandPolicy (flash_policy.cuh), each query seeing the `window` keys up to its own
+// position and a sink logit per head. A block walks only the keys from its smallest
+// position's window edge to its largest position, so a prefill row reads ~window + bq
+// keys, not its whole prefix; the sink enters as the softmax state before the first
+// key (flash_mma.cuh), which is the published softmax with one more column.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(FM_THREADS, 1)
+    flash_causal_band_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v, const int* __restrict__ positions,
+                             const int* __restrict__ kv_len, const float* __restrict__ sink,
+                             __nv_bfloat16* __restrict__ out, int S, int T, int G, long long q_sb, long long q_ss,
+                             long long q_sh, long long k_sb, long long k_sh, long long k_st, long long v_sb,
+                             long long v_sh, long long v_st, float scale, int window) {
+  extern __shared__ __align__(16) unsigned char fm_smem[];
+  __shared__ int pos_s[FM_ROWS];
+  BandPolicy pol;
+  pol.init(blockIdx.x, q, k, v, positions, kv_len, pos_s, S, T, G, q_sb, q_ss, q_sh, k_sb, k_sh, k_st, v_sb, v_sh,
+           v_st);
+  pol.init_band(window, sink, G, T, scale);
+  const int kh = blockIdx.y, b = blockIdx.z;
+  pol.D = 128;  // the output's row width
+  pol.ksb = pol.vsb = nullptr;
+  pol.ob = out + ((long long)b * S * pol.H + (long long)kh * G) * 128;
+  pol.lseb = nullptr;
+  flash_mma_block<192, __nv_bfloat16, BandPolicy, 128>(pol, fm_smem, scale * LOG2E);
+}
+
 }  // namespace zt
+
+// K2 for MiMo-V2.5's window layers: as zt_flash_causal_mla (q (B, S, H, 192), k (B, Hkv,
+// T, 192), v (B, Hkv, T, 128), bf16, the same strides and alignment, out a contiguous
+// (B, S, H, 128) bf16 tensor), with window > 0: the query at positions[b, s] sees the
+// slots t with positions[b, s] - window < t <= positions[b, s] and t < kv_len[b]; and
+// sink, where not null, a contiguous (H,) fp32 tensor of each head's sink logit (in the
+// scaled logits' units). No lse.
+extern "C" int zt_flash_causal_band(const void* q, const void* k, const void* v, const int* positions,
+                                    const int* kv_len, const float* sink, void* out, int B, int S, int H, int Hkv,
+                                    int T, int D, int DV, int window, long long q_sb, long long q_ss, long long q_sh,
+                                    long long k_sb, long long k_sh, long long k_st, long long v_sb, long long v_sh,
+                                    long long v_st, float scale, void* stream) {
+  using namespace zt;
+  cudaGetLastError();
+  if (D != 192 || DV != 128 || window <= 0 || Hkv <= 0 || H % Hkv != 0 || FM_ROWS % (H / Hkv) != 0)
+    return ZT_UNSUPPORTED;
+  const int G = H / Hkv;
+  constexpr int smem = fm_smem_bytes<192, false, 128>();
+  static const int allowed = fm_allow_smem(flash_causal_band_kernel, smem);  // once
+  if (allowed != 0) return allowed;
+  const int bq = FM_ROWS / G;
+  const dim3 grid((S + bq - 1) / bq, Hkv, B);
+  flash_causal_band_kernel<<<grid, FM_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), positions, kv_len, sink, static_cast<__nv_bfloat16*>(out), S, T, G, q_sb,
+      q_ss, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, scale, window);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // K2 for latent attention's expanded form: q (B, S, H, 192), k (B, Hkv, T, 192) and
 // v (B, Hkv, T, 128), bf16 with unit stride on the last dim, bases and strides whole

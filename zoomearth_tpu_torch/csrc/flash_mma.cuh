@@ -46,7 +46,8 @@
 // rows this thread masks); needs_mask(aux, t0); live(half, aux, col, t);
 // lse_row(r) (where row r's log-sum-exp goes, fp32, or nullptr: the inference paths
 // ask for none); kCopiesThroughL1 (whether the tile copies are cached in L1: .ca
-// against .cg).
+// against .cg); kSink (whether each row's softmax has a sink column; then
+// sink_init(r_lo, r_hi, t4, m, l) sets the state the key loop starts from).
 #pragma once
 
 #include "common.cuh"
@@ -383,6 +384,10 @@ __device__ __forceinline__ void flash_mma_block(Policy& pol, unsigned char* smem
   float o[DT][4];
 #pragma unroll
   for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  // a sink: one more column of each row's softmax, with the row's sink logit and a zero
+  // value, taken as the state before the first key (m at the sink's raw logit, its weight
+  // 1 counted once, by the row's first of four threads)
+  if constexpr (Policy::kSink) pol.sink_init(r_lo, r_hi, t4, m, l);
 
   for (int i = 0; i < ntiles; ++i) {
     cp_async_wait<FM_STAGES - 2>();

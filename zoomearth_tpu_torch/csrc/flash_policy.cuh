@@ -1,4 +1,5 @@
-// The mask policies of K1 (segment ids) and K2 (causal with kv_len), shared by the
+// The mask policies of K1 (segment ids) and K2 (causal with kv_len; with a band and sinks
+// for MiMo-V2.5's window layers), shared by the
 // forward's tensor-core core (flash_mma.cuh: flash_segment.cu, flash_causal.cu) and
 // the backward's dq kernels (flash_bwd.cuh: flash_segment_bwd.cu,
 // flash_causal_bwd.cu), so that one mask rule serves both directions. The backward's
@@ -24,6 +25,7 @@ struct CausalPolicy {
   // K2's tile copies are cached in L1 too (cp.async.ca): one block an SM leaves L1
   // large, and on the card .ca ran 7-14 % faster there than .cg.
   static constexpr bool kCopiesThroughL1 = true;
+  static constexpr bool kSink = false;
   int lo, hi;
   int full;  // keys below it are live for every row of the block
   int klen, bq, s0, S, H, D;
@@ -123,10 +125,52 @@ struct CausalPolicy {
   }
 };
 
+// K2 for MiMo-V2.5's window layers (flash_causal.cu::zt_flash_causal_band): CausalPolicy
+// with a band, the query at position p seeing the keys t with p - window < t <= p (and
+// t < kv_len), and a sink logit per head. The key range starts at the block's smallest
+// position - window + 1, so tiles wholly below every row's window are never read, and
+// the compare runs only on tiles that reach below the largest position's window edge
+// (`band_full`) or past `full`.
+struct BandPolicy : CausalPolicy<__nv_bfloat16> {
+  static constexpr bool kSink = true;
+  int window;
+  int band_full;        // keys at or above it lie inside every row's window
+  const float* sinkb;   // sink + kv head * G: the block's heads' sink logits, or nullptr
+  float inv_scale;      // 1 / the softmax scale: a sink logit in the raw logits' units
+
+  // after init(): the band's lower edge and the sinks (sink: (H,) fp32, or nullptr)
+  __device__ __forceinline__ void init_band(int window_, const float* sink, int G, int T, float scale) {
+    window = window_;
+    int pmax = -1, pmin = T;
+    for (int i = 0; i < bq && s0 + i < S; ++i) {
+      pmax = max(pmax, pos_s[i]);
+      pmin = min(pmin, pos_s[i]);
+    }
+    lo = max(min(pmin, T - 1) - window + 1, 0);
+    band_full = pmax - window + 1;
+    sinkb = sink != nullptr ? sink + (long long)blockIdx.y * G : nullptr;
+    inv_scale = 1.f / scale;
+  }
+  __device__ __forceinline__ bool needs_mask(const int*, int t0) const {
+    return t0 + FM_BKV > full || t0 < band_full;
+  }
+  __device__ __forceinline__ bool live(int half, const int*, int, int t) const {
+    const int pos = pos_row[half];
+    return t <= pos && t < klen && t > pos - window;
+  }
+  __device__ __forceinline__ void sink_init(int r_lo, int r_hi, int t4, float (&m)[2], float (&l)[2]) const {
+    if (sinkb == nullptr) return;
+    m[0] = sinkb[r_lo / bq] * inv_scale;
+    m[1] = sinkb[r_hi / bq] * inv_scale;
+    l[0] = l[1] = t4 == 0 ? 1.f : 0.f;
+  }
+};
+
 struct SegmentPolicy {
   // K1's tile copies bypass L1 (cp.async.cg): with two blocks an SM the shared-memory
   // carve-out leaves little L1, and on the card .cg ran 15 % faster there than .ca.
   static constexpr bool kCopiesThroughL1 = false;
+  static constexpr bool kSink = false;
   int lo, hi;
   int s0, S, H, D;
   int block_id;  // the block's one segment id, or -1 when its rows span several

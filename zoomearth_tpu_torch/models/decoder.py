@@ -12,11 +12,16 @@ written in place and K3 has no backward). `decoder_forward_pair` is the co-batch
 caches; an int8 cache (`KVCache.create(dtype=torch.int8)`) sends both kernels through
 their int8 entries.
 
-Kimi-VL's decoder (config.is_mla) runs through the same functions: `_attn_layer` and
-the pair decode hand each layer to models/mla.py (latent attention over a LatentCache,
-1D rotary from `_rotary`), and `_mlp` hands its routed-expert layers
-(`cfg.is_moe_layer(i)`) to models/moe.py (both imported where they are called:
-models/mla.py imports this module).
+Every family's decoder runs through the same functions under one per-layer rule:
+`cfg.layer_attention(i)` is the config layer i's attention runs by, and its
+`attention_kind` names the module of models/ that computes it (`_attention_module`):
+None is the GQA code here (Qwen2.5, InternVL), "mla" models/mla.py (Kimi-VL's latent
+attention over a LatentCache), "hybrid" models/hybrid.py (MiMo-V2.5's window and global
+layers over a HybridCache). Such a module gives `attention`, `pair_attention` and
+`rope_cos_sin` (the rotary of its layer config, from the first position plane: those
+families' positions are sequential, the three planes equal), and is imported at the first
+call, as it imports this module. `_mlp` hands the routed-expert layers
+(`cfg.is_moe_layer(i)`) to models/moe.py.
 
 Params: embed.weight; layers[i].{input_ln,post_ln}.scale, .attn.{wq,bq,wk,bk,wv,bv,wo}
 (or the fused .attn.{wqkv,bqkv,wo}), .mlp.{wg,wu,wd} (or fused .mlp.{wgu,wd});
@@ -36,7 +41,7 @@ import torch.nn.functional as F
 from ..ops.flash_causal import flash_causal_attention
 from ..ops.flash_decode import flash_decode_attention
 from ..ops.quant import qdot
-from ..config import TextConfig, is_mla
+from ..config import TextConfig
 from .rope import apply_rotary, mrope_cos_sin
 from .vit import rms_norm
 
@@ -248,9 +253,33 @@ def _decode_write_attend(q, k, v, cache_kv, cache_len, attend_len: Optional[int]
     return flash_decode_attention(q, cache_kv[0], cache_kv[1], cache_len + 1, cache_kv[2], cache_kv[3])
 
 
+def _layer_attention(cfg, i: int):
+    """The config layer i's attention runs by: cfg.layer_attention(i), or cfg itself for
+    a config without the rule (a GQA decoder's, such as the JAX package's TextConfig the
+    parity tests hand in)."""
+    rule = getattr(cfg, "layer_attention", None)
+    return cfg if rule is None else rule(i)
+
+
+_ATTENTION_MODULES: dict = {}  # attention_kind -> module, filled at the first call (they import this one)
+
+
+def _attention_module(acfg):
+    """The module that computes attention of a layer config's kind, or None for the GQA
+    code here (see the module docstring)."""
+    kind = getattr(acfg, "attention_kind", None)
+    if kind is None:
+        return None
+    if not _ATTENTION_MODULES:
+        from . import hybrid, mla
+
+        _ATTENTION_MODULES.update(mla=mla, hybrid=hybrid)
+    return _ATTENTION_MODULES[kind]
+
+
 def _attn_layer(
     p,
-    cfg: TextConfig,
+    cfg: TextConfig,  # the layer's attention config: cfg.layer_attention(i) of the decoder's
     x,  # (B, S, E)
     cos,
     sin,  # (B, S, head_dim)
@@ -263,13 +292,12 @@ def _attn_layer(
     index=None,  # write_index(write_pos, T), shared by every layer of the forward
     tp=None,  # parallel.collectives.TensorParallel at this layer's attn (no-cache path only)
 ):
-    if is_mla(cfg):
+    module = _attention_module(cfg)
+    if module is not None:
         if tp is not None:
-            raise NotImplementedError("decoder: no tensor-parallel forward through latent attention")
-        from . import mla
-
-        return mla.attention(p, cfg, x, cos, sin, positions, attn_valid, cache_kv, cache_len, write_pos,
-                             attend_len, index)
+            raise NotImplementedError(f"decoder: no tensor-parallel forward through {module.__name__}'s attention")
+        return module.attention(p, cfg, x, cos, sin, positions, attn_valid, cache_kv, cache_len, write_pos,
+                                attend_len, index)
     B, S, _ = x.shape
     split = False
     if tp is not None:
@@ -304,9 +332,9 @@ def _separate_layout(tp, p, fused: str) -> None:
 
 def _mlp(p, x, tp=None, cfg=None, i: int = 0):
     """Layer i's MLP: SwiGLU; with `tp` on this rank's slice of the width when the
-    block's matrices are split (then all-reduced over tensor). A latent-attention
-    config's routed-expert layers (cfg.is_moe_layer(i)) go to models.moe."""
-    if is_mla(cfg) and cfg.is_moe_layer(i):
+    block's matrices are split (then all-reduced over tensor). A config's routed-expert
+    layers (cfg.is_moe_layer(i)) go to models.moe."""
+    if cfg is not None and getattr(cfg, "is_moe_layer", lambda i: False)(i):
         if tp is not None:
             raise NotImplementedError("decoder: no tensor-parallel forward through routed experts")
         from .moe import moe_forward
@@ -326,15 +354,27 @@ def _mlp(p, x, tp=None, cfg=None, i: int = 0):
     return tp.g(out) if split else out
 
 
-def _rotary(cfg, position_ids):
-    """cos/sin of a forward: M-RoPE over the head dim, or for latent attention the 1D
-    rotary over its rope dims from the first position plane (Kimi-VL's positions are
-    sequential; the three planes are equal)."""
-    if is_mla(cfg):
-        from .mla import rope_cos_sin
+def _rotary(acfg, position_ids):
+    """cos/sin of a layer config in a forward: M-RoPE over the head dim for the GQA code
+    here, else its module's 1D rotary from the first position plane."""
+    module = _attention_module(acfg)
+    if module is not None:
+        return module.rope_cos_sin(position_ids[0], acfg)
+    return mrope_cos_sin(position_ids, acfg.head_dim, acfg.mrope_section, acfg.rope_theta)
 
-        return rope_cos_sin(position_ids[0], cfg)
-    return mrope_cos_sin(position_ids, cfg.head_dim, cfg.mrope_section, cfg.rope_theta)
+
+class _Rotaries:
+    """The cos/sin of each distinct layer config of one forward, made at first use."""
+
+    def __init__(self, position_ids):
+        self.position_ids = position_ids
+        self.made = {}
+
+    def __call__(self, acfg):
+        key = id(acfg)
+        if key not in self.made:
+            self.made[key] = _rotary(acfg, self.position_ids)
+        return self.made[key]
 
 
 def decoder_forward(
@@ -372,12 +412,14 @@ def decoder_forward(
         attn_valid = torch.ones((B, S), dtype=torch.bool, device=dev)
     if cache is not None and write_pos is not None and S > 1 and index is None:
         index = write_index(write_pos, cache.max_len)  # once, for every layer's k, v and scales
-    cos, sin = _rotary(cfg, position_ids)
+    rotary = _Rotaries(position_ids)
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):
+        acfg = _layer_attention(cfg, i)
+        cos, sin = rotary(acfg)
         h = rms_norm(x, layer["input_ln"]["scale"], cfg.rms_norm_eps)
         attn_out = _attn_layer(
-            layer["attn"], cfg, h, cos, sin, attn_positions, attn_valid,
+            layer["attn"], acfg, h, cos, sin, attn_positions, attn_valid,
             cache.layer(i) if cache is not None else None,
             cache.length if cache is not None else None,
             write_pos=write_pos, attend_len=attend_len, index=index,
@@ -413,16 +455,17 @@ def decoder_forward_pair(
     Ba = cache_a.k[0].shape[0]
     B, S, _ = inputs_embeds.shape
     assert S == 1, "pair decode is single-token only"
-    cos, sin = _rotary(cfg, position_ids)
+    rotary = _Rotaries(position_ids)
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):
+        acfg = _layer_attention(cfg, i)
+        cos, sin = rotary(acfg)
         h = rms_norm(x, layer["input_ln"]["scale"], cfg.rms_norm_eps)
-        if is_mla(cfg):
-            from . import mla
-
-            x = x + mla.pair_attention(layer["attn"], cfg, h, cos, sin, [
-                (slice(0, Ba), cache_a.k[i], cache_a.length, attend_a),
-                (slice(Ba, B), cache_b.k[i], cache_b.length, attend_b)])
+        module = _attention_module(acfg)
+        if module is not None:
+            x = x + module.pair_attention(layer["attn"], acfg, h, cos, sin, [
+                (slice(0, Ba), cache_a.layer(i), cache_a.length, attend_a),
+                (slice(Ba, B), cache_b.layer(i), cache_b.length, attend_b)])
         else:
             q, k, v = _project_qkv(layer["attn"], cfg, h, cos, sin)
             out = torch.cat([

@@ -55,6 +55,8 @@ class LatentCache(KVCache):
     semantics, so the Generator's prefills, pair decode, attend buckets and captured
     steps use it as they use a KV cache."""
 
+    description = "a latent cache (Kimi-VL)"
+
     @staticmethod
     def create(cfg: KimiTextConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cpu") -> "LatentCache":
         if dtype == torch.int8:
@@ -172,10 +174,10 @@ def attention(p, cfg: KimiTextConfig, x, cos, sin, positions, attn_valid, cache_
 
 def pair_attention(p, cfg: KimiTextConfig, x, cos, sin, groups: List):
     """Pair decode: the projections on the concatenated batch, then the absorbed form per
-    row group against its own cache and attend span. groups: (rows, cache_lat,
-    cache_len, attend_len) per group."""
+    row group against its own cache and attend span. groups: (rows, cache layer
+    (latents, ...), cache_len, attend_len) per group."""
     B, S, _ = x.shape
     q_n, q_r, latent = project(p, cfg, x, cos, sin)
-    out = torch.cat([decode(p, cfg, q_n[rows], q_r[rows], latent[rows], lat, length, attend)
+    out = torch.cat([decode(p, cfg, q_n[rows], q_r[rows], latent[rows], lat[0], length, attend)
                      for rows, lat, length, attend in groups])
     return qdot(out, p["wo"])

@@ -6,9 +6,11 @@ what bounds it and what its design does about it). It has two variants, chosen
 inside the C entry point from the dtypes alone (`zt_flash_causal_variant`): "mma", the
 tensor-core flash core (csrc/flash_mma.cuh: wgmma at D = 128, mma.sync at the smaller
 head dims) with 128 (head, position) rows a block, for bf16 queries against bf16 or
-int8 K/V (the model's path), and for latent attention's expanded form at key width
-192 and value width 128 (`zt_flash_causal_mla`: v narrower than q and k, bf16, no
-lse); and "fma", fp32 arithmetic with 64 rows a block, for fp32 queries, which bf16
+int8 K/V (the model's path), and for latent attention's expanded form and MiMo-V2.5's
+global layers at key width 192 and value width 128 (`zt_flash_causal_mla`: v narrower
+than q and k, bf16, no lse), and with a band and sinks for MiMo-V2.5's window layers
+(`zt_flash_causal_band`, the same widths: `window` keys up to each query's position, a
+sink logit per head as one more softmax column of value 0); and "fma", fp32 arithmetic with 64 rows a block, for fp32 queries, which bf16
 products would cost their precision. Here:
 
 - `flash_causal_attention` dispatches by device: CPU -> plain version, CUDA ->
@@ -24,7 +26,8 @@ products would cost their precision. Here:
   and dv sum over the G query heads of a kv head and come back in k's and v's own
   layout. A row with no live key gets zero gradients.
 - `flash_causal_attention_plain` / `flash_causal_attention_bwd_plain` are the plain
-  torch versions of both directions, the forward including the int8 K/V algebra.
+  torch versions of both directions, the forward including the int8 K/V algebra and
+  the band and sinks (`band_sink_attention_plain`).
 - `block_key_bounds` is what each block of the kernel works out for itself: where
   its key loop ends and below which key no compare is needed; the backward's dk/dv
   kernel skips a tile of query rows by the same bound.
@@ -124,13 +127,38 @@ def _causal_logits(q, k, positions, kv_len):
     return logits.masked_fill(~_causal_mask(positions, kv_len, T)[:, None, None], float("-inf"))
 
 
-def flash_causal_attention_plain(q, k, v, positions, kv_len, ks=None, vs=None, return_lse: bool = False):
+def band_sink_attention_plain(q, k, v, positions, kv_len, window: int = 0, sink=None):
+    """Plain torch version of the band and the sinks, in fp32, cast to q.dtype: the
+    query at positions[b, s] sees kv slots t <= positions[b, s], t < kv_len[b] and, with
+    window > 0, t > positions[b, s] - window; sink (H,) adds one column per head with
+    that logit (scaled units) and value 0. q (B, S, H, D), k (B, Hkv, T, D), v (B, Hkv,
+    T, DV) -> (B, S, H, DV); a row with no live slot gives 0."""
+    B, S, H, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G = H // Hkv
+    logits = torch.einsum("bskgd,bktd->bkgst", q.float().reshape(B, S, Hkv, G, D), k.float()) * D**-0.5
+    live = _causal_mask(positions, kv_len, T)
+    if window > 0:
+        live = live & (torch.arange(T, device=q.device)[None, None, :] > positions[:, :, None] - window)
+    logits = logits.masked_fill(~live[:, None, None], NEG_INF)
+    if sink is not None:
+        col = sink.float().reshape(1, Hkv, G, 1, 1).expand(B, Hkv, G, S, 1)
+        logits = torch.cat([logits, col], dim=-1)
+    p = torch.softmax(logits, dim=-1)[..., :T] * live[:, None, None]
+    out = torch.einsum("bkgst,bktd->bskgd", p, v.float())
+    return out.reshape(B, S, H, v.shape[3]).to(q.dtype)
+
+
+def flash_causal_attention_plain(q, k, v, positions, kv_len, ks=None, vs=None, return_lse: bool = False,
+                                 window: int = 0, sink=None):
     """Plain torch version in fp32, cast to q.dtype. The query at positions[b, s]
     sees kv slots t <= positions[b, s] and t < kv_len[b]. With ks/vs (B, Hkv, T), k/v
     hold int8 values: ks scales the logit columns and vs scales p before p@v. With
     return_lse (bf16 or fp32 K/V) also each row's log-sum-exp of the scaled logits,
     (B, S, H) fp32, NEG_INF for a row with no live key (whose output here is the
-    mean of v, where the kernel gives 0)."""
+    mean of v, where the kernel gives 0). With window > 0 or a sink: band_sink_attention_plain."""
+    if window > 0 or sink is not None:
+        return band_sink_attention_plain(q, k, v, positions, kv_len, window, sink)
     B, S, H, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     slot = torch.arange(T, device=q.device)
@@ -180,17 +208,21 @@ def flash_causal_attention_bwd_plain(q, k, v, positions, kv_len, out, dout, lse)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def causal_attention_cuda(q, k, v, positions, kv_len, ks=None, vs=None, return_lse: bool = False):
+def causal_attention_cuda(q, k, v, positions, kv_len, ks=None, vs=None, return_lse: bool = False,
+                          window: int = 0, sink=None):
     """Launch K2. q (B, S, H, D) fp32/bf16; k/v (B, Hkv, T, D) of q's dtype or int8
     (then ks/vs are required); all with unit stride on D, other strides free, except
     that the tensor-core variant (bf16 q) needs bases and strides that are whole
     16-byte multiples and raises ValueError otherwise. With return_lse also returns
     the (B, S, H) fp32 log-sum-exp of each row's scaled logits (NEG_INF for a row with
-    no live key). Nothing here waits for the device."""
+    no live key). window > 0 or a sink (H,) fp32 takes the band form at key width 192 and
+    value width 128 (`_causal_band_cuda`). Nothing here waits for the device."""
     name = "flash_causal_attention"
     _cuda.require_cuda(name, q, k, v, positions, kv_len, ks, vs)
     B, S, H, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
+    if window > 0 or sink is not None:
+        return _causal_band_cuda(name, q, k, v, positions, kv_len, window, sink)
     if v.shape[3] != k.shape[3] and not return_lse and ks is None:
         return _causal_mla_cuda(name, q, k, v, positions, kv_len)
     if v.shape != k.shape or v.dtype != k.dtype or k.shape[0] != B or k.shape[3] != D:
@@ -246,6 +278,36 @@ def _causal_mla_cuda(name, q, k, v, positions, kv_len):
         _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(positions), _cuda.ptr(kv_len), _cuda.ptr(out),
         B, S, H, Hkv, T, D, DV, q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), D**-0.5, _cuda.stream(q.device),
+    )
+    _cuda.check(rc, name)
+    _cuda.count_launch(causal_attention_cuda, "mma")
+    return out
+
+
+def _causal_band_cuda(name, q, k, v, positions, kv_len, window: int, sink):
+    """K2 with a band and sinks at key width 192 and value width 128 (MiMo-V2.5's window
+    layers): bf16 q/k/v, window > 0, sink a (H,) fp32 tensor or None, no lse. Counted as
+    a K2 launch of the "mma" variant."""
+    B, S, H, D = q.shape
+    Hkv, T, DV = k.shape[1], k.shape[2], v.shape[3]
+    if (D, DV) != MLA_WIDTHS or k.shape[3] != D or v.shape[:3] != k.shape[:3] or k.shape[0] != B or window <= 0:
+        raise ValueError(f"{name}: the band runs at widths {MLA_WIDTHS} with window > 0 (q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, window {window})")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)) or H % Hkv or ROWS % (H // Hkv):
+        raise ValueError(f"{name}: the band takes bf16 q/k/v and H / Hkv dividing {ROWS}")
+    if sink is not None:
+        _cuda.require_cuda(name, q, sink)
+        if sink.shape != (H,) or sink.dtype != torch.float32 or not sink.is_contiguous():
+            raise ValueError(f"{name}: sink must be a contiguous ({H},) fp32 tensor (got {tuple(sink.shape)}, "
+                             f"{sink.dtype})")
+    _cuda.require_aligned16(name, q, k, v)
+    out = torch.empty((B, S, H, DV), dtype=q.dtype, device=q.device)
+    positions = positions.to(torch.int32).contiguous()
+    kv_len = kv_len.to(torch.int32).contiguous()
+    rc = _cuda.lib().zt_flash_causal_band(
+        _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(positions), _cuda.ptr(kv_len), _cuda.ptr(sink),
+        _cuda.ptr(out), B, S, H, Hkv, T, D, DV, int(window), q.stride(0), q.stride(1), q.stride(2), k.stride(0),
+        k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2), D**-0.5, _cuda.stream(q.device),
     )
     _cuda.check(rc, name)
     _cuda.count_launch(causal_attention_cuda, "mma")
@@ -345,14 +407,20 @@ class CausalAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def flash_causal_attention(q, k, v, positions, kv_len, ks=None, vs=None):
+def flash_causal_attention(q, k, v, positions, kv_len, ks=None, vs=None, window: int = 0, sink=None):
     """Causal GQA attention over a kv-head-major (B, Hkv, T, D) cache; exact.
-    positions (B, S) query slots, kv_len (B,) live slots. Returns (B, S, H, D).
-    Under autograd with an input that requires grad it is differentiable
-    (CausalAttention; bf16 or fp32 K/V only, int8 raises)."""
+    positions (B, S) query slots, kv_len (B,) live slots. Returns (B, S, H, DV).
+    window > 0: each query sees only the `window` slots up to its position; sink (H,):
+    a sink logit per head (both inference only). Under autograd with an input that
+    requires grad it is differentiable (CausalAttention; bf16 or fp32 K/V only, int8
+    raises)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if window > 0 or sink is not None:
+            raise NotImplementedError("flash_causal_attention: no backward for the band or the sinks")
         _require_trainable("flash_causal_attention", q, k, v, ks, vs)
         return CausalAttention.apply(q, k, v, positions, kv_len)
     if q.device.type == "cpu":
-        return flash_causal_attention_plain(q, k, v, positions, kv_len, ks, vs)
+        return flash_causal_attention_plain(q, k, v, positions, kv_len, ks, vs, window=window, sink=sink)
+    if window > 0 or sink is not None:
+        return causal_attention_cuda(q, k, v, positions, kv_len, window=window, sink=sink)
     return causal_attention_cuda(q, k, v, positions, kv_len, ks, vs)

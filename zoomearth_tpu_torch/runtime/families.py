@@ -7,10 +7,13 @@ hook in one place and a new family adds one entry here.
 - Kimi-VL (KimiVLConfig): plain sequential positions, image tokens included (the three
   position planes are equal), MoonViT's segment and position-grid metadata, the
   LatentCache (models/mla.py), and Kimi-VL's chat template.
+- MiMo-V2.5 (MiMoV2Config): Kimi-VL's sequential positions, the Qwen ViT's window
+  metadata, the HybridCache (models/hybrid.py: each layer's own KV heads and widths), and
+  the Qwen chat template (ChatML's markers).
 
-The model code keeps its own rule for its layers (models/vlm.py runs MoonViT for a
-KimiVLConfig; models/decoder.py runs latent attention and routed experts for a
-KimiTextConfig).
+The model code keeps its own rule for its layers: models/vlm.py runs MoonViT for a
+KimiVLConfig; models/decoder.py asks the text config for each layer's attention
+(`layer_attention(i)`) and MLP (`is_moe_layer(i)`).
 """
 
 from __future__ import annotations
@@ -21,9 +24,10 @@ from typing import Callable
 import numpy as np
 
 from ..agent import prompts as PT
-from ..config import is_kimi
+from ..config import KimiVLConfig, MiMoV2Config
 from ..models import moonvit, vit
 from ..models.decoder import KVCache
+from ..models.hybrid import HybridCache
 from ..models.mla import LatentCache
 from ..models.rope import mrope_chunk_position_ids, mrope_position_ids_batch
 
@@ -86,6 +90,12 @@ KIMI_VL = Family(_sequential_positions, _sequential_chunk_positions,
                  LatentCache, lambda: (PT.kimi_stage1_prompt, PT.KIMI_VISION_TOKENS))
 
 
+MIMO_V2 = Family(_sequential_positions, _sequential_chunk_positions, _qwen_meta, vit.meta_to_device, HybridCache,
+                 lambda: (PT.stage1_prompt, PT.VISION_TOKENS))
+FAMILIES = {KimiVLConfig: KIMI_VL, MiMoV2Config: MIMO_V2}
+
+
 def family(cfg) -> Family:
-    """The family of a model config (a VLMConfig, InternVLVLMConfig or KimiVLConfig)."""
-    return KIMI_VL if is_kimi(cfg) else QWEN_VL
+    """The family of a model config: Kimi-VL's or MiMo-V2.5's by its config class, Qwen's
+    for every other (a VLMConfig, InternVLVLMConfig)."""
+    return FAMILIES.get(type(cfg), QWEN_VL)

@@ -64,13 +64,13 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import VLMConfig, is_kimi
+from ..config import VLMConfig
 from ..models.decoder import KVCache, write_index
 from ..models.params import torch_dtype, tree_leaves
 from ..models.rope import mrope_chunk_position_ids, mrope_position_ids
 from ..models.vit import meta_to_device, vision_metadata
 from ..models.vlm import compute_vision_embeds, vlm_forward
-from ..runtime.families import meta_dict
+from ..runtime.families import family, meta_dict
 from ..runtime.generate import DEFAULT_LENGTH_BUCKETS, HostCopy, bucket
 from ..runtime.graphs import StepGraphs
 
@@ -216,9 +216,10 @@ class ServingEngine:
         patch_buckets: Sequence[int] = ENGINE_PATCH_BUCKETS,
         seed: int = 0,
     ):
-        if is_kimi(cfg):
-            raise NotImplementedError("ServingEngine: no slot pool for a latent cache (Kimi-VL); run it through the "
-                                      "Generator (run_inference, run_episodes_pipelined)")
+        cache_kind = family(cfg).cache
+        if cache_kind is not KVCache:
+            raise NotImplementedError(f"ServingEngine: no slot pool for {cache_kind.description}; run it through "
+                                      f"the Generator (run_inference, run_episodes_pipelined)")
         self.device = params["text"]["embed"]["weight"].device
         # the decode chunks' captured graphs by key (public: their counts are read), the
         # static buffers they read, and the compact chunks' staging rows by row bucket
